@@ -1,0 +1,83 @@
+"""Weights across the two frameworks.
+
+The JAX package's parameters are a flat ``{layer: {var: array}}`` tree
+(``ts.params`` of a trainer, as numpy arrays).  The port keeps the same
+scope names and layouts (``rcgan_tpu_torch/core/module.py``), so moving a
+tree either way is a copy by name: a round trip is bit-exact.
+
+On disk a tree is one ``.npz`` whose keys are ``"<layer>/<var>"``
+(``G.Block.1.Conv1/Filters``); ``scripts/export_generator_npz.py`` writes
+the generator's from a JAX checkpoint as ``generator.npz``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from rcgan_tpu_torch.core.module import param_tree, scoped_modules, state_tree
+from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
+
+NpTree = Dict[str, Dict[str, np.ndarray]]
+
+
+def load_tree(module: nn.Module, params: Mapping, state: Optional[Mapping] = None,
+              prefix: str = "G.") -> nn.Module:
+    """Copy ``params`` (and ``state``) into ``module``'s parameters (and
+    buffers) by scope and var name.  Layers outside ``prefix`` are ignored
+    (a trainer's tree also holds D and C); within it, every layer and var
+    must match the module's exactly, in name and shape."""
+    state = {} if state is None else state
+    mods = scoped_modules(module)
+    for kind, tree, own in (("param", params, param_tree(module)),
+                            ("state", state, state_tree(module))):
+        theirs = {k for k in tree if k.startswith(prefix)}
+        mine = {k for k in own if k.startswith(prefix)}
+        if theirs != mine:
+            raise KeyError(f"{kind} layers differ: missing {sorted(mine - theirs)}, "
+                           f"unexpected {sorted(theirs - mine)}")
+        for layer in sorted(mine):
+            if set(tree[layer]) != set(own[layer]):
+                raise KeyError(f"{kind} vars of {layer} differ: {sorted(tree[layer])} vs "
+                               f"{sorted(own[layer])}")
+            for var, dst in own[layer].items():
+                src = torch.from_numpy(np.array(tree[layer][var]))
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"{layer}/{var}: shape {tuple(src.shape)}, "
+                                     f"module wants {tuple(dst.shape)}")
+                with torch.no_grad():
+                    getattr(mods[layer], var).copy_(src.to(dst.dtype))
+    return module
+
+
+def generator_from_jax(params: Mapping, cfg: ResnetGANConfig = ResnetGANConfig(),
+                       device="cpu", state: Optional[Mapping] = None) -> Generator:
+    """The port's generator holding the JAX tree's ``G.*`` weights.  The
+    generator has no state (cond-BN keeps no running stats); ``state`` is
+    taken so that the discriminator slice can reuse this entry point."""
+    return load_tree(Generator(cfg, device=device), params, state)
+
+
+def to_jax_tree(module: nn.Module) -> NpTree:
+    """The module's parameters as a JAX-layout numpy tree."""
+    return {layer: {var: t.cpu().numpy().copy() for var, t in d.items()}
+            for layer, d in param_tree(module).items()}
+
+
+def save_npz(path: str, tree: Mapping) -> None:
+    """Write a ``{layer: {var: array}}`` tree as ``layer/var`` keys."""
+    flat = {f"{layer}/{var}": np.asarray(a) for layer, d in tree.items() for var, a in d.items()}
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_npz(path: str) -> NpTree:
+    tree: NpTree = {}
+    with np.load(path) as data:
+        for key in data.files:
+            layer, var = key.rsplit("/", 1)
+            tree.setdefault(layer, {})[var] = data[key]
+    return tree

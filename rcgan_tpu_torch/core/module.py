@@ -1,0 +1,97 @@
+"""Parameter naming for the port, the counterpart of ``rcgan_tpu/core/module.py``.
+
+The JAX package keeps parameters in a flat ``{layer: {var: array}}`` tree
+whose layer keys are the reference's variable scopes (``G.Block.1.Conv1``)
+and whose var keys are the reference's variable names (``Filters``).  The
+port builds ordinary ``nn.Module`` hierarchies instead, and keeps those
+names as follows:
+
+- every layer that owns parameters is a :class:`Scoped` module whose
+  ``scope`` attribute is the JAX layer key (``"G.Block.1.Conv1"``);
+- its parameters are registered under the JAX var names (``Filters``,
+  ``Biases``, ``W``, ``b``, ``scale``, ``offset``), so
+  ``module.Filters`` is ``params["G.Block.1.Conv1"]["Filters"]``;
+- the attribute path of the layer in the hierarchy
+  (``block1.conv1``) is free to follow PyTorch's naming, because
+  ``nn.Module`` attribute names cannot contain ``.``; :func:`param_tree`
+  walks the hierarchy and keys the tree by ``scope``.
+
+Layouts are the JAX package's (HWIO filters, ``W [in, out]``), so a tree
+maps onto the modules by name alone, without transposes.
+
+Initial values come from a ``torch.Generator`` seeded per variable from
+(seed, scope/var), as ``Ctx.name_rng`` keys them in JAX: a layer's values do
+not depend on the order in which layers are built.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+from torch import nn
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _stable_hash(s: str) -> int:
+    """Deterministic 31-bit string hash (Python's hash() is salted)."""
+    h = 0
+    for ch in s.encode():
+        h = (h * 31 + ch) & 0x7FFFFFFF
+    return h
+
+
+def name_generator(seed: int, layer: str, name: str) -> torch.Generator:
+    """CPU generator for one variable, keyed like JAX's ``Ctx.name_rng``."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(((seed & 0xFFFFFFFF) << 31) | _stable_hash(f"{layer}/{name}"))
+    return gen
+
+
+class Scoped(nn.Module):
+    """A layer whose parameters carry a JAX scope name (see module doc)."""
+
+    def __init__(self, scope: str, seed: int = 0):
+        super().__init__()
+        self.scope = scope
+        self._seed = seed
+
+    def add_param(self, name: str, shape, init_fn: Callable) -> nn.Parameter:
+        value = init_fn(name_generator(self._seed, self.scope, name), tuple(shape), torch.float32)
+        p = nn.Parameter(value)
+        self.register_parameter(name, p)
+        return p
+
+
+def scoped_modules(module: nn.Module) -> Dict[str, Scoped]:
+    out: Dict[str, Scoped] = {}
+    for m in module.modules():
+        if isinstance(m, Scoped):
+            if m.scope in out:
+                raise ValueError(f"duplicate scope {m.scope!r}")
+            out[m.scope] = m
+    return out
+
+
+def param_tree(module: nn.Module) -> Params:
+    """Flat ``{scope: {var: tensor}}`` view of a module's parameters."""
+    return {
+        scope: {name: p.detach() for name, p in m.named_parameters(recurse=False)}
+        for scope, m in scoped_modules(module).items()
+    }
+
+
+def state_tree(module: nn.Module) -> Params:
+    """Flat ``{scope: {var: tensor}}`` view of a module's buffers (the JAX
+    package's non-trainable state: SN ``u`` vectors, BN moving stats)."""
+    tree = {
+        scope: {name: b.detach() for name, b in m.named_buffers(recurse=False)}
+        for scope, m in scoped_modules(module).items()
+    }
+    return {k: v for k, v in tree.items() if v}
+
+
+def count_params(params) -> int:
+    return sum(int(x.numel() if hasattr(x, "numel") else x.size)
+               for d in params.values() for x in d.values())
