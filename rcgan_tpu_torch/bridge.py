@@ -1,9 +1,12 @@
 """Weights across the two frameworks.
 
 The JAX package's parameters are a flat ``{layer: {var: array}}`` tree
-(``ts.params`` of a trainer, as numpy arrays).  The port keeps the same
-scope names and layouts (``rcgan_tpu_torch/core/module.py``), so moving a
-tree either way is a copy by name: a round trip is bit-exact.
+(``ts.params`` of a trainer, as numpy arrays), and its non-trainable state
+(the spectral-norm ``u`` vectors, ``ts.state``) a second tree of the same
+form.  The port keeps the same scope names and layouts
+(``rcgan_tpu_torch/core/module.py``), parameters as ``nn.Parameter``
+objects and state as buffers, so moving both trees either way is a copy by
+name: a round trip is bit-exact.
 
 On disk a tree is one ``.npz`` whose keys are ``"<layer>/<var>"``
 (``G.Block.1.Conv1/Filters``); ``scripts/export_generator_npz.py`` writes
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
 from rcgan_tpu_torch.core.module import param_tree, scoped_modules, state_tree
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
 
@@ -29,7 +33,9 @@ def load_tree(module: nn.Module, params: Mapping, state: Optional[Mapping] = Non
     """Copy ``params`` (and ``state``) into ``module``'s parameters (and
     buffers) by scope and var name.  Layers outside ``prefix`` are ignored
     (a trainer's tree also holds D and C); within it, every layer and var
-    must match the module's exactly, in name and shape."""
+    must match the module's exactly, in name and shape.  Parameters are
+    copied in place; state buffers are rebound to new tensors, so a view
+    taken before (``state_tree``) keeps its values."""
     state = {} if state is None else state
     mods = scoped_modules(module)
     for kind, tree, own in (("param", params, param_tree(module)),
@@ -48,23 +54,40 @@ def load_tree(module: nn.Module, params: Mapping, state: Optional[Mapping] = Non
                 if tuple(src.shape) != tuple(dst.shape):
                     raise ValueError(f"{layer}/{var}: shape {tuple(src.shape)}, "
                                      f"module wants {tuple(dst.shape)}")
-                with torch.no_grad():
-                    getattr(mods[layer], var).copy_(src.to(dst.dtype))
+                if kind == "state":  # rebound, as the SN update writes state
+                    setattr(mods[layer], var, src.to(dst.device, dst.dtype).clone())
+                else:
+                    with torch.no_grad():
+                        getattr(mods[layer], var).copy_(src.to(dst.dtype))
     return module
 
 
 def generator_from_jax(params: Mapping, cfg: ResnetGANConfig = ResnetGANConfig(),
                        device="cpu", state: Optional[Mapping] = None) -> Generator:
     """The port's generator holding the JAX tree's ``G.*`` weights.  The
-    generator has no state (cond-BN keeps no running stats); ``state`` is
-    taken so that the discriminator slice can reuse this entry point."""
+    generator has no state (cond-BN keeps no running stats), so ``state``
+    may hold no ``G.*`` layer."""
     return load_tree(Generator(cfg, device=device), params, state)
 
 
-def to_jax_tree(module: nn.Module) -> NpTree:
-    """The module's parameters as a JAX-layout numpy tree."""
+def gan_from_jax(params: Mapping, state: Optional[Mapping],
+                 cfg: ResnetGANConfig = ResnetGANConfig(),
+                 acfg: CifarAlgoConfig = CifarAlgoConfig(), device="cpu") -> CifarGAN:
+    """The port's :class:`CifarGAN` holding a whole trainer tree: every
+    ``G.*``, ``D.*`` and ``confusion_logits`` parameter and every SN ``u``.
+    The trees must match the model that ``cfg``/``acfg`` build exactly."""
+    return load_tree(CifarGAN(cfg, acfg, device=device), params, state, prefix="")
+
+
+def _np_tree(tree) -> NpTree:
     return {layer: {var: t.cpu().numpy().copy() for var, t in d.items()}
-            for layer, d in param_tree(module).items()}
+            for layer, d in tree.items()}
+
+
+def to_jax_tree(module: nn.Module):
+    """``(params, state)``: the module's parameters and buffers as JAX-layout
+    numpy trees (``state`` is empty for a module without SN)."""
+    return _np_tree(param_tree(module)), _np_tree(state_tree(module))
 
 
 def save_npz(path: str, tree: Mapping) -> None:

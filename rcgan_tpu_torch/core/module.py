@@ -22,11 +22,23 @@ maps onto the modules by name alone, without transposes.
 Initial values come from a ``torch.Generator`` seeded per variable from
 (seed, scope/var), as ``Ctx.name_rng`` keys them in JAX: a layer's values do
 not depend on the order in which layers are built.
+
+Two pieces of ``Ctx`` live on the layers instead of a context object:
+
+- non-trainable state (the spectral-norm ``u``) is a float32 buffer on the
+  layer that owns the weight (:meth:`Scoped.add_stat`), so
+  :func:`state_tree` is JAX's state tree; ``Scoped.update_sn`` (default
+  True, as ``Ctx``) gates its writes and :func:`sn_updates` flips it for a
+  whole sub-hierarchy, as JAX's ``sn_updates(ctx, flag)`` does;
+- ``Scoped.compute_dtype`` is ``Ctx.compute_dtype``: the dtype a layer casts
+  ``x`` and its weight to at a conv or matmul, set for a whole hierarchy by
+  :func:`set_compute_dtype`.  Parameters stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Iterator
 
 import torch
 from torch import nn
@@ -56,12 +68,47 @@ class Scoped(nn.Module):
         super().__init__()
         self.scope = scope
         self._seed = seed
+        self.update_sn = True
+        self.compute_dtype = torch.float32
 
     def add_param(self, name: str, shape, init_fn: Callable) -> nn.Parameter:
         value = init_fn(name_generator(self._seed, self.scope, name), tuple(shape), torch.float32)
         p = nn.Parameter(value)
         self.register_parameter(name, p)
         return p
+
+    def add_stat(self, name: str, shape, init_fn: Callable) -> torch.Tensor:
+        """Non-trainable float32 state (JAX ``Ctx.stat``), a buffer named
+        ``name``.  Written by rebinding the attribute to a new tensor, never
+        in place, so a tensor that autograd saved is never modified."""
+        value = init_fn(name_generator(self._seed, self.scope, name), tuple(shape), torch.float32)
+        self.register_buffer(name, value)
+        return value
+
+
+@contextlib.contextmanager
+def sn_updates(module: nn.Module, flag: bool) -> Iterator[None]:
+    """Set ``update_sn`` on every layer under ``module`` for the block, then
+    restore each layer's own value (JAX ``core/module.py::sn_updates``)."""
+    layers = [m for m in module.modules() if isinstance(m, Scoped)]
+    old = [m.update_sn for m in layers]
+    for m in layers:
+        m.update_sn = flag
+    try:
+        yield
+    finally:
+        for m, o in zip(layers, old):
+            m.update_sn = o
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set ``compute_dtype`` on every layer under ``module``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16; got {dtype}")
+    for m in module.modules():
+        if isinstance(m, Scoped):
+            m.compute_dtype = dtype
+    return module
 
 
 def scoped_modules(module: nn.Module) -> Dict[str, Scoped]:

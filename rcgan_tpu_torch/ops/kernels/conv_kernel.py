@@ -12,8 +12,10 @@ width) and padded its input with ``jnp.pad``.  The port masks ragged C and
 O and handles the halo with bounds checks, so every 3x3/s1/SAME call is in
 its class, the generator's 256 -> 3 output conv included.
 
-Autograd: none yet.  Serving runs under ``torch.inference_mode``; the
-training slice adds a ``torch.autograd.Function`` whose backward is the
+Autograd: none yet.  On a CUDA tensor the wrapper refuses grad mode with an
+input that requires grad (``runtime.refuse_grad``) rather than return a
+result cut off from the graph; serving and the discriminator forward run
+under ``torch.inference_mode`` or ``torch.no_grad``.  The training slice adds a ``torch.autograd.Function`` whose backward is the
 input-grad conv (flipped, io-transposed filter) and the weight-grad
 reduction, as the TPU kernel's ``_bwd`` is.
 """
@@ -57,6 +59,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     tensors launch the CUDA kernel on the current stream (or raise)."""
     if not runtime.on_cuda(x, w):
         return conv3x3_plain(x, w)
+    runtime.refuse_grad("conv3x3", x, w)
     _check(x, w)
     b, h, wd, c = x.shape
     o = w.shape[3]

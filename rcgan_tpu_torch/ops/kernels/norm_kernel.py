@@ -25,8 +25,10 @@ and does no tensor-core work.  The design moves no byte it need not:
 The TPU's VMEM tiling rules (``_tiles``, ``_MIN_FUSED_BYTES``) have no
 counterpart here: every generator map goes through the kernel.
 
-Autograd: none yet.  Serving runs under ``torch.inference_mode``; the
-training slice adds a ``torch.autograd.Function`` with the standard BN
+Autograd: none yet.  On a CUDA tensor the wrapper refuses grad mode with an
+input that requires grad (``runtime.refuse_grad``) rather than return a
+result cut off from the graph; serving and the discriminator forward run
+under ``torch.inference_mode`` or ``torch.no_grad``.  The training slice adds a ``torch.autograd.Function`` with the standard BN
 backward plus the label-scattered table gradients (the TPU kernel's
 ``_bwd``).
 """
@@ -158,6 +160,7 @@ def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Ten
     (callers validate on the host)."""
     if not runtime.on_cuda(x, labels, scale_table, offset_table):
         return cond_batchnorm_plain(x, labels, scale_table, offset_table, eps)
+    runtime.refuse_grad("cond_batchnorm", x, scale_table, offset_table)
     _check(x, labels, scale_table, offset_table)
     triton, moments, finalize, apply = _build()
     b, s, c = x.shape

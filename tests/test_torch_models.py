@@ -62,11 +62,8 @@ def test_seeded_init_is_deterministic_and_order_free():
 
 
 def test_branches_not_ported_raise():
-    cfg = ResnetGANConfig(dim_g=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResidualBlock(cfg, 8, 8, 3, "D.Block.3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResidualBlock(cfg, 8, 8, 3, "G.Block.9", resample="down")
+    with pytest.raises(ValueError, match="invalid resample"):
+        ResidualBlock(ResnetGANConfig(dim_g=8), 8, 8, 3, "D.Block.3", resample="sideways")
     with pytest.raises(NotImplementedError, match="batch_norm"):
         Normalize(ResnetGANConfig(conditional=False), "G.Block.1.N1", 8)
     with pytest.raises(NotImplementedError, match="layer_norm"):

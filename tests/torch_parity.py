@@ -1,0 +1,44 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py): tiny
+configurations, weight trees that both frameworks load, and numpy batches."""
+
+import numpy as np
+import torch
+
+from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
+
+# narrow widths, full 32x32 images: the CIFAR layer graph at test size
+TINY = dict(dim_g=8, dim_d=16, embedding_dim=24)
+
+
+def perturbed_trees(module: torch.nn.Module, seed: int):
+    """``(params, state)`` of ``module`` as numpy trees, with every bias and
+    cond-BN table moved off its constant init so they matter, loaded back
+    into ``module``."""
+    params, state = to_jax_tree(module)
+    rs = np.random.RandomState(seed)
+    for d in params.values():
+        for var, a in d.items():
+            if var in ("scale", "offset", "Biases", "b"):
+                d[var] = (a + 0.3 * rs.randn(*a.shape)).astype(np.float32)
+    load_tree(module, params, state, prefix="")
+    return params, state
+
+
+def make_batch(b: int, seed: int, vocab: int = 10, output_dim: int = 3072):
+    """A numpy batch as ``disc_loss`` takes it, a noise ``z`` and an actual
+    confusion matrix (rows sum to 1)."""
+    rs = np.random.RandomState(seed)
+    batch = {
+        "real_data": rs.uniform(-1, 1, (b, output_dim)).astype(np.float32),
+        "labels": rs.randint(0, vocab, b),
+        "labels_random": rs.randint(0, vocab, b),
+        "labels_biased": rs.randint(0, vocab, b),
+        "labels_inv_weights": rs.uniform(-0.5, 1.5, (b, vocab)).astype(np.float32),
+    }
+    z = rs.randn(b, 128).astype(np.float32)
+    c = rs.uniform(0.1, 1.0, (vocab, vocab)).astype(np.float32)
+    return batch, z, c / c.sum(1, keepdims=True)
+
+
+def to_torch(tree):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
