@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``rcgan_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's two paths once at the flagship width
+Drives the port's three paths once at the flagship width
 (``ResnetGANConfig()``: z_dim 128, dim_g 128, dim_d 128, embedding 300,
-10 classes): the serving path (float32) and the discriminator forward
-(``rcgan_tpu_torch.entry.entry()`` and the CIFAR losses):
+10 classes): the serving path (float32), the discriminator forward
+(``rcgan_tpu_torch.entry.entry()`` and the CIFAR losses) and the training
+cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
 
 1. device check (CUDA required), card name and power limit, versions;
 2. build of the hand-written kernels from the repo's sources (the nvcc
@@ -29,13 +30,30 @@ Drives the port's two paths once at the flagship width
    show it computes in bf16); ``disc_loss`` for rcgan
    and rcgan-u and ``gen_loss`` for rcgan-u, forward under ``no_grad``,
    costs and spectral-norm ``u`` state against the CPU's; each path's
-   launch counts asserted exactly; the gradient guard; then times of
-   spectral norm per D pass, the projection, ``entry()`` and ``disc_loss``,
-   and a profiler trace of ``entry()``.
+   launch counts asserted exactly; then times of spectral norm per D pass,
+   the projection, ``entry()`` and ``disc_loss``, and a profiler trace of
+   ``entry()``;
+7. the training slice: the conv3x3 and cond-BN autograd functions (input
+   and weight grads, table grads) against autograd of their plain versions
+   at every G and D shape of the cycle (batch 64 and 128, float32 and
+   bfloat16); the dequantisation kernel at [64, 3072] (exact noise-free
+   part, noise in [0, 1/128), a flat 16-bin histogram, rows that do not
+   depend on the batch, other seeds other rows) and its time against the
+   plain version; two cycles at batch 8 on the card against the CPU from
+   the same weights and noise, float32, rcgan and rcgan-u (perm classifier,
+   ``confuse_init``): Adam moments, parameters, SN ``u`` and costs; then
+   ``bench.py``'s configuration (batch 64, bf16, n_critic 5,
+   gen_bs_multiple 2) on a device-resident dataset of 50 000 images:
+   launches per cycle asserted exactly, cycles/s for rcgan and rcgan-u, a
+   profiler breakdown of a cycle of each (device-busy share, top kernels,
+   conv3x3, cuDNN's weight grads, Adam), and an rcgan cycle's 3x3 convs
+   timed by kind (forward and input grad on the kernel and on cuDNN,
+   weight grad).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``, printed only when every phase passed.
-Exits non-zero without a result when CUDA is unavailable or any check fails.
+The line before the last is ``{"kernels": [...]}`` with all five kernels;
+the last line is ``{"ok": true, "device": {...}}``, printed only when every
+phase passed.  Exits non-zero without a result when CUDA is unavailable or
+any check fails.
 
     python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0]
 """
@@ -134,6 +152,55 @@ ENTRY_BF16_DRIFT = {"image": 4.0, "feat": 1.5}
 # u by both sides (no activation enters it): within SN_TOL.
 LOSS_TOL = 1e-3
 
+# The training phase.  Kernel checks at the cycle's batches (64: each D
+# step's G; 128: the G step's G and D, and rcgan's concatenated D pass).
+TRAIN_BATCHES = (64, 128)
+# Card against CPU, float32, TF32 off, with the same injected noise (numpy),
+# two cycles (iteration 0 skips the G step), each from the same state.
+CHECK_TRAIN = {"batch": 8, "n_critic": 2, "gen_bs_multiple": 2}
+# Bounds of that check by iteration (``train_readings`` says what each
+# reads).  With beta1 = 0 Adam's update is about +-lr whatever the
+# gradient's size, so the gradients are bounded through mu (and nu), the
+# parameters as a share farther than lr/100 and a largest gap in units of
+# 2*lr per update.  Each bound is 2-3x the largest of the rcgan and rcgan-u
+# readings of two runs on an H100 at seed 0, in parentheses (rcgan-u's
+# iteration 1 moves between runs: nu.confusion read 4.66e-7, then 3.52e-6;
+# rcgan's repeats to three digits); where the reading is 0,
+# the bound is the smallest step it can take (one confusion logit of 100)
+# or, for dead tensors, the threshold that defines them.  The readings are
+# large for float32 because the gradients are ill-conditioned, not because
+# the card is off: on the CPU alone, nudging every parameter by 1e-7
+# relative moves the G step's gradient by up to 2.0e-2 of a tensor's max
+# (rcgan-u; 7.4e-3 for rcgan), and Adam's first, sign-like update turns
+# rounding in near-zero gradients into +-lr steps that the next step sees.
+TRAIN_TOL = {
+    0: {"mu.disc": 8e-3,        # (3.13e-3)
+        "nu.disc": 4e-3,        # (1.48e-3)
+        "dead.disc": 1e-4,      # (0)
+        "far.disc": 8e-3,       # (2.94e-3)
+        "params_max": 1.5,      # (0.615)
+        "u": 7e-6,              # (2.59e-6)
+        "cost": 1.2e-7},        # (4.2e-8, one float32 ulp of the cost)
+    1: {"mu.gen": 6e-2,         # (2.46e-2)
+        "nu.gen": 2.5e-2,       # (1.05e-2)
+        "dead.gen": 1e-4,       # (2.87e-8)
+        "far.gen": 3e-3,        # (1.05e-3)
+        "mu.confusion": 5e-6,   # (1.79e-6)
+        "nu.confusion": 9e-6,   # (3.52e-6)
+        "far.confusion": 1e-2,  # (0)
+        "mu.disc": 7e-2,        # (2.66e-2)
+        "nu.disc": 3e-2,        # (1.13e-2)
+        "dead.disc": 1e-4,      # (0)
+        "far.disc": 0.5,        # (0.205)
+        "params_max": 2.5,      # (1.000)
+        "u": 3.5e-4,            # (1.29e-4)
+        "cost": 6e-6},          # (2.44e-6)
+}
+# bench.py's configuration, timed: full width, batch 64, bf16, rcgan, hinge,
+# n_critic 5, gen_bs_multiple 2, on a device-resident dataset of 50 000
+# random uint8 images with one-coin alpha 0.6 labels.
+TIMED_TRAIN = {"dataset": 50000, "batch": 64, "cycles": 12}
+
 KERNEL_INFO = {
     "cond_bn": {"route": "triton", "source": "rcgan_tpu_torch/ops/kernels/norm_kernel.py",
                 "replaces": "rcgan_tpu/ops/pallas/norm_kernel.py:123"},
@@ -144,6 +211,8 @@ KERNEL_INFO = {
     "projection": {"route": "triton",
                    "source": "rcgan_tpu_torch/ops/kernels/projection_kernel.py",
                    "replaces": "rcgan_tpu/ops/pallas/projection_kernel.py:32"},
+    "dequant": {"route": "triton", "source": "rcgan_tpu_torch/ops/kernels/dequant_kernel.py",
+                "replaces": "rcgan_tpu/ops/pallas/dequant_kernel.py:51"},
 }
 
 failures: list = []
@@ -234,8 +303,6 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
     from rcgan_tpu_torch.entry import entry
     from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
     from rcgan_tpu_torch.ops.kernels import runtime
-    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3
-    from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm
     from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm
 
     batch = 64
@@ -249,8 +316,8 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
         counts = runtime.launch_counts()
         for k, v in counts.items():
             totals[k] += v
-        check(counts == PATH_COUNTS[name], f"{name}: launches {counts} "
-                                           f"(want {PATH_COUNTS[name]})")
+        want = dict(PATH_COUNTS[name], dequant=0)
+        check(counts == want, f"{name}: launches {counts} (want {want})")
         return out
 
     # ---- entry(), float32 and bfloat16, each against the CPU on the same weights
@@ -338,21 +405,8 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
                   f"{call} {alg}: SN u state after the call, card vs CPU, {len(sc)} layers: "
                   f"max abs err {err:.3e} (limit {SN_TOL})")
 
-    # ---- the gradient guard: no silent loss of gradients on the card
-    for name, fn, fargs in (
-            ("conv3x3", conv3x3, (torch.randn(1, 8, 8, 16, device=dev, requires_grad=True),
-                                  torch.randn(3, 3, 16, 16, device=dev))),
-            ("cond_batchnorm", cond_batchnorm,
-             (torch.randn(2, 16, 8, device=dev), torch.zeros(2, dtype=torch.int64, device=dev),
-              torch.ones(10, 8, device=dev, requires_grad=True), torch.zeros(10, 8, device=dev)))):
-        try:
-            fn(*fargs)
-            raised = ""
-        except RuntimeError as e:
-            raised = str(e)
-        check("no backward yet" in raised,
-              f"{name} on CUDA, grad mode, an input requiring grad: raises ({raised[:48]!r})")
-    check(all(v > 0 for v in totals.values()), f"every kernel launched on the slice: {totals}")
+    check(all(totals[k] > 0 for k in PATH_COUNTS["disc_loss rcgan-u"]),
+          f"every kernel of the slice launched: {totals}")
 
     # ---- times
     fwd, z, labels = models["bfloat16"]
@@ -405,6 +459,340 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
     for t, n, name in rows[:8]:
         print(f"    {t:.4f} ms x{n} {name[:70]}", flush=True)
     return totals, sn_ms
+
+
+def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dict:
+    """Launches of each kernel in one training cycle, read from the code.
+    A G forward runs 7 conv3x3 and 7 cond-BN; a D pass 12 conv3x3 and 15
+    SN calls, the projection head's D.Embedding_y one more SN call, the perm
+    classifier one.  The G step runs G then D on the fakes, and every conv
+    of both needs its input grad (the fakes carry G's gradient); D's
+    weights are frozen, so their SN has no backward.  A D step runs G
+    frozen (no backward), then D on real and fake data: one pass on the
+    concatenated batch, or two for rcgan-u (real alone, then fake against
+    every label through the projection kernel), each taking input grads in
+    all its convs but the first, whose input is data."""
+    g_conv, g_bn, d_conv, d_sn = 7, 7, 12, 15
+    u = algorithm == "rcgan-u"
+    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "projection": 0, "dequant": 0}
+    if g_step:
+        counts["conv3x3"] += 2 * (g_conv + d_conv)
+        counts["cond_bn"] += g_bn
+        counts["sn"] += d_sn + 1 + perm
+        counts["projection"] += u
+    passes = 2 if u else 1
+    per_d_step = {"conv3x3": g_conv + passes * (2 * d_conv - 1), "cond_bn": g_bn,
+                  "sn": passes * (d_sn + 1) + perm, "projection": int(u), "dequant": 1}
+    for k, v in per_d_step.items():
+        counts[k] += n_critic * v
+    return counts
+
+
+def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
+    """How far one train state is from another (``to_jax_train_state``
+    layout): ``(readings, where)``, each reading the larger the worse and
+    ``where`` naming the tensor behind each per-tensor one.  Per group that
+    took ``steps[group]`` updates in the cycle, its tensors split into live
+    and dead: a dead tensor's gradient is zero but for rounding (a conv
+    bias that a batch-norm follows, rcgan-u's D.Output/b; largest |mu| on
+    the CPU under 1e-4 of the group's largest), and Adam turns that noise
+    into steps of +-lr with random signs.  Readings: ``mu.<group>`` and
+    ``nu.<group>``, over the live tensors the worst max |diff| over the
+    tensor's own max; ``dead.<group>``, the card's largest |mu| in a dead
+    tensor over the group's largest (a dead tensor stays dead);
+    ``far.<group>``, the share of the live tensors' parameters more than
+    lr/100 apart; ``params_max``, the largest parameter gap of any tensor in
+    units of 2·lr per update; ``u``, the SN ``u`` max abs error; ``cost``,
+    each cost's |diff| / (1 + |cost|)."""
+    import numpy as np
+
+    out, where = {"params_max": 0.0}, {}
+
+    def worst(key, items):
+        err, name = max(items)
+        out[key], where[key] = float(err), name
+
+    for g, (ref, _) in np_ref.opt_states.items():
+        if not steps[g]:
+            continue  # no step this cycle (the G and C groups at iteration 0)
+        got = np_got.opt_states[g][0]
+        gmax = max(np.abs(x).max() for d in ref.mu.values() for x in d.values())
+        keys = [(la, v) for la, d in np_ref.groups[g].items() for v in d]
+        live = [k for k in keys if np.abs(ref.mu[k[0]][k[1]]).max() > 1e-4 * gmax]
+        dead = [k for k in keys if k not in live]
+        for mom in ("mu", "nu"):
+            a, b = getattr(got, mom), getattr(ref, mom)
+            worst(f"{mom}.{g}", [(np.abs(a[la][v] - b[la][v]).max() / np.abs(b[la][v]).max(),
+                                  f"{la}/{v}") for la, v in live])
+        if dead:
+            worst(f"dead.{g}", [(np.abs(got.mu[la][v]).max() / gmax, f"{la}/{v}")
+                                for la, v in dead])
+        diff = np.concatenate([np.abs(np_got.groups[g][la][v] - np_ref.groups[g][la][v]).ravel()
+                               for la, v in live])
+        out[f"far.{g}"] = float(np.mean(diff > lr / 100))
+        full = max(np.abs(np_got.groups[g][la][v] - np_ref.groups[g][la][v]).max()
+                   for la, v in keys)
+        out["params_max"] = max(out["params_max"], float(full / (2 * lr * steps[g])))
+    out["u"] = float(max(np.abs(np_got.state[la]["u"] - np_ref.state[la]["u"]).max()
+                         for la in np_ref.state))
+    out["cost"] = max(abs(float(m_got[k]) - float(m_ref[k])) / (1 + abs(float(m_ref[k])))
+                      for k in ("d_cost", "d_cost_mean", "g_cost"))
+    return out, where
+
+
+def training_slice(torch, dev, seed: int, card: str, max_err: dict):
+    """Phase 7: the training cycle.  Returns the launches of each kernel
+    over the timed configuration's counted cycles, and (kernel ms, plain
+    ms) of the dequantisation at [64, 3072].  The dequantisation's
+    ``max_err`` is how far its noise strays outside [0, 1/128]: its random
+    bits are Philox's, so it is held to the plain version in distribution."""
+    import numpy as np
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.bridge import to_jax_train_state, train_state_from_jax
+    from rcgan_tpu_torch.core import rng as trng
+    from rcgan_tpu_torch.data.cifar10 import device_dataset_of
+    from rcgan_tpu_torch.data.confusion import build_confusion, corrupt_dataset_numpy
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
+                                                         conv3x3_weight_grad)
+    from rcgan_tpu_torch.ops.kernels.dequant_kernel import dequantize, dequantize_plain
+    from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    c_mat, c_inv = build_confusion(0.6)
+
+    # ---- Conv3x3Fn and CondBatchNormFn against autograd of the plain versions,
+    # in float32 on the same inputs (bf16 rounded once, as TOL's forward checks)
+    for tag, shapes in (("G", CONV_SHAPES), ("D", D_CONV_SHAPES)):
+        for b in TRAIN_BATCHES:
+            for hw, c, o in sorted(set(shapes)):
+                x = torch.relu(torch.randn(b, hw, hw, c, generator=gen)).to(dev)
+                w = (torch.randn(3, 3, c, o, generator=gen) * (2.0 / (9 * c)) ** 0.5).to(dev)
+                g = torch.randn(b, hw, hw, o, generator=gen).to(dev)
+                for dt_name in ("float32", "bfloat16"):
+                    dt = getattr(torch, dt_name)
+                    xd, wd = (t.to(dt).requires_grad_(True) for t in (x, w))
+                    got = torch.autograd.grad(conv3x3(xd, wd), (xd, wd), g.to(dt))
+                    # float32 math on the same (bf16-rounded) values, unrounded
+                    xr, wr = (t.detach().float().requires_grad_(True) for t in (xd, wd))
+                    ref = torch.autograd.grad(conv3x3_plain(xr, wr), (xr, wr), g.to(dt).float())
+                    torch.cuda.synchronize()
+                    res = [compare(torch, a, r.float(), dt_name) for a, r in zip(got, ref)]
+                    check(all(ok for ok, _, _ in res) and all(a.dtype == dt for a in got),
+                          f"conv3x3 grads {tag} [{b},{hw},{hw},{c}]x[3,3,{c},{o}] {dt_name}: "
+                          f"dx err {res[0][1]:.3e} (rel {res[0][2]:.2e}), dw err {res[1][1]:.3e} "
+                          f"(rel {res[1][2]:.2e})")
+    for b in TRAIN_BATCHES:
+        for s_, c in sorted(set(COND_BN_SHAPES)):
+            x = (torch.randn(b, s_, c, generator=gen) * 2.0 + 0.5).to(dev)
+            labels = torch.randint(0, 10, (b,), generator=gen).to(dev)
+            tables = [(1.0 + 0.1 * torch.randn(10, c, generator=gen)).to(dev),
+                      (0.1 * torch.randn(10, c, generator=gen)).to(dev)]
+            g = torch.randn(b, s_, c, generator=gen).to(dev)
+            for dt_name in ("float32", "bfloat16"):
+                dt = getattr(torch, dt_name)
+                ins = [x.to(dt).requires_grad_(True)] + [t.clone().requires_grad_(True)
+                                                          for t in tables]
+                got = torch.autograd.grad(cond_batchnorm(ins[0], labels, *ins[1:]), ins, g.to(dt))
+                refs = [t.detach().float().requires_grad_(True) for t in ins]
+                ref = torch.autograd.grad(cond_batchnorm_plain(refs[0], labels, *refs[1:]), refs,
+                                          g.to(dt).float())
+                torch.cuda.synchronize()
+                res = [compare(torch, a, r.float(), dt_name) for a, r in zip(got, ref)]
+                check(all(ok for ok, _, _ in res),
+                      f"cond_bn grads [{b},{s_},{c}] {dt_name}: dx err {res[0][1]:.3e}, "
+                      f"dscale {res[1][1]:.3e}, doffset {res[2][1]:.3e}")
+
+    # ---- dequantisation at [64, 3072]
+    x = torch.randint(0, 256, (64, 3072), generator=gen, dtype=torch.uint8).to(dev)
+    seeds = torch.from_numpy(trng.example_seeds(seed, 64)).to(dev)
+    out = dequantize(x, seeds)
+    base = dequantize_plain(x, torch.zeros(64, 3072, device=dev))
+    noise = out.double() - base.double()
+    at_top = noise == 1.0 / 128
+    max_err["dequant"] = max(0.0, -noise.min().item(), noise.max().item() - 1.0 / 128)
+    check(out.dtype == torch.float32 and out.shape == (64, 3072)
+          and noise.min().item() >= 0.0 and noise.max().item() <= 1.0 / 128
+          and bool((base[at_top].abs() >= 2.0 ** -7).all())
+          and bool((noise[base == 0] < 1.0 / 128).all()),
+          f"dequant [64,3072]: noise in [0, 1/128) ({noise.min().item() * 128:.6f} to "
+          f"{noise.max().item() * 128:.6f} /128; {int(at_top.sum())} element(s) rounded up to "
+          f"base + 1/128 by float32, all at |base| >= 2^-7; < 1/128 strictly where base = 0)")
+    hist = torch.histc((noise * 128).float(), bins=16, min=0.0, max=1.0)
+    dev_ = (hist / hist.mean() - 1).abs().max().item()
+    check(dev_ <= 0.05 and abs(noise.mean().item() * 256 - 1) <= 0.02,
+          f"dequant noise: 16-bin histogram within {dev_:.4f} of flat (limit 0.05), mean "
+          f"{noise.mean().item() * 256:.5f}/256")
+    perm = torch.randperm(64, generator=gen).to(dev)
+    check(torch.equal(dequantize(x[perm], seeds[perm]), out[perm])
+          and torch.equal(dequantize(x[5:21].contiguous(), seeds[5:21].contiguous()), out[5:21]),
+          "dequant: the same seeds give bit-identical rows in a permuted and a sliced batch")
+    check(bool((dequantize(x, seeds + 1) != out).any(dim=1).all()),
+          "dequant: other seeds give other rows")
+    tk = statistics.median([event_ms(torch, lambda: dequantize(x, seeds)) for _ in range(2)])
+    tp = statistics.median([event_ms(torch, lambda: dequantize_plain(
+        x, torch.rand(64, 3072, device=dev) / 128.0)) for _ in range(2)])
+    print(f"  dequant [64,3072]: kernel {tk:.4f} ms, plain (torch.rand + ops) {tp:.4f} ms",
+          flush=True)
+
+    # ---- card against CPU, float32, TF32 off: two cycles from the same weights and noise
+    b, nc, gm = CHECK_TRAIN["batch"], CHECK_TRAIN["n_critic"], CHECK_TRAIN["gen_bs_multiple"]
+    tcfg = CifarTrainConfig(n_critic=nc, gen_bs_multiple=gm)
+    rng = np.random.default_rng(seed + 3)
+    feeds = []
+    for _ in range(2):
+        d = {"images": rng.integers(0, 256, (nc, b, 3072), dtype=np.uint8),
+             "labels": rng.integers(0, 10, (nc, b)), "labels_random": rng.integers(0, 10, (nc, b)),
+             "labels_biased": rng.integers(0, 10, (nc, b)),
+             "labels_inv_weights": rng.uniform(-0.5, 1.5, (nc, b, 10)).astype(np.float32)}
+        g = {"random": rng.integers(0, 10, gm * b), "biased": rng.integers(0, 10, gm * b)}
+        noise = {"zg": rng.standard_normal((gm * b, 128)).astype(np.float32),
+                 "z": rng.standard_normal((nc, b, 128)).astype(np.float32),
+                 "u": (rng.random((nc, b, 3072)) / 128).astype(np.float32)}
+        feeds.append((d, g, noise))
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        cfg = ResnetGANConfig(algorithm=alg)
+        acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        trainers = {side: CifarTrainer(cfg, acfg, tcfg, c_mat, dev if side == "card" else "cpu")
+                    for side in ("card", "cpu")}
+        ts_card = trainers["card"].init(seed)
+        for it, (d, g, noise) in enumerate(feeds):
+            # each cycle from one state: the card's, copied to the CPU
+            # (bit-exact), so that no earlier cycle's rounding is carried in
+            ts_cpu = train_state_from_jax(to_jax_train_state(ts_card), cfg, acfg, tcfg, "cpu")
+            before = {k: st.count for k, st in ts_card.opt_states.items()}
+            ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, d, g, it, seed, noise=noise)
+            ts_card, m_card = trainers["card"].step(ts_card, d, g, it, seed, noise=noise)
+            steps = {k: st.count - before[k] for k, st in ts_card.opt_states.items()}
+            r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
+                                      m_cpu, m_card, tcfg.lr, steps)
+            limits = TRAIN_TOL[it]
+            check(set(r) <= set(limits) and all(v <= limits[k] for k, v in r.items()),
+                  f"training {alg}{' perm+confuse_init' if perm else ''}, batch {b}, "
+                  f"n_critic {nc}, cycle at iteration {it} (updates {steps}), float32, card vs "
+                  f"CPU from the same state: "
+                  + ", ".join(f"{k} {v:.3g} (limit {limits.get(k)}"
+                              + (f", at {where[k]})" if k in where else ")")
+                              for k, v in r.items()))
+
+    # ---- bench.py's configuration on a device-resident dataset: counts, times, profile
+    n = TIMED_TRAIN["dataset"]
+    drs = np.random.RandomState(seed)
+    y = drs.randint(0, 10, n)
+    y_real, y_gen, y_fake, inv_w = corrupt_dataset_numpy(drs, y, c_mat, c_inv)
+    ds = device_dataset_of({"images": drs.randint(0, 256, (n, 3072)).astype(np.uint8),
+                            "labels": y_real, "labels_random": y_gen, "labels_biased": y_fake,
+                            "labels_inv_weights": inv_w}, dev)
+    mb = sum(v.numel() * v.element_size() for v in ds.values()) / 1e6
+    print(f"device-resident dataset: N {n}, {mb:.1f} MB on the card", flush=True)
+    tcfg = CifarTrainConfig()
+    bt = TIMED_TRAIN["batch"]
+    totals = {k: 0 for k in runtime.KERNELS}
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        tr = CifarTrainer(ResnetGANConfig(algorithm=alg), acfg, tcfg, c_mat, dev,
+                          torch.bfloat16, ds)
+        ts = tr.init(seed)
+        state = {"ts": ts, "it": 0}
+
+        def cycle():
+            idx = drs.randint(0, n, (tcfg.n_critic, bt))
+            gi = drs.randint(0, n, tcfg.gen_bs_multiple * bt)
+            it = state["it"]
+            state["ts"], m = tr.step(state["ts"], {"index": idx},
+                                     {"random": y_gen[gi], "biased": y_fake[gi]}, it,
+                                     trng.fold_in(seed, it))
+            state["it"] += 1
+            return m
+
+        for it in range(2):  # iteration 0 (G skipped), then a full cycle
+            runtime.reset_launch_counts()
+            m = cycle()
+            torch.cuda.synchronize()
+            counts = runtime.launch_counts()
+            want = cycle_counts(alg, perm, tcfg.n_critic, g_step=it > 0)
+            for k, v in counts.items():
+                totals[k] += v
+            check(counts == want, f"training {alg} bf16 batch {bt}, cycle at iteration {it}: "
+                                  f"launches {counts} (want {want})")
+        ms = event_ms(torch, cycle, reps=TIMED_TRAIN["cycles"], warmup=2)
+        m = cycle()
+        finite = all(math.isfinite(float(v)) for v in m.values())
+        finite = finite and all(bool(torch.isfinite(p).all()) for p in state["ts"].gan.parameters())
+        check(finite, f"training {alg} bf16: costs and parameters finite after "
+                      f"{state['it']} cycles (d_cost {float(m['d_cost']):.4f}, "
+                      f"g_cost {float(m['g_cost']):.4f})")
+        print(f"  training {alg}{' perm+confuse_init' if perm else ''}, bf16, batch {bt}, "
+              f"n_critic {tcfg.n_critic}, gen_bs_multiple {tcfg.gen_bs_multiple}, on {card}: "
+              f"{ms:.3f} ms per cycle ({1e3 / ms:.3f} cycles/s; median of "
+              f"{TIMED_TRAIN['cycles']} cycles by CUDA events)", flush=True)
+        wall, busy, rows = device_profile(torch, cycle, reps=3)
+        print(f"  training {alg} profiled: {wall:.3f} ms per cycle, device busy {busy:.3f} ms "
+              f"({busy / wall:.0%}); by kernel:", flush=True)
+        for t, k, name in rows[:12]:
+            print(f"    {t:.4f} ms x{k} {name[:90]}", flush=True)
+        groups = {"conv3x3 (forward + input grad)": "conv3x3",
+                  "weight grads (cuDNN kernels named *wgrad*)": "wgrad",
+                  "Adam (foreach)": "multi_tensor_apply"}
+        for label, key in groups.items():
+            hit = [r for r in rows if key in r[2]]
+            print(f"    {label}: {sum(r[0] for r in hit):.3f} ms per cycle in "
+                  f"{sum(r[1] for r in hit)} launches", flush=True)
+        if alg == "rcgan":
+            totals_ms = cycle_conv_times(torch, dev, gen, bt)
+            print(f"  per rcgan cycle, bf16, by CUDA events: input-grad convs "
+                  f"({totals_ms['n_dx']} calls) kernel {totals_ms['dx'][0]:.3f} ms vs "
+                  f"cuDNN bf16 {totals_ms['dx'][1]:.3f} ms; forward convs "
+                  f"({totals_ms['n_fwd']} calls) kernel {totals_ms['fwd'][0]:.3f} ms vs cuDNN "
+                  f"{totals_ms['fwd'][1]:.3f} ms; weight grads ({totals_ms['n_dw']} calls, "
+                  f"cuDNN) {totals_ms['dw']:.3f} ms", flush=True)
+    return totals, (tk, tp)
+
+
+def cycle_conv_times(torch, dev, gen, b: int) -> dict:
+    """CUDA-event times of one rcgan cycle's 3x3 convs, bf16, summed with
+    their multiplicities: the forwards and the input-grad convs on the
+    kernel and on cuDNN in bf16 (``F.conv2d`` on channels-last views), and
+    the weight grads (cuDNN)."""
+    import torch.nn.functional as F
+
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3, conv3x3_weight_grad
+
+    def cudnn(x, w):
+        return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+
+    # (batch, H=W, C, O, forwards, input grads, weight grads) per cycle
+    calls = {}
+
+    def add(bb, hw, c, o, fwd, dx, dw):
+        k = (bb, hw, c, o)
+        old = calls.get(k, (0, 0, 0))
+        calls[k] = (old[0] + fwd, old[1] + dx, old[2] + dw)
+
+    for hw, c, o in CONV_SHAPES:  # G: the G step at 2B (grads), each D step at B
+        add(2 * b, hw, c, o, 1, 1, 1)
+        add(b, hw, c, o, 5, 0, 0)
+    for i, (hw, c, o) in enumerate(D_CONV_SHAPES):  # D at 2B: G step, then 5 D steps
+        add(2 * b, hw, c, o, 6, 1 + (5 if i else 0), 5)
+    out = {"fwd": [0.0, 0.0], "dx": [0.0, 0.0], "dw": 0.0, "n_fwd": 0, "n_dx": 0, "n_dw": 0}
+    for (bb, hw, c, o), (nf, nd, nw) in calls.items():
+        x = torch.randn(bb, hw, hw, c, generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn(3, 3, c, o, generator=gen) * 0.05).to(dev, torch.bfloat16)
+        g = torch.randn(bb, hw, hw, o, generator=gen).to(dev, torch.bfloat16)
+        wt = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()
+        with torch.no_grad():
+            for key, n_calls, args in (("fwd", nf, (x, w)), ("dx", nd, (g, wt))):
+                if n_calls:
+                    out[key][0] += n_calls * event_ms(torch, lambda: conv3x3(*args), reps=10)
+                    out[key][1] += n_calls * event_ms(torch, lambda: cudnn(*args), reps=10)
+                    out["n_" + key] += n_calls
+            if nw:
+                out["dw"] += nw * event_ms(torch, lambda: conv3x3_weight_grad(x, g), reps=10)
+                out["n_dw"] += nw
+    return out
 
 
 def main(argv=None) -> int:
@@ -631,7 +1019,7 @@ def main(argv=None) -> int:
         for k in ("cond_bn", "conv3x3"):
             check(passes > 0 and counts[k] == 7 * passes,
                   f"{k}: {counts[k]} launches over {passes} generator passes (want 7 per pass)")
-        for k in ("sn", "projection"):
+        for k in ("sn", "projection", "dequant"):
             check(counts[k] == 0, f"{k}: {counts[k]} launches on the serving path (want 0)")
 
         # ---------------------------------------------------------- 5. times
@@ -705,15 +1093,19 @@ def main(argv=None) -> int:
     # ------------------------------------------------ 6. the discriminator slice
     d_counts, sn_ms = discriminator_slice(torch, dev, args.seed, max_err)
 
+    # ------------------------------------------------------ 7. the training cycle
+    t_counts, dequant_ms = training_slice(torch, dev, args.seed, card, max_err)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
-    # launches: the serving path's and the discriminator slice's paths', each
-    # counted from 0; times: per generator pass at batch 100 (cond_bn,
-    # conv3x3), per D pass (sn), one call at batch 64 (projection)
+    # launches: the serving path's, the discriminator slice's paths' and the
+    # counted training cycles', each counted from 0; times: per generator
+    # pass at batch 100 (cond_bn, conv3x3), per D pass (sn), one call at
+    # batch 64 (projection), one call at [64, 3072] (dequant)
     timed = {"cond_bn": per_pass["cond_bn"][100], "conv3x3": per_pass["conv3x3"][100],
-             "sn": sn_ms, "projection": per_pass["projection"][64]}
-    kernels = [dict(name=k, **KERNEL_INFO[k], launches=counts[k] + d_counts[k],
+             "sn": sn_ms, "projection": per_pass["projection"][64], "dequant": dequant_ms}
+    kernels = [dict(name=k, **KERNEL_INFO[k], launches=counts[k] + d_counts[k] + t_counts[k],
                     max_abs_err=max_err[k], ms=timed[k][0], plain_ms=timed[k][1])
                for k in runtime.KERNELS]
     print(f"card: {card}", flush=True)

@@ -10,10 +10,9 @@ perm classifier) and, for rcgan-u, ``confusion_logits``.  Its
 loops, with the spectral-norm ``u`` state written as in JAX: every SN layer
 advances its ``u`` in ``disc_loss`` (rcgan-u runs D twice, and the second
 pass reads what the first wrote); ``gen_loss`` freezes D's ``u`` but still
-advances the projection embedding's and the perm classifier's.
-
-On the card, run these under ``torch.no_grad()``: the conv and cond-BN
-kernels have no backward yet and refuse grad mode (ROADMAP.md, Queue 2).
+advances the projection embedding's and the perm classifier's.  Both are
+differentiable on both devices (every kernel on their path has an
+autograd function); the training cycle is ``rcgan_tpu_torch/train/cifar_loop.py``.
 """
 
 from __future__ import annotations

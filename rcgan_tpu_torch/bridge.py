@@ -8,6 +8,12 @@ form.  The port keeps the same scope names and layouts
 objects and state as buffers, so moving both trees either way is a copy by
 name: a round trip is bit-exact.
 
+A whole train state crosses too (:func:`train_state_from_jax`,
+:func:`to_jax_train_state`): the three parameter groups, the SN ``u``
+state, each group's Adam ``count``/``mu``/``nu`` and ``step``, laid out as
+the JAX ``TrainState`` with its optax states
+``(ScaleByAdamState(count, mu, nu), EmptyState())``.
+
 On disk a tree is one ``.npz`` whose keys are ``"<layer>/<var>"``
 (``G.Block.1.Conv1/Filters``); ``scripts/export_generator_npz.py`` writes
 the generator's from a JAX checkpoint as ``generator.npz``.
@@ -15,7 +21,7 @@ the generator's from a JAX checkpoint as ``generator.npz``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -24,6 +30,8 @@ from torch import nn
 from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
 from rcgan_tpu_torch.core.module import param_tree, scoped_modules, state_tree
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
+from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, new_train_state
+from rcgan_tpu_torch.train.state import TrainState
 
 NpTree = Dict[str, Dict[str, np.ndarray]]
 
@@ -104,3 +112,65 @@ def load_npz(path: str) -> NpTree:
             layer, var = key.rsplit("/", 1)
             tree.setdefault(layer, {})[var] = data[key]
     return tree
+
+
+class AdamMoments(NamedTuple):
+    """The fields of optax's ``ScaleByAdamState``, as numpy."""
+    count: Any
+    mu: NpTree
+    nu: NpTree
+
+
+class NumpyTrainState(NamedTuple):
+    """A train state as numpy, in the layout of the JAX ``TrainState``:
+    ``opt_states[group]`` is ``(AdamMoments, ())`` where JAX holds
+    ``(ScaleByAdamState, EmptyState())``."""
+    groups: Dict[str, NpTree]
+    state: NpTree
+    opt_states: Dict[str, tuple]
+    step: Any
+
+
+def _by_key(tree: Mapping, keys) -> list:
+    return [np.asarray(tree[layer][var]) for layer, var in keys]
+
+
+def train_state_from_jax(ts_numpy, cfg: ResnetGANConfig, acfg: CifarAlgoConfig,
+                         tcfg: CifarTrainConfig, device="cpu",
+                         compute_dtype: torch.dtype = torch.float32) -> TrainState:
+    """The port's :class:`TrainState` from a JAX ``TrainState`` whose leaves
+    are numpy arrays (or a :class:`NumpyTrainState`): every group's
+    parameters, the SN state, each optimiser's ``count``, ``mu``, ``nu``,
+    and ``step``.  The groups must be the ones ``acfg`` partitions into."""
+    ts = new_train_state(cfg, acfg, tcfg, device=device, compute_dtype=compute_dtype)
+    if set(ts_numpy.groups) != set(ts.groups) or set(ts_numpy.opt_states) != set(ts.opt_states):
+        raise KeyError(f"groups differ: {sorted(ts_numpy.groups)} vs {sorted(ts.groups)}")
+    params = {layer: vs for g in ts_numpy.groups.values() for layer, vs in g.items()}
+    load_tree(ts.gan, params, ts_numpy.state, prefix="")
+    for g, st in ts.opt_states.items():
+        adam = ts_numpy.opt_states[g][0]
+        keys = list(ts.groups[g])
+        for dst, src in ((st.mu, _by_key(adam.mu, keys)), (st.nu, _by_key(adam.nu, keys))):
+            for d, a in zip(dst, src):
+                if tuple(a.shape) != tuple(d.shape):
+                    raise ValueError(f"{g} Adam moment of shape {a.shape}, want {tuple(d.shape)}")
+                d.copy_(torch.from_numpy(a))
+        st.count = int(np.asarray(adam.count))
+    ts.step = int(np.asarray(ts_numpy.step))
+    return ts
+
+
+def to_jax_train_state(ts: TrainState) -> NumpyTrainState:
+    """``ts`` as a :class:`NumpyTrainState` (the JAX layout, numpy leaves)."""
+    def tree(keys, tensors):
+        out: NpTree = {}
+        for (layer, var), t in zip(keys, tensors):
+            out.setdefault(layer, {})[var] = t.detach().cpu().numpy().copy()
+        return out
+
+    groups = {g: tree(ps, ps.values()) for g, ps in ts.groups.items()}
+    opt_states = {g: (AdamMoments(np.asarray(st.count, np.int32), tree(ts.groups[g], st.mu),
+                                  tree(ts.groups[g], st.nu)), ())
+                  for g, st in ts.opt_states.items()}
+    return NumpyTrainState(groups, _np_tree(state_tree(ts.gan)), opt_states,
+                           np.asarray(ts.step, np.int32))

@@ -12,12 +12,14 @@ width) and padded its input with ``jnp.pad``.  The port masks ragged C and
 O and handles the halo with bounds checks, so every 3x3/s1/SAME call is in
 its class, the generator's 256 -> 3 output conv included.
 
-Autograd: none yet.  On a CUDA tensor the wrapper refuses grad mode with an
-input that requires grad (``runtime.refuse_grad``) rather than return a
-result cut off from the graph; serving and the discriminator forward run
-under ``torch.inference_mode`` or ``torch.no_grad``.  The training slice adds a ``torch.autograd.Function`` whose backward is the
-input-grad conv (flipped, io-transposed filter) and the weight-grad
-reduction, as the TPU kernel's ``_bwd`` is.
+Autograd: :class:`Conv3x3Fn` is the route on both devices, the counterpart
+of ``conv3x3_fused``'s ``custom_vjp``.  Its backward is the TPU kernel's
+``_bwd``: the input grad is another 3x3/s1/SAME conv, of the cotangent with
+the spatially flipped, io-transposed filter, so it goes through
+:func:`conv3x3` and on the card launches this kernel; the weight grad is the
+batch-reducing conv that JAX leaves to XLA, here cuDNN's (or the CPU's)
+``convolution_backward``.  Each runs only when its input takes a gradient,
+and each cotangent is in its primal's dtype.
 """
 
 from __future__ import annotations
@@ -54,12 +56,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("conv3x3 indexes with 32-bit ints; tensor too large")
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3/s1/SAME conv.  CPU tensors take :func:`conv3x3_plain`; CUDA
-    tensors launch the CUDA kernel on the current stream (or raise)."""
-    if not runtime.on_cuda(x, w):
-        return conv3x3_plain(x, w)
-    runtime.refuse_grad("conv3x3", x, w)
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     b, h, wd, c = x.shape
     o = w.shape[3]
@@ -75,3 +72,47 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     runtime.check_cuda_status(lib, "conv3x3_error_string", code, "conv3x3 launch")
     runtime.count_launch("conv3x3")
     return y
+
+
+def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dw [3,3,C,O]`` of a 3x3/s1/SAME conv from ``x [B,H,W,C]`` and the
+    cotangent ``g [B,H,W,O]``, in ``x.dtype``: the reduction over the batch
+    that JAX's ``_bwd`` hands to XLA, here ``aten.convolution_backward`` on
+    NCHW views of the NHWC tensors (cuDNN on the card)."""
+    b, h, wd, c = x.shape
+    o = g.shape[3]
+    weight = x.new_empty((o, c, 3, 3))  # only its shape is read
+    _, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), weight, None, [1, 1], [1, 1], [1, 1],
+        False, [0, 0], 1, [False, True, False])
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """``(x, w) → conv``: the CUDA kernel on the card, :func:`conv3x3_plain`
+    on the CPU.  Backward as the module note says."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        out = _launch(x, w) if runtime.on_cuda(x, w) else conv3x3_plain(x, w)
+        ctx.save_for_backward(x, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_t = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()  # [3,3,O,C]
+            dx = conv3x3(g, w_t)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_weight_grad(x, g).to(w.dtype)
+        return dx, dw
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3/s1/SAME conv.  CPU tensors take :func:`conv3x3_plain`; CUDA
+    tensors launch the CUDA kernel on the current stream (or raise).
+    Differentiable on both (:class:`Conv3x3Fn`)."""
+    return Conv3x3Fn.apply(x, w)

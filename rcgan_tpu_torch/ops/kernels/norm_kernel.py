@@ -25,12 +25,14 @@ and does no tensor-core work.  The design moves no byte it need not:
 The TPU's VMEM tiling rules (``_tiles``, ``_MIN_FUSED_BYTES``) have no
 counterpart here: every generator map goes through the kernel.
 
-Autograd: none yet.  On a CUDA tensor the wrapper refuses grad mode with an
-input that requires grad (``runtime.refuse_grad``) rather than return a
-result cut off from the graph; serving and the discriminator forward run
-under ``torch.inference_mode`` or ``torch.no_grad``.  The training slice adds a ``torch.autograd.Function`` with the standard BN
-backward plus the label-scattered table gradients (the TPU kernel's
-``_bwd``).
+Autograd: :class:`CondBatchNormFn` is the route on both devices, the
+counterpart of ``cond_batchnorm_fused``'s ``custom_vjp`` together with the
+autodiff of the table gather in ``cond_batchnorm_bhwc``.  The forward keeps
+the ``mean`` and ``rsqrt(var + eps)`` it computed; the backward is the TPU
+kernel's ``_bwd``, in PyTorch ops as JAX's is in jnp, all in float32: the
+batch-norm VJP for ``dx`` (in ``x.dtype``) and the per-example
+``Σ_S g·x̂`` and ``Σ_S g`` scattered into the float32 ``[n_labels, C]``
+tables by label.
 """
 
 from __future__ import annotations
@@ -47,21 +49,29 @@ _TARGET_PROGRAMS = 512  # moments grid size to aim for: ~4 per SM on 132 SMs
 _kernels = None
 
 
+def _moments_plain(x: torch.Tensor, eps: float):
+    """float32 ``(mean, rsqrt(var + eps))`` over (batch, spatial), with
+    ``var = max(E[x²] − mean², 0)`` as the kernel computes it."""
+    x32 = x.float()
+    n = x.shape[0] * x.shape[1]
+    mean = x32.sum(dim=(0, 1)) / n
+    var = torch.clamp(x32.square().sum(dim=(0, 1)) / n - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def _apply_plain(x, labels, scale_table, offset_table, mean, inv):
+    scale = scale_table.float()[labels][:, None, :]
+    offset = offset_table.float()[labels][:, None, :]
+    return ((x.float() - mean) * inv * scale + offset).to(x.dtype)
+
+
 def cond_batchnorm_plain(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,
                          offset_table: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Plain version.  ``x [B,S,C]``; ``labels [B]`` int; tables
     ``[n_labels, C]``.  Same formula as the kernel (f32 sums, var from
     ``E[x²] − mean²`` clamped at 0), output in ``x.dtype``."""
-    b, s, c = x.shape
-    x32 = x.float()
-    n = b * s
-    mean = x32.sum(dim=(0, 1)) / n
-    var = torch.clamp(x32.square().sum(dim=(0, 1)) / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    scale = scale_table.float()[labels][:, None, :]
-    offset = offset_table.float()[labels][:, None, :]
-    out = (x32 - mean) * inv * scale + offset
-    return out.to(x.dtype)
+    mean, inv = _moments_plain(x, eps)
+    return _apply_plain(x, labels, scale_table, offset_table, mean, inv)
 
 
 def _build():
@@ -151,16 +161,8 @@ def _check(x, labels, scale_table, offset_table):
         raise ValueError("cond_batchnorm wants contiguous tensors")
 
 
-def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,
-                   offset_table: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """``x [B,S,C]``, ``labels [B]``, tables ``[n_labels, C]`` → ``[B,S,C]`` in
-    ``x.dtype``.  CPU tensors take :func:`cond_batchnorm_plain`; CUDA
-    tensors launch the Triton kernels on the current stream (or raise).
-    Labels must lie in ``[0, n_labels)``: the kernel does not check them
-    (callers validate on the host)."""
-    if not runtime.on_cuda(x, labels, scale_table, offset_table):
-        return cond_batchnorm_plain(x, labels, scale_table, offset_table, eps)
-    runtime.refuse_grad("cond_batchnorm", x, scale_table, offset_table)
+def _launch(x, labels, scale_table, offset_table, eps):
+    """The three Triton launches; returns ``(out, mean, inv)``."""
     _check(x, labels, scale_table, offset_table)
     triton, moments, finalize, apply = _build()
     b, s, c = x.shape
@@ -185,4 +187,51 @@ def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Ten
             x, labels, scale_table, offset_table, mean, inv, out, n, s, c,
             BLOCK_R=_APPLY_ROWS, BLOCK_C=_BLOCK_C, num_warps=4)
     runtime.count_launch("cond_bn")
-    return out
+    return out, mean, inv
+
+
+class CondBatchNormFn(torch.autograd.Function):
+    """``(x, labels, scale_table, offset_table, eps) → out``: the Triton
+    kernels on the card, the plain version on the CPU.  Backward as the
+    module note says."""
+
+    @staticmethod
+    def forward(ctx, x, labels, scale_table, offset_table, eps):
+        if runtime.on_cuda(x, labels, scale_table, offset_table):
+            out, mean, inv = _launch(x, labels, scale_table, offset_table, eps)
+        else:
+            mean, inv = _moments_plain(x, eps)
+            out = _apply_plain(x, labels, scale_table, offset_table, mean, inv)
+        ctx.save_for_backward(x, labels, scale_table, mean, inv)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, labels, scale_table, mean, inv = ctx.saved_tensors
+        g = g.float()
+        xhat = (x.float() - mean) * inv
+        dx = dscale = doffset = None
+        if ctx.needs_input_grad[0]:
+            dxhat = g * scale_table.float()[labels][:, None, :]
+            m1 = dxhat.mean(dim=(0, 1))
+            m2 = (dxhat * xhat).mean(dim=(0, 1))
+            dx = (inv * (dxhat - m1 - xhat * m2)).to(x.dtype)
+        idx = labels.long()
+        if ctx.needs_input_grad[2]:
+            dscale = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
+            dscale.index_add_(0, idx, (g * xhat).sum(dim=1))
+        if ctx.needs_input_grad[3]:
+            doffset = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
+            doffset.index_add_(0, idx, g.sum(dim=1))
+        return dx, None, dscale, doffset, None
+
+
+def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,
+                   offset_table: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``x [B,S,C]``, ``labels [B]``, tables ``[n_labels, C]`` → ``[B,S,C]`` in
+    ``x.dtype``.  CPU tensors take :func:`cond_batchnorm_plain`; CUDA
+    tensors launch the Triton kernels on the current stream (or raise).
+    Differentiable on both (:class:`CondBatchNormFn`).  Labels must lie in
+    ``[0, n_labels)``: the kernel does not check them (callers validate on
+    the host)."""
+    return CondBatchNormFn.apply(x, labels, scale_table, offset_table, eps)

@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch counters, one per hand-written kernel.  A wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels.
-KERNELS = ("cond_bn", "conv3x3", "sn", "projection")
+KERNELS = ("cond_bn", "conv3x3", "sn", "projection", "dequant")
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}
 _count_lock = threading.Lock()
 
@@ -87,18 +87,6 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev} (cpu or cuda)")
-
-
-def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
-    """Raise where a kernel without a backward would drop gradients: in grad
-    mode, a CUDA launch on an input that requires grad would return a result
-    with no autograd history, while the CPU's plain version stays
-    differentiable."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward yet, so its output would carry no "
-            "gradient; run under torch.no_grad() or torch.inference_mode() (the backward "
-            "kernel comes with the training slice, ROADMAP.md Queue 2)")
 
 
 def _nvcc() -> str:

@@ -1,7 +1,7 @@
 """The spectral-norm and all-label projection kernels' plain versions and
-autograd functions, the SN layers and their ``u`` state, and the gradient
-guard of the kernels without a backward: all against the JAX package, on
-the CPU, in float32.
+autograd functions, the SN layers and their ``u`` state, against the JAX
+package, on the CPU, in float32; and the CUDA branch of the conv3x3 and
+cond-BN wrappers in grad mode, with the launch mocked.
 
 The Pallas kernels run in interpret mode (their CPU route), as
 tests/test_pallas.py runs them.  Inputs come from numpy seeds.
@@ -223,27 +223,44 @@ def test_projection_bf16_cotangents_keep_their_primal_dtypes():
     np.testing.assert_array_equal(wgan.grad.float().numpy(), g.sum(1, keepdim=True).numpy())
 
 
-# ------------------------------------------------------------- gradient guard
+# ------------------------------------------- grad mode on the CUDA branch
 @pytest.mark.parametrize("kernel", ["conv3x3", "cond_batchnorm"])
-def test_kernels_without_backward_refuse_grad_mode_on_cuda(monkeypatch, kernel):
-    """On a CUDA tensor, in grad mode, an input that requires grad raises
-    before any build or launch (the message is the guard's, not nvcc's);
-    under no_grad the guard lets the call through to the build."""
+def test_kernels_take_grad_mode_on_cuda_through_their_functions(monkeypatch, kernel):
+    """With ``on_cuda`` mocked true and the launch replaced by the plain
+    version, a call in grad mode on inputs that require grad goes down the
+    CUDA branch (the launch is called: for conv3x3 once forward and once for
+    the input-grad conv of the backward) and the gradients reach the filter
+    and both tables, equal to autograd of the plain version."""
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
-
-    def build_attempted(*a, **k):
-        raise AssertionError("build attempted")
-
-    monkeypatch.setattr(runtime, "cuda_library", build_attempted)
-    monkeypatch.setattr(norm_kernel, "_build", build_attempted)
+    launches = []
     if kernel == "conv3x3":
-        args = (torch.randn(1, 4, 4, 2), torch.randn(3, 3, 2, 2, requires_grad=True))
-        fn = conv_kernel.conv3x3
+        def launch(x, w):
+            launches.append(x.shape)
+            return conv_kernel.conv3x3_plain(x, w)
+
+        monkeypatch.setattr(conv_kernel, "_launch", launch)
+        args = [torch.randn(1, 4, 4, 2, requires_grad=True),
+                torch.randn(3, 3, 2, 3, requires_grad=True)]
+        fn, plain, want_launches = conv_kernel.conv3x3, conv_kernel.conv3x3_plain, 2
     else:
-        args = (torch.randn(2, 4, 3), torch.tensor([0, 1]), torch.ones(10, 3, requires_grad=True),
-                torch.zeros(10, 3))
-        fn = norm_kernel.cond_batchnorm
-    with pytest.raises(RuntimeError, match="no backward yet.*training slice"):
-        fn(*args)
-    with torch.no_grad(), pytest.raises(AssertionError, match="build attempted"):
-        fn(*args)
+        def launch(x, labels, scale_table, offset_table, eps):
+            launches.append(x.shape)
+            mean, inv = norm_kernel._moments_plain(x, eps)
+            return (norm_kernel._apply_plain(x, labels, scale_table, offset_table, mean, inv),
+                    mean, inv)
+
+        monkeypatch.setattr(norm_kernel, "_launch", launch)
+        args = [torch.randn(2, 4, 3, requires_grad=True), torch.tensor([0, 1]),
+                torch.ones(10, 3, requires_grad=True), torch.zeros(10, 3, requires_grad=True)]
+        fn, plain, want_launches = norm_kernel.cond_batchnorm, norm_kernel.cond_batchnorm_plain, 1
+    r = torch.randn(fn(*args).shape)
+    launches.clear()
+    torch.sum(torch.sin(fn(*args)) * r).backward()
+    assert len(launches) == want_launches
+    got = [a.grad for a in args if a.requires_grad]
+    assert all(g is not None for g in got)
+    for a in args:
+        a.grad = None
+    torch.sum(torch.sin(plain(*args)) * r).backward()
+    for g, a in zip(got, [a for a in args if a.requires_grad]):
+        torch.testing.assert_close(g, a.grad, rtol=1e-5, atol=1e-6)
