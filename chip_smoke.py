@@ -9,12 +9,20 @@ cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
 
 1. device check (CUDA required), card name and power limit, versions;
 2. build of the hand-written kernels from the repo's sources (the nvcc
-   builds in parallel, the Triton kernels at first launch);
+   builds in parallel, the Triton kernels at first launch), with what
+   ``ptxas -v`` reports for the tensor-core conv3x3 (registers, spills) and
+   the dynamic shared memory it asks for;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    cond-BN and conv3x3 at every generator shape, batch 1, 8, 32, 64 and
    100, float32 and bfloat16; conv3x3 at every discriminator shape, batch
-   64 and 128; spectral norm at every weight of the discriminator path;
-   the all-label projection at batch 64 and 128, float32 and bfloat16 in;
+   64 and 128; conv3x3 in bfloat16 at every G and D shape of the training
+   cycle, batch 64 and 128, with forward and input-grad filters, each call
+   checked to have launched the variant that ``conv3x3_variant`` names
+   (``wgmma``: the tensor-core kernel; ``ffma``: the CUDA-core one), and
+   once at 8200 images of 32x32, more M tiles than a grid's y dimension
+   holds;
+   spectral norm at every weight of the discriminator path; the all-label
+   projection at batch 64 and 128, float32 and bfloat16 in;
 4. the serving slice: a seeded generator (or ``--checkpoint_dir``'s
    ``generator.npz``) behind ``Sampler`` and ``make_server``, concurrent
    ``/sample`` requests plus ``/healthz``, ``/models`` and ``/metrics``,
@@ -30,7 +38,8 @@ cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
    show it computes in bf16); ``disc_loss`` for rcgan
    and rcgan-u and ``gen_loss`` for rcgan-u, forward under ``no_grad``,
    costs and spectral-norm ``u`` state against the CPU's; each path's
-   launch counts asserted exactly; then times of spectral norm per D pass,
+   launch counts asserted exactly, conv3x3's per variant too (``entry()``
+   bf16: 17 wgmma + 2 ffma); then times of spectral norm per D pass,
    the projection, ``entry()`` and ``disc_loss``, and a profiler trace of
    ``entry()``;
 7. the training slice: the conv3x3 and cond-BN autograd functions (input
@@ -44,13 +53,23 @@ cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
    ``confuse_init``): Adam moments, parameters, SN ``u`` and costs; then
    ``bench.py``'s configuration (batch 64, bf16, n_critic 5,
    gen_bs_multiple 2) on a device-resident dataset of 50 000 images:
-   launches per cycle asserted exactly, cycles/s for rcgan and rcgan-u, a
+   launches per cycle asserted exactly (conv3x3 per variant: rcgan 174
+   wgmma + 14 ffma), cycles/s for rcgan and rcgan-u, a
    profiler breakdown of a cycle of each (device-busy share, top kernels,
    conv3x3, cuDNN's weight grads, Adam), and an rcgan cycle's 3x3 convs
-   timed by kind (forward and input grad on the kernel and on cuDNN,
-   weight grad).
+   timed by kind and variant (forward and input grad on the kernels, on
+   cuDNN in bf16 and on the plain version; weight grads), beside their
+   bound at the H100's peaks and the share of it each reaches.
 
-The line before the last is ``{"kernels": [...]}`` with all five kernels;
+The line before the last is ``{"kernels": [...]}`` with all five kernels,
+each with its bound (``bound_ms``, ``bound_by``) and the time of one
+PyTorch call computing the same function where there is one
+(``library_ms``); conv3x3's row is its FFMA kernel (``conv3x3.cu``) on a
+float32 generator pass at batch 100, as in earlier runs, and adds the
+launches split by variant (``variants``), each variant's own row with its
+source, launches, error and times on the rcgan cycle's bf16 convs
+(``by_variant``), and all those convs together (``cycle_bf16_ms``,
+``cycle_bf16_plain_ms``, ``cycle_bf16_bound_ms``, ``cycle_bf16_library_ms``);
 the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
 any check fails.
@@ -62,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import json
 import math
 import statistics
@@ -93,6 +113,11 @@ SN_SHAPES = [(3, 128), (27, 128), (1152, 128), (128, 128), (1152, 128), (1152, 1
     + [(1152, 128)] * 8 + [(128, 1), (300, 128)]
 SN_EXTRA_SHAPES = [(3072, 10)]
 PROJ_BATCHES = (64, 128)
+# The H100 SXM's published peaks (dense): bf16 tensor cores, float32 on
+# the CUDA cores, HBM3.  A kernel's bound is the larger of its operations
+# over the peak for their type and its bytes (each input read once, each
+# output written once) over the memory rate.
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # Launches per path (perm classifier off): conv3x3, cond_bn, sn, projection.
 PATH_COUNTS = {
     "entry() bfloat16": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 0},
@@ -100,6 +125,16 @@ PATH_COUNTS = {
     "disc_loss rcgan": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 0},
     "disc_loss rcgan-u": {"conv3x3": 31, "cond_bn": 7, "sn": 32, "projection": 1},
     "gen_loss rcgan-u": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 1},
+}
+# conv3x3 per variant on those paths: in bf16 all but G's output conv
+# (O = 3) and D's first (C = 3) on the tensor cores; float32 (the losses'
+# check) all on FFMA.
+PATH_VARIANTS = {
+    "entry() bfloat16": {"wgmma": 17, "ffma": 2},
+    "entry() float32": {"wgmma": 0, "ffma": 19},
+    "disc_loss rcgan": {"wgmma": 0, "ffma": 19},
+    "disc_loss rcgan-u": {"wgmma": 0, "ffma": 31},
+    "gen_loss rcgan-u": {"wgmma": 0, "ffma": 19},
 }
 
 # Tolerances, |kernel - plain| <= atol * max|plain| + rtol * |plain|:
@@ -155,6 +190,8 @@ LOSS_TOL = 1e-3
 # The training phase.  Kernel checks at the cycle's batches (64: each D
 # step's G; 128: the G step's G and D, and rcgan's concatenated D pass).
 TRAIN_BATCHES = (64, 128)
+# A bf16 conv3x3 whose M tiles outnumber a grid's y dimension (65535).
+BIG_M_BATCH = 8200
 # Card against CPU, float32, TF32 off, with the same injected noise (numpy),
 # two cycles (iteration 0 skips the G step), each from the same state.
 CHECK_TRAIN = {"batch": 8, "n_critic": 2, "gen_bs_multiple": 2}
@@ -204,6 +241,8 @@ TIMED_TRAIN = {"dataset": 50000, "batch": 64, "cycles": 12}
 KERNEL_INFO = {
     "cond_bn": {"route": "triton", "source": "rcgan_tpu_torch/ops/kernels/norm_kernel.py",
                 "replaces": "rcgan_tpu/ops/pallas/norm_kernel.py:123"},
+    # the row's own numbers are the FFMA kernel's (a float32 generator
+    # pass); each variant's are under by_variant, with its source
     "conv3x3": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/conv3x3.cu",
                 "replaces": "rcgan_tpu/ops/pallas/conv_kernel.py:101"},
     "sn": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/sn.cu",
@@ -214,6 +253,8 @@ KERNEL_INFO = {
     "dequant": {"route": "triton", "source": "rcgan_tpu_torch/ops/kernels/dequant_kernel.py",
                 "replaces": "rcgan_tpu/ops/pallas/dequant_kernel.py:51"},
 }
+CONV_SOURCES = {"wgmma": "rcgan_tpu_torch/csrc/conv3x3_wgmma.cu",
+                "ffma": "rcgan_tpu_torch/csrc/conv3x3.cu"}
 
 failures: list = []
 
@@ -239,6 +280,36 @@ def event_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, calls: int = 10, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, the graph replayed ``reps`` times, median by CUDA events.  The
+    host's cost of issuing each call is left out, which ``event_ms`` of a
+    single eager call includes when the host is slower than the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
     return statistics.median(times)
 
 
@@ -274,6 +345,37 @@ def compare(torch, got, ref, dtype_name: str):
     return ok, err.max().item(), rel
 
 
+def bound(flops: float, nbytes: float, peak: float):
+    """(least ms, what sets it) for work of ``flops`` operations at ``peak``
+    and ``nbytes`` moved at the HBM rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_work(b: int, hw: int, c: int, o: int, itemsize: int):
+    """(operations, bytes) of a 3x3/SAME conv [b,hw,hw,c] x [3,3,c,o]."""
+    return 2.0 * b * hw * hw * 9 * c * o, itemsize * (b * hw * hw * (c + o) + 9 * c * o)
+
+
+def conv_bound(calls, itemsize: int, peak: float):
+    """(least ms, what sets most of it) of the convs ``calls``, a list of
+    ``(b, hw, c, o)``: the sum of each call's bound."""
+    total = ops = 0.0
+    for b, hw, c, o in calls:
+        ms, by = bound(*conv_work(b, hw, c, o, itemsize), peak)
+        total += ms
+        ops += ms if by == "operations" else 0.0
+    return total, ("operations" if 2 * ops >= total else "bytes")
+
+
+def cudnn_conv(x, w):
+    """The one PyTorch call for conv3x3: ``F.conv2d`` (cuDNN on the card) on
+    NCHW views of NHWC ``x`` and HWIO ``w``."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+
+
 def png_size(body: bytes):
     """(width, height) of a PNG after checking its signature, IHDR and that
     its IDAT data inflates to the size the header implies (8-bit RGB)."""
@@ -294,30 +396,35 @@ def png_size(body: bytes):
 
 def discriminator_slice(torch, dev, seed: int, max_err: dict):
     """Phase 6: the discriminator slice at full width, batch 64.  Returns the
-    launches of each kernel summed over the slice's paths, and (kernel ms,
-    plain ms) of spectral norm per D pass."""
+    launches of each kernel summed over the slice's paths, conv3x3's by
+    variant, and (kernel ms, plain ms) of spectral norm per D pass."""
     import numpy as np
 
     from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
     from rcgan_tpu_torch.core.module import scoped_modules, state_tree
     from rcgan_tpu_torch.entry import entry
     from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
-    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels import conv_kernel, runtime
     from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm
 
     batch = 64
     totals = {k: 0 for k in runtime.KERNELS}
+    var_totals = dict.fromkeys(runtime.VARIANTS["conv3x3"], 0)
 
     def run_path(name, fn):
         """One run of a path on the card, its launches counted and checked."""
         runtime.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        counts = runtime.launch_counts()
+        counts, variants = runtime.launch_counts(), runtime.variant_counts("conv3x3")
         for k, v in counts.items():
             totals[k] += v
+        for k, v in variants.items():
+            var_totals[k] += v
         want = dict(PATH_COUNTS[name], dequant=0)
-        check(counts == want, f"{name}: launches {counts} (want {want})")
+        check(counts == want and variants == PATH_VARIANTS[name],
+              f"{name}: launches {counts}, conv3x3 by variant {variants} "
+              f"(want {want}, {PATH_VARIANTS[name]})")
         return out
 
     # ---- entry(), float32 and bfloat16, each against the CPU on the same weights
@@ -440,6 +547,19 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
         ms = event_ms(torch, lambda: f(zz, ll), reps=20)
         print(f"  entry() forward, {dt_name}: {ms:.3f} ms ({batch / ms * 1e3:.1f} images/s)",
               flush=True)
+    # the host's cost of the autograd function around a no-grad conv:
+    # conv3x3 (through Conv3x3Fn) against the bare launch it wraps, D's 8x8
+    # conv at batch 64 in bf16, alternating, each call issued alone
+    xs = torch.randn(batch, 8, 8, 128, device=dev).to(torch.bfloat16)
+    ws = (torch.randn(3, 3, 128, 128, device=dev) * 0.04).to(torch.bfloat16)
+    via_fn, bare = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            via_fn.append(event_ms(torch, lambda: conv_kernel.conv3x3(xs, ws)))
+            bare.append(event_ms(torch, lambda: conv_kernel._forward(xs, ws)))
+    print(f"  conv3x3 [{batch},8,8,128]x[3,3,128,128] bf16, no grad, one call issued alone: "
+          f"through Conv3x3Fn {statistics.median(via_fn) * 1e3:.1f} us, bare launch "
+          f"{statistics.median(bare) * 1e3:.1f} us (medians of 3 alternating medians)", flush=True)
     bt = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
     zt = torch.from_numpy(zn).to(dev)
     for dt_name in ("bfloat16", "float32"):
@@ -458,7 +578,7 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
           f"({busy / wall:.0%}); by kernel:", flush=True)
     for t, n, name in rows[:8]:
         print(f"    {t:.4f} ms x{n} {name[:70]}", flush=True)
-    return totals, sn_ms
+    return totals, var_totals, sn_ms
 
 
 def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dict:
@@ -486,6 +606,19 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
     for k, v in per_d_step.items():
         counts[k] += n_critic * v
     return counts
+
+
+def cycle_variants(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dict:
+    """conv3x3 launches of one bf16 training cycle by variant.  Only G's
+    output conv (O = 3) and D's first conv (C = 3) are ragged and run on
+    FFMA: in the G step the forward and the input grad of each (4); in each
+    critic step G's output conv once and D's first conv once per D pass
+    (its input grad is not taken, its input being data).  Every other conv
+    has C and O multiples of 64 and runs on the tensor cores."""
+    passes = 2 if algorithm == "rcgan-u" else 1
+    ffma = 4 * g_step + n_critic * (1 + passes)
+    total = cycle_counts(algorithm, perm, n_critic, g_step)["conv3x3"]
+    return {"wgmma": total - ffma, "ffma": ffma}
 
 
 def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
@@ -541,11 +674,14 @@ def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
 
 
 def training_slice(torch, dev, seed: int, card: str, max_err: dict):
-    """Phase 7: the training cycle.  Returns the launches of each kernel
-    over the timed configuration's counted cycles, and (kernel ms, plain
-    ms) of the dequantisation at [64, 3072].  The dequantisation's
-    ``max_err`` is how far its noise strays outside [0, 1/128]: its random
-    bits are Philox's, so it is held to the plain version in distribution."""
+    """Phase 7: the training cycle.  Returns a dict: the launches of each
+    kernel over the timed configuration's counted cycles (``counts``),
+    conv3x3's by variant (``variants``), (kernel ms, plain ms) of the
+    dequantisation at [64, 3072] (``dequant_ms``) and the bytes it moves
+    (``dequant_bytes``), and an rcgan cycle's conv times
+    (``cycle_conv_times``).  The dequantisation's ``max_err`` is how far
+    its noise strays outside [0, 1/128]: its random bits are Philox's, so
+    it is held to the plain version in distribution."""
     import numpy as np
 
     from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
@@ -632,6 +768,8 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
           "dequant: the same seeds give bit-identical rows in a permuted and a sliced batch")
     check(bool((dequantize(x, seeds + 1) != out).any(dim=1).all()),
           "dequant: other seeds give other rows")
+    dequant_bytes = x.numel() * x.element_size() + seeds.numel() * seeds.element_size() \
+        + out.numel() * out.element_size()
     tk = statistics.median([event_ms(torch, lambda: dequantize(x, seeds)) for _ in range(2)])
     tp = statistics.median([event_ms(torch, lambda: dequantize_plain(
         x, torch.rand(64, 3072, device=dev) / 128.0)) for _ in range(2)])
@@ -691,6 +829,7 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
     tcfg = CifarTrainConfig()
     bt = TIMED_TRAIN["batch"]
     totals = {k: 0 for k in runtime.KERNELS}
+    var_totals = dict.fromkeys(runtime.VARIANTS["conv3x3"], 0)
     for alg, perm in (("rcgan", False), ("rcgan-u", True)):
         acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
         tr = CifarTrainer(ResnetGANConfig(algorithm=alg), acfg, tcfg, c_mat, dev,
@@ -712,12 +851,16 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
             runtime.reset_launch_counts()
             m = cycle()
             torch.cuda.synchronize()
-            counts = runtime.launch_counts()
+            counts, variants = runtime.launch_counts(), runtime.variant_counts("conv3x3")
             want = cycle_counts(alg, perm, tcfg.n_critic, g_step=it > 0)
+            want_v = cycle_variants(alg, perm, tcfg.n_critic, g_step=it > 0)
             for k, v in counts.items():
                 totals[k] += v
-            check(counts == want, f"training {alg} bf16 batch {bt}, cycle at iteration {it}: "
-                                  f"launches {counts} (want {want})")
+            for k, v in variants.items():
+                var_totals[k] += v
+            check(counts == want and variants == want_v,
+                  f"training {alg} bf16 batch {bt}, cycle at iteration {it}: launches {counts}, "
+                  f"conv3x3 by variant {variants} (want {want}, {want_v})")
         ms = event_ms(torch, cycle, reps=TIMED_TRAIN["cycles"], warmup=2)
         m = cycle()
         finite = all(math.isfinite(float(v)) for v in m.values())
@@ -742,29 +885,27 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
             print(f"    {label}: {sum(r[0] for r in hit):.3f} ms per cycle in "
                   f"{sum(r[1] for r in hit)} launches", flush=True)
         if alg == "rcgan":
-            totals_ms = cycle_conv_times(torch, dev, gen, bt)
-            print(f"  per rcgan cycle, bf16, by CUDA events: input-grad convs "
-                  f"({totals_ms['n_dx']} calls) kernel {totals_ms['dx'][0]:.3f} ms vs "
-                  f"cuDNN bf16 {totals_ms['dx'][1]:.3f} ms; forward convs "
-                  f"({totals_ms['n_fwd']} calls) kernel {totals_ms['fwd'][0]:.3f} ms vs cuDNN "
-                  f"{totals_ms['fwd'][1]:.3f} ms; weight grads ({totals_ms['n_dw']} calls, "
-                  f"cuDNN) {totals_ms['dw']:.3f} ms", flush=True)
-    return totals, (tk, tp)
+            conv_ms = cycle_conv_times(torch, dev, gen, bt)
+    return {"counts": totals, "variants": var_totals, "dequant_ms": (tk, tp),
+            "dequant_bytes": dequant_bytes, "cycle_conv_times": conv_ms}
 
 
 def cycle_conv_times(torch, dev, gen, b: int) -> dict:
-    """CUDA-event times of one rcgan cycle's 3x3 convs, bf16, summed with
-    their multiplicities: the forwards and the input-grad convs on the
-    kernel and on cuDNN in bf16 (``F.conv2d`` on channels-last views), and
-    the weight grads (cuDNN)."""
-    import torch.nn.functional as F
+    """Times of one rcgan cycle's 3x3 convs, bf16, summed with their
+    multiplicities, and printed: per kind (forward, input grad) and per
+    variant, the device time (``graph_ms``) on the kernels, on cuDNN in
+    bf16 (``F.conv2d`` on channels-last views) and on the plain version,
+    beside their bound at the H100's bf16 peak; the time of each call
+    issued alone from the host (``event_ms``: host cost included), kernel
+    and cuDNN; the largest conv's rate; the weight grads (cuDNN).  Returns
+    ``{"fwd"|"dx"|"wgmma"|"ffma": {"kernel", "cudnn", "plain", "bound",
+    "bound_ops", "eager", "eager_cudnn", "n"}, "dw": {"ms", "n"},
+    "largest": (ms, flops)}``, where ``bound_ops`` sums the bounds of the
+    calls that the operations, not the bytes, bound."""
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
+                                                         conv3x3_variant, conv3x3_weight_grad)
 
-    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3, conv3x3_weight_grad
-
-    def cudnn(x, w):
-        return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-
-    # (batch, H=W, C, O, forwards, input grads, weight grads) per cycle
+    # (batch, H=W, C, O) -> (forwards, input grads, weight grads) per cycle
     calls = {}
 
     def add(bb, hw, c, o, fwd, dx, dw):
@@ -777,21 +918,61 @@ def cycle_conv_times(torch, dev, gen, b: int) -> dict:
         add(b, hw, c, o, 5, 0, 0)
     for i, (hw, c, o) in enumerate(D_CONV_SHAPES):  # D at 2B: G step, then 5 D steps
         add(2 * b, hw, c, o, 6, 1 + (5 if i else 0), 5)
-    out = {"fwd": [0.0, 0.0], "dx": [0.0, 0.0], "dw": 0.0, "n_fwd": 0, "n_dx": 0, "n_dw": 0}
+    out = {k: dict(kernel=0.0, cudnn=0.0, plain=0.0, bound=0.0, bound_ops=0.0, eager=0.0,
+                   eager_cudnn=0.0, n=0) for k in ("fwd", "dx", "wgmma", "ffma")}
+    out["dw"] = {"ms": 0.0, "n": 0}
+    out["largest"] = (0.0, 0.0)
     for (bb, hw, c, o), (nf, nd, nw) in calls.items():
         x = torch.randn(bb, hw, hw, c, generator=gen).to(dev, torch.bfloat16)
         w = (torch.randn(3, 3, c, o, generator=gen) * 0.05).to(dev, torch.bfloat16)
         g = torch.randn(bb, hw, hw, o, generator=gen).to(dev, torch.bfloat16)
         wt = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()
         with torch.no_grad():
-            for key, n_calls, args in (("fwd", nf, (x, w)), ("dx", nd, (g, wt))):
-                if n_calls:
-                    out[key][0] += n_calls * event_ms(torch, lambda: conv3x3(*args), reps=10)
-                    out[key][1] += n_calls * event_ms(torch, lambda: cudnn(*args), reps=10)
-                    out["n_" + key] += n_calls
+            for key, n_calls, args, (ci, co) in (("fwd", nf, (x, w), (c, o)),
+                                                 ("dx", nd, (g, wt), (o, c))):
+                if not n_calls:
+                    continue
+                bound_ms, bound_by = bound(*conv_work(bb, hw, ci, co, 2), PEAK_BF16)
+                t = {"kernel": graph_ms(torch, lambda: conv3x3(*args)),
+                     "cudnn": graph_ms(torch, lambda: cudnn_conv(*args)),
+                     "plain": graph_ms(torch, lambda: conv3x3_plain(*args), calls=2, reps=3),
+                     "bound": bound_ms,
+                     "bound_ops": bound_ms if bound_by == "operations" else 0.0,
+                     "eager": event_ms(torch, lambda: conv3x3(*args), reps=10),
+                     "eager_cudnn": event_ms(torch, lambda: cudnn_conv(*args), reps=10)}
+                variant = conv3x3_variant(args[0].shape, co, torch.bfloat16)
+                for group in (key, variant):
+                    for k, v in t.items():
+                        out[group][k] += n_calls * v
+                    out[group]["n"] += n_calls
+                flops = conv_work(bb, hw, ci, co, 2)[0]
+                if flops > out["largest"][1]:
+                    out["largest"] = (t["kernel"], flops)
             if nw:
-                out["dw"] += nw * event_ms(torch, lambda: conv3x3_weight_grad(x, g), reps=10)
-                out["n_dw"] += nw
+                out["dw"]["ms"] += nw * event_ms(torch, lambda: conv3x3_weight_grad(x, g), reps=10)
+                out["dw"]["n"] += nw
+    print(f"  per rcgan cycle, bf16, batch {b}: 3x3 convs by kind and variant, device time "
+          f"in CUDA graphs (kernel; cuDNN bf16; plain; the bound at {PEAK_BF16 / 1e12:.0f} "
+          f"TFLOP/s, and the share of it each reaches), then each call issued alone (host "
+          f"included)", flush=True)
+    for label, key in (("forwards", "fwd"), ("input grads", "dx"),
+                       ("tensor-core kernel (wgmma)", "wgmma"), ("FFMA kernel (ragged)", "ffma")):
+        r = out[key]
+        print(f"    {label} ({r['n']} calls): kernel {r['kernel']:.3f} ms, cuDNN bf16 "
+              f"{r['cudnn']:.3f} ms, plain {r['plain']:.3f} ms, bound {r['bound']:.3f} ms; share "
+              f"of bound: kernel {r['bound'] / r['kernel']:.1%}, cuDNN {r['bound'] / r['cudnn']:.1%}; "
+              f"issued alone: kernel {r['eager']:.3f} ms, cuDNN {r['eager_cudnn']:.3f} ms",
+              flush=True)
+    k = out["fwd"]["kernel"] + out["dx"]["kernel"]
+    c = out["fwd"]["cudnn"] + out["dx"]["cudnn"]
+    bd = out["fwd"]["bound"] + out["dx"]["bound"]
+    print(f"    forwards + input grads ({out['fwd']['n'] + out['dx']['n']} calls): kernel {k:.3f} ms "
+          f"vs cuDNN bf16 {c:.3f} ms ({k / c:.2f}x), bound {bd:.3f} ms: kernel {bd / k:.1%} of "
+          f"it, cuDNN {bd / c:.1%}", flush=True)
+    ms, fl = out["largest"]
+    print(f"    largest conv ({fl / 1e9:.1f} GFLOP): kernel {ms:.4f} ms, {fl / ms / 1e9:.1f} "
+          f"TFLOP/s, {fl / ms / 1e9 / (PEAK_BF16 / 1e12):.1%} of peak", flush=True)
+    print(f"    weight grads ({out['dw']['n']} calls, cuDNN): {out['dw']['ms']:.3f} ms", flush=True)
     return out
 
 
@@ -813,7 +994,8 @@ def main(argv=None) -> int:
 
     from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
     from rcgan_tpu_torch.ops.kernels import runtime
-    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3, conv3x3_plain
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
+                                                         conv3x3_variant)
     from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
     from rcgan_tpu_torch.ops.kernels.projection_kernel import (all_label_projection_logits,
                                                                projection_plain)
@@ -842,8 +1024,9 @@ def main(argv=None) -> int:
         return time.perf_counter() - t
 
     t_all = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = {name: pool.submit(timed_build, name) for name in ("conv3x3", "sn")}
+    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn")
+    with concurrent.futures.ThreadPoolExecutor(len(cuda_sources)) as pool:
+        builds = {name: pool.submit(timed_build, name) for name in cuda_sources}
         gen_cpu = torch.Generator().manual_seed(args.seed)
         x = torch.randn(2, 16, 8, generator=gen_cpu).to(dev)
         t0 = time.perf_counter()
@@ -861,6 +1044,16 @@ def main(argv=None) -> int:
         for name, fut in builds.items():
             print(f"build {name} (nvcc, sm_90a): {fut.result():.2f} s", flush=True)
     print(f"builds, all together: {time.perf_counter() - t_all:.2f} s", flush=True)
+    # the tensor-core conv3x3 as ptxas saw it, and its dynamic shared memory
+    log = runtime.build_logs.get("conv3x3_wgmma")
+    for line in (log or "not built by this process: no ptxas report\n").splitlines():
+        if any(k in line for k in ("Compiling entry", "registers", "spill", "not built")):
+            print(f"  ptxas conv3x3_wgmma: {line.strip()}", flush=True)
+    smem = runtime.cuda_library("conv3x3_wgmma").conv3x3_wgmma_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    print("  conv3x3_wgmma dynamic shared memory per block: " + ", ".join(
+        f"{bm} x {bn} tile {smem(bm, bn)} bytes" for bm, bn in ((64, 128), (128, 128), (128, 256))),
+          flush=True)
 
     # ------------------------------------------------- 3. kernels against plain
     max_err = {k: 0.0 for k in runtime.KERNELS}
@@ -904,6 +1097,52 @@ def main(argv=None) -> int:
                         max_err["conv3x3"] = max(max_err["conv3x3"], err)
                     check(ok, f"{tag} [{b},{hw},{hw},{c}]x[3,3,{c},{o}] {name}: max abs err "
                               f"{err:.3e}, max rel err {rel:.3e}")
+    # conv3x3 in bf16 at every shape of the training cycle, with forward and
+    # input-grad filters: each call launches the variant conv3x3_variant
+    # names (wgmma unless C or O is 3) and matches the plain version; the
+    # largest error is kept per variant
+    max_err["conv3x3_bf16"] = {v: 0.0 for v in CONV_SOURCES}
+    for tag, shapes in (("G", CONV_SHAPES), ("D", D_CONV_SHAPES)):
+        for b in TRAIN_BATCHES:
+            for hw, c, o in sorted(set(shapes)):
+                for kind, (ci, co) in (("forward", (c, o)), ("input grad", (o, c))):
+                    x = torch.randn(b, hw, hw, ci, generator=gen_cpu)
+                    x = (torch.relu(x) if kind == "forward" else x).to(dev, torch.bfloat16)
+                    w = (torch.randn(3, 3, ci, co, generator=gen_cpu) * (2.0 / (9 * ci)) ** 0.5)
+                    w = w.to(dev, torch.bfloat16)
+                    want = conv3x3_variant(x.shape, co, torch.bfloat16)
+                    before = runtime.variant_counts("conv3x3")
+                    got = conv3x3(x, w)
+                    ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
+                    ref = conv3x3_plain(x.float(), w.float())
+                    torch.cuda.synchronize()
+                    ok, err, rel = compare(torch, got, ref, "bfloat16")
+                    max_err["conv3x3_bf16"][want] = max(max_err["conv3x3_bf16"][want], err)
+                    check(ok and ran == {v: int(v == want) for v in ran},
+                          f"conv3x3 {tag} {kind} [{b},{hw},{hw},{ci}]x[3,3,{ci},{co}] bfloat16 on "
+                          f"{want} (launched {ran}): max abs err {err:.3e}, max rel err {rel:.3e}")
+    # a bf16 call with more tiles of M = B*H*W than a grid's y dimension
+    # holds (65535): 8200 images of 32x32, 64 -> 64 channels, 65 600 tiles of
+    # 128 pixels.  A conv is per image, so the output's first and last eight
+    # images and the eight around tile 65535 are held against the plain
+    # version of those images alone.
+    gen_dev = torch.Generator(device=dev).manual_seed(args.seed)
+    xb = torch.relu(torch.randn(BIG_M_BATCH, 32, 32, 64, generator=gen_dev, device=dev,
+                                dtype=torch.bfloat16))
+    wb = (torch.randn(3, 3, 64, 64, generator=gen_cpu) * (2.0 / 576) ** 0.5).to(dev, torch.bfloat16)
+    before = runtime.variant_counts("conv3x3")
+    got = conv3x3(xb, wb)
+    ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
+    res = [compare(torch, got[i:i + 8], conv3x3_plain(xb[i:i + 8].float(), wb.float()), "bfloat16")
+           for i in (0, 65535 * 128 // 1024 - 4, BIG_M_BATCH - 8)]
+    finite = bool(torch.isfinite(got).all())
+    torch.cuda.synchronize()
+    check(finite and all(ok for ok, _, _ in res) and ran == {"wgmma": 1, "ffma": 0},
+          f"conv3x3 [{BIG_M_BATCH},32,32,64]x[3,3,64,64] bfloat16, {BIG_M_BATCH * 1024 // 128} "
+          f"M tiles, on wgmma (launched {ran}): finite {finite}, max abs err "
+          f"{max(r[1] for r in res):.3e}, max rel err {max(r[2] for r in res):.3e}")
+    del xb, got
+    torch.cuda.empty_cache()
     for m, cout in sorted(set(SN_SHAPES + SN_EXTRA_SHAPES)):
         w = (torch.randn(m, cout, generator=gen_cpu) / m ** 0.5).to(dev)
         u = torch.randn(1, cout, generator=gen_cpu).to(dev)
@@ -990,7 +1229,7 @@ def main(argv=None) -> int:
         raw = sampler.sample_with_z(rng.standard_normal((130, cfg.z_dim)).astype(np.float32),
                                     np.arange(130) % cfg.vocab_size)
         torch.cuda.synchronize()
-        counts = runtime.launch_counts()
+        counts, serve_variants = runtime.launch_counts(), runtime.variant_counts("conv3x3")
         passes = sampler.passes - passes0
         # ---- checks on what came back
         for path, n in requests.items():
@@ -1019,6 +1258,8 @@ def main(argv=None) -> int:
         for k in ("cond_bn", "conv3x3"):
             check(passes > 0 and counts[k] == 7 * passes,
                   f"{k}: {counts[k]} launches over {passes} generator passes (want 7 per pass)")
+        check(serve_variants == {"wgmma": 0, "ffma": 7 * passes},
+              f"conv3x3 by variant on the float32 serving path: {serve_variants} (all on ffma)")
         for k in ("sn", "projection", "dequant"):
             check(counts[k] == 0, f"{k}: {counts[k]} launches on the serving path (want 0)")
 
@@ -1058,6 +1299,21 @@ def main(argv=None) -> int:
         for b, (tk, tp) in d.items():
             print(f"  {impl[kname][3]} at batch {b}: kernel {tk:.4f} ms, plain {tp:.4f} ms",
                   flush=True)
+    # the one PyTorch call that computes the projection: cuBLAS's addmm
+    feat, emb, wgan = inputs[("projection", 64)]
+    proj_library_ms = statistics.median(
+        [event_ms(torch, lambda: torch.addmm(wgan, feat, emb.t())) for _ in range(2)])
+    print(f"  projection at batch 64, one torch.addmm (cuBLAS): {proj_library_ms:.4f} ms",
+          flush=True)
+    # the one PyTorch call for conv3x3 per generator pass at batch 100, float32
+    # (TF32 off): cuDNN
+    conv_library_ms = sum(
+        CONV_SHAPES.count(s_) * statistics.median(
+            [event_ms(torch, lambda: cudnn_conv(*inputs[("conv3x3", 100, *s_)]))
+             for _ in range(2)])
+        for s_ in set(CONV_SHAPES))
+    print(f"  conv3x3 per generator pass at batch 100, cuDNN float32: {conv_library_ms:.4f} ms",
+          flush=True)
     for bkt in BUCKETS:
         zt = torch.from_numpy(rng.standard_normal((bkt, cfg.z_dim)).astype(np.float32)).to(dev)
         lt = torch.arange(bkt, device=dev) % cfg.vocab_size
@@ -1091,23 +1347,84 @@ def main(argv=None) -> int:
           f"PNG encode {ms_png:.2f} ms, rest (gather window, z, HTTP) {rest:.2f} ms", flush=True)
 
     # ------------------------------------------------ 6. the discriminator slice
-    d_counts, sn_ms = discriminator_slice(torch, dev, args.seed, max_err)
+    d_counts, d_variants, sn_ms = discriminator_slice(torch, dev, args.seed, max_err)
 
     # ------------------------------------------------------ 7. the training cycle
-    t_counts, dequant_ms = training_slice(torch, dev, args.seed, card, max_err)
+    t_res = training_slice(torch, dev, args.seed, card, max_err)
 
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
     # launches: the serving path's, the discriminator slice's paths' and the
-    # counted training cycles', each counted from 0; times: per generator
-    # pass at batch 100 (cond_bn, conv3x3), per D pass (sn), one call at
-    # batch 64 (projection), one call at [64, 3072] (dequant)
-    timed = {"cond_bn": per_pass["cond_bn"][100], "conv3x3": per_pass["conv3x3"][100],
-             "sn": sn_ms, "projection": per_pass["projection"][64], "dequant": dequant_ms}
-    kernels = [dict(name=k, **KERNEL_INFO[k], launches=counts[k] + d_counts[k] + t_counts[k],
-                    max_abs_err=max_err[k], ms=timed[k][0], plain_ms=timed[k][1])
-               for k in runtime.KERNELS]
+    # counted training cycles', each counted from 0.  Times (and the bound
+    # and the one-call library time beside each): per generator pass at
+    # batch 100, float32, eager (cond_bn; conv3x3, library: cuDNN float32);
+    # per D pass (sn); one call at batch 64 (projection; library: cuBLAS
+    # addmm); one call at [64, 3072] (dequant).  conv3x3 adds the rcgan
+    # training cycle's 188 bf16 forward and input-grad convs, device time in
+    # CUDA graphs, per variant (by_variant) and together (cycle_bf16_*;
+    # library: cuDNN bf16).  Operations
+    # counted per element:
+    # cond-BN 7 (moments 3, apply 4), sn 5 per weight entry (two GEMVs and
+    # the division), dequant 30 (Philox's rounds and the scaling).
+    conv = t_res["cycle_conv_times"]
+    cycle_bound = conv["fwd"]["bound"] + conv["dx"]["bound"]
+    cycle_ops = conv["fwd"]["bound_ops"] + conv["dx"]["bound_ops"]
+    cbn = [(100 * s_ * c, c) for s_, c in COND_BN_SHAPES]
+    sn_w = [m * co for m, co in SN_SHAPES]
+    rows = {
+        "cond_bn": (per_pass["cond_bn"][100],
+                    bound(sum(7 * n for n, _ in cbn),
+                          sum(4 * 2 * n + 8 * 100 + 4 * 2 * 10 * c for n, c in cbn), PEAK_F32),
+                    None),
+        "conv3x3": (per_pass["conv3x3"][100],
+                    conv_bound([(100, *s_) for s_ in CONV_SHAPES], 4, PEAK_F32),
+                    conv_library_ms),
+        "sn": (sn_ms, bound(sum(5 * n for n in sn_w),
+                            sum(4 * (2 * m * co + 2 * co + 1) for m, co in SN_SHAPES), PEAK_F32),
+               None),
+        "projection": (per_pass["projection"][64],
+                       bound(2 * 64 * 128 * 10 + 64 * 10,
+                             4 * (64 * 128 + 10 * 128 + 64 + 64 * 10), PEAK_F32),
+                       proj_library_ms),
+        "dequant": (t_res["dequant_ms"], bound(30 * 64 * 3072, t_res["dequant_bytes"], PEAK_F32),
+                    None),
+    }
+    kernels = []
+    for k in runtime.KERNELS:
+        (ms, plain_ms), (bound_ms, bound_by), library_ms = rows[k]
+        row = dict(name=k, **KERNEL_INFO[k],
+                   launches=counts[k] + d_counts[k] + t_res["counts"][k],
+                   max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+        if k == "conv3x3":
+            row["variants"] = {v: serve_variants[v] + d_variants[v] + t_res["variants"][v]
+                               for v in runtime.VARIANTS[k]}
+            row["ms_is"] = ("the FFMA kernel on one float32 generator pass at batch 100 (7 convs), "
+                            "eager, CUDA events")
+            # each variant on its own: its calls of an rcgan training cycle in
+            # bf16, device time in CUDA graphs, against cuDNN bf16 on the same
+            # calls; max_abs_err over the bf16 checks at the cycle's shapes
+            row["by_variant"] = {
+                v: {"source": CONV_SOURCES[v], "launches": row["variants"][v],
+                    "max_abs_err": max_err["conv3x3_bf16"][v], "ms": conv[v]["kernel"],
+                    "plain_ms": conv[v]["plain"], "bound_ms": conv[v]["bound"],
+                    "bound_by": "operations" if 2 * conv[v]["bound_ops"] >= conv[v]["bound"]
+                    else "bytes",
+                    "library_ms": conv[v]["cudnn"],
+                    "ms_is": f"the {conv[v]['n']} calls on {v} of an rcgan training cycle, "
+                             f"bf16, batch 64, device time in CUDA graphs"}
+                for v in runtime.VARIANTS[k]}
+            row["cycle_bf16_is"] = (f"an rcgan training cycle's {conv['fwd']['n'] + conv['dx']['n']}"
+                                    f" bf16 forward and input-grad convs at batch 64, device time"
+                                    f" in CUDA graphs")
+            row.update(cycle_bf16_ms=conv["fwd"]["kernel"] + conv["dx"]["kernel"],
+                       cycle_bf16_plain_ms=conv["fwd"]["plain"] + conv["dx"]["plain"],
+                       cycle_bf16_bound_ms=cycle_bound,
+                       cycle_bf16_bound_by="operations" if 2 * cycle_ops >= cycle_bound
+                       else "bytes",
+                       cycle_bf16_library_ms=conv["fwd"]["cudnn"] + conv["dx"]["cudnn"])
+        kernels.append(row)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

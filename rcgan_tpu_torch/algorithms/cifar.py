@@ -80,11 +80,11 @@ class CifarGAN(nn.Module):
     ``compute_dtype`` (float32 or bfloat16) at its conv or matmul."""
 
     def __init__(self, cfg: ResnetGANConfig = ResnetGANConfig(),
-                 acfg: CifarAlgoConfig = CifarAlgoConfig(), seed: int = 0, device="cpu",
+                 acfg: CifarAlgoConfig = CifarAlgoConfig(), seed: int = 0, device="cuda",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.acfg = cfg, acfg
-        self.G = Generator(cfg, seed)
+        self.G = Generator(cfg, seed, device="cpu")  # built on the CPU, moved below
         self.D = Discriminator(cfg, seed)
         self.projection = DiscriminatorProjection(cfg, seed)
         self.perm = PermClassifier(cfg, seed) if acfg.perm_classifier else None

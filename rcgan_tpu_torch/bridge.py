@@ -71,7 +71,7 @@ def load_tree(module: nn.Module, params: Mapping, state: Optional[Mapping] = Non
 
 
 def generator_from_jax(params: Mapping, cfg: ResnetGANConfig = ResnetGANConfig(),
-                       device="cpu", state: Optional[Mapping] = None) -> Generator:
+                       device="cuda", state: Optional[Mapping] = None) -> Generator:
     """The port's generator holding the JAX tree's ``G.*`` weights.  The
     generator has no state (cond-BN keeps no running stats), so ``state``
     may hold no ``G.*`` layer."""
@@ -80,7 +80,7 @@ def generator_from_jax(params: Mapping, cfg: ResnetGANConfig = ResnetGANConfig()
 
 def gan_from_jax(params: Mapping, state: Optional[Mapping],
                  cfg: ResnetGANConfig = ResnetGANConfig(),
-                 acfg: CifarAlgoConfig = CifarAlgoConfig(), device="cpu") -> CifarGAN:
+                 acfg: CifarAlgoConfig = CifarAlgoConfig(), device="cuda") -> CifarGAN:
     """The port's :class:`CifarGAN` holding a whole trainer tree: every
     ``G.*``, ``D.*`` and ``confusion_logits`` parameter and every SN ``u``.
     The trees must match the model that ``cfg``/``acfg`` build exactly."""
@@ -136,7 +136,7 @@ def _by_key(tree: Mapping, keys) -> list:
 
 
 def train_state_from_jax(ts_numpy, cfg: ResnetGANConfig, acfg: CifarAlgoConfig,
-                         tcfg: CifarTrainConfig, device="cpu",
+                         tcfg: CifarTrainConfig, device="cuda",
                          compute_dtype: torch.dtype = torch.float32) -> TrainState:
     """The port's :class:`TrainState` from a JAX ``TrainState`` whose leaves
     are numpy arrays (or a :class:`NumpyTrainState`): every group's

@@ -32,10 +32,10 @@ class EntryForward(nn.Module):
     classifier, no confusion matrix), so they load by name."""
 
     def __init__(self, cfg: ResnetGANConfig = ResnetGANConfig(), seed: int = 0,
-                 device="cpu", compute_dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
-        self.G = Generator(cfg, seed)
+        self.G = Generator(cfg, seed, device="cpu")  # built on the CPU, moved below
         self.D = Discriminator(cfg, seed)
         self.projection = DiscriminatorProjection(cfg, seed)
         set_compute_dtype(self, compute_dtype)

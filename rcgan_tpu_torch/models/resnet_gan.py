@@ -149,7 +149,7 @@ class Generator(nn.Module):
     CUDA device that is absent raises."""
 
     def __init__(self, cfg: ResnetGANConfig = ResnetGANConfig(), seed: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.cfg = cfg
         g = cfg.dim_g

@@ -1,29 +1,41 @@
-"""3x3, stride 1, SAME convolution (NHWC x HWIO): CUDA kernel and plain version.
+"""3x3, stride 1, SAME convolution (NHWC x HWIO): two CUDA kernels and the
+plain version.
 
 Replaces the Pallas TPU kernel ``_conv3x3_kernel`` / ``conv3x3_fused``
-(``rcgan_tpu/ops/pallas/conv_kernel.py``).  The kernel itself is
-``rcgan_tpu_torch/csrc/conv3x3.cu``: an implicit GEMM with M = B*H*W,
-N = O, K = 9*C, f32 accumulation, output in the input dtype (float32 or
-bfloat16).  It is bound by FMA throughput on the H100; the source note in
-the ``.cu`` file says how its tiling answers that.
+(``rcgan_tpu/ops/pallas/conv_kernel.py``).  Both kernels are an implicit
+GEMM with M = B*H*W, N = O, K = 9*C, float32 accumulation and the output in
+the input dtype.  Which one a call takes is a pure function of its shape
+and dtype, :func:`conv3x3_variant`:
 
-The TPU kernel took only C and O that are multiples of 128 (its lane
-width) and padded its input with ``jnp.pad``.  The port masks ragged C and
-O and handles the halo with bounds checks, so every 3x3/s1/SAME call is in
-its class, the generator's 256 -> 3 output conv included.
+- ``"wgmma"``, ``rcgan_tpu_torch/csrc/conv3x3_wgmma.cu``: bf16 on the
+  tensor cores, operands brought by TMA (SAME padding by the TMA's zero
+  fill), for bf16 calls with C and O multiples of 64 whose maps split into
+  whole rows or whole images per 128-pixel tile (:func:`wgmma_geometry`):
+  every bf16 conv of the training cycle and of ``entry()`` but D's first
+  (C = 3) and G's output conv (O = 3);
+- ``"ffma"``, ``rcgan_tpu_torch/csrc/conv3x3.cu``: every other call, on
+  the CUDA cores: float32 (serving, with TF32 off) and the ragged bf16
+  convs.  It masks ragged C and O and handles the halo with bounds checks,
+  so every 3x3/s1/SAME call is in its class.
+
+A failure in either kernel raises; nothing falls back to the other kernel
+or to the plain version.  Each launch counts under ``conv3x3`` and under
+its variant (``runtime.variant_counts("conv3x3")``).  Both kernels are
+bound by arithmetic on the H100; the source notes say how each answers it.
 
 Autograd: :class:`Conv3x3Fn` is the route on both devices, the counterpart
 of ``conv3x3_fused``'s ``custom_vjp``.  Its backward is the TPU kernel's
 ``_bwd``: the input grad is another 3x3/s1/SAME conv, of the cotangent with
 the spatially flipped, io-transposed filter, so it goes through
-:func:`conv3x3` and on the card launches this kernel; the weight grad is the
-batch-reducing conv that JAX leaves to XLA, here cuDNN's (or the CPU's)
-``convolution_backward``.  Each runs only when its input takes a gradient,
-and each cotangent is in its primal's dtype.
+:func:`conv3x3` and on the card launches one of these kernels; the weight
+grad is the batch-reducing conv that JAX leaves to XLA, here cuDNN's (or
+the CPU's) ``convolution_backward``.  Each runs only when its input takes a
+gradient, and each cotangent is in its primal's dtype.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -33,6 +45,10 @@ from rcgan_tpu_torch.ops.kernels import runtime
 
 _ENTRY = {torch.float32: "conv3x3_nhwc_f32", torch.bfloat16: "conv3x3_nhwc_bf16"}
 _INT32_MAX = 2**31 - 1
+# The tensor-core kernel: 64 channels per K step; tiles of (output pixels,
+# output channels) 64 x 128, 128 x 128 or 128 x 256, chosen from the grid
+# each gives on the card's SMs.
+WGMMA_BK = 64
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -56,8 +72,60 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("conv3x3 indexes with 32-bit ints; tensor too large")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    _check(x, w)
+def _box(h: int, w: int, bm: int):
+    """``(rows, imgs)`` of the TMA box ``[64, W, rows, imgs]`` that covers a
+    tile of ``bm`` output pixels (``imgs * rows * W == bm``): whole rows of
+    one image where ``bm`` divides H*W, whole images where H*W divides
+    ``bm``; else None."""
+    if w > bm or bm % w:
+        return None
+    if h * w >= bm:
+        return (bm // w, 1) if (h * w) % bm == 0 else None
+    return (h, bm // (h * w)) if bm % (h * w) == 0 else None
+
+
+def conv3x3_variant(x_shape, o: int, dtype: torch.dtype) -> str:
+    """Which kernel a CUDA call with input shape ``[B,H,W,C]``, ``o`` output
+    channels and ``dtype`` launches: ``"wgmma"`` (tensor cores) for bf16
+    with C and O multiples of 64 and a map that tiles by 128 pixels, else
+    ``"ffma"``.  A function of shape and dtype only."""
+    _, h, w, c = x_shape
+    if (dtype == torch.bfloat16 and c % WGMMA_BK == 0 and o % 64 == 0
+            and _box(h, w, 128) is not None):
+        return "wgmma"
+    return "ffma"
+
+
+def _blocks(m: int, o: int, bm: int, bn: int) -> int:
+    return -(-m // bm) * -(-o // bn)
+
+
+def wgmma_geometry(x_shape, o: int, sms: int):
+    """``(bm, bn, rows, imgs)`` of a tensor-core launch on a card with
+    ``sms`` SMs: the tile is 128 x 256 where O is a multiple of 256 and that
+    tile still gives three quarters of a wave of blocks, else 64 x 128 where
+    128 x 128 would leave fewer blocks than the card has SMs (and the map
+    tiles by 64), else 128 x 128; the x box is ``[64, W, rows, imgs]``."""
+    b, h, w, _ = x_shape
+    m = b * h * w
+    if o % 256 == 0 and _blocks(m, o, 128, 256) >= sms * 3 // 4:
+        bm, bn = 128, 256
+    elif _blocks(m, o, 128, 128) < sms and _box(h, w, 64) is not None:
+        bm, bn = 64, 128
+    else:
+        bm, bn = 128, 128
+    rows, imgs = _box(h, w, bm)
+    return bm, bn, rows, imgs
+
+
+@contextlib.contextmanager
+def _device_stream(t: torch.Tensor):
+    """Makes ``t``'s device current and yields its current stream's handle."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_ffma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, wd, c = x.shape
     o = w.shape[3]
     y = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
@@ -66,12 +134,39 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if fn.argtypes is None:  # first use of this entry point
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _device_stream(x) as stream:
         code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, o, stream)
     runtime.check_cuda_status(lib, "conv3x3_error_string", code, "conv3x3 launch")
-    runtime.count_launch("conv3x3")
+    runtime.count_launch("conv3x3", variant="ffma")
     return y
+
+
+def _launch_wgmma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    b, h, wd, c = x.shape
+    o = w.shape[3]
+    bm, bn, rows, imgs = wgmma_geometry(x.shape, o, runtime.sm_count(x))
+    y = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
+    # TMA reads from 16-byte aligned addresses with 16-byte multiple strides
+    if any(t.data_ptr() % 16 for t in (x, w, y)) or (c * 2) % 16 or (o * 2) % 16:
+        raise ValueError("conv3x3 wgmma wants 16-byte aligned x, w, y and C, O multiples of 8")
+    lib = runtime.cuda_library("conv3x3_wgmma")
+    fn = lib.conv3x3_wgmma_bf16
+    if fn.argtypes is None:  # first use of this entry point
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with _device_stream(x) as stream:
+        code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, o, bm, bn, rows, imgs,
+                  stream)
+    runtime.check_cuda_status(lib, "conv3x3_wgmma_error_string", code, "conv3x3 wgmma launch")
+    runtime.count_launch("conv3x3", variant="wgmma")
+    return y
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check(x, w)
+    if conv3x3_variant(x.shape, w.shape[-1], x.dtype) == "wgmma":
+        return _launch_wgmma(x, w)
+    return _launch_ffma(x, w)
 
 
 def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -88,13 +183,17 @@ def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _launch(x, w) if runtime.on_cuda(x, w) else conv3x3_plain(x, w)
+
+
 class Conv3x3Fn(torch.autograd.Function):
-    """``(x, w) → conv``: the CUDA kernel on the card, :func:`conv3x3_plain`
+    """``(x, w) → conv``: a CUDA kernel on the card, :func:`conv3x3_plain`
     on the CPU.  Backward as the module note says."""
 
     @staticmethod
     def forward(ctx, x, w):
-        out = _launch(x, w) if runtime.on_cuda(x, w) else conv3x3_plain(x, w)
+        out = _forward(x, w)
         ctx.save_for_backward(x, w)
         return out
 
@@ -113,6 +212,6 @@ class Conv3x3Fn(torch.autograd.Function):
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3/s1/SAME conv.  CPU tensors take :func:`conv3x3_plain`; CUDA
-    tensors launch the CUDA kernel on the current stream (or raise).
-    Differentiable on both (:class:`Conv3x3Fn`)."""
+    tensors launch one of the CUDA kernels on the current stream (or
+    raise).  Differentiable on both (:class:`Conv3x3Fn`)."""
     return Conv3x3Fn.apply(x, w)

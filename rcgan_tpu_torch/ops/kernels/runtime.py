@@ -13,19 +13,22 @@ CUDA sources under ``rcgan_tpu_torch/csrc`` are compiled with ``nvcc`` at
 first use into ``rcgan_tpu_torch/_build`` (listed in ``.gitignore``), as
 shared libraries with a plain C interface loaded through ``ctypes``.  A
 library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.
+rebuilt and a stale library is never loaded.  ``ptxas`` reports each
+kernel's registers, shared memory and spills (``-Xptxas=-v``); the report of
+a build made by this process is kept in :data:`build_logs`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,23 +37,32 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Launch counters, one per hand-written kernel.  A wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels.
 KERNELS = ("cond_bn", "conv3x3", "sn", "projection", "dequant")
+# A kernel with several implementations also counts each launch under its
+# variant; the kernel's own count is the total.
+VARIANTS = {"conv3x3": ("wgmma", "ffma")}
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}
+_variant_counts: Dict[str, Dict[str, int]] = {k: dict.fromkeys(v, 0) for k, v in VARIANTS.items()}
 _count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}  # library -> nvcc's output, for builds made here
 _build_locks: Dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _locks_lock = threading.Lock()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, variant: Optional[str] = None) -> None:
     with _count_lock:
+        if (variant is None) != (name not in VARIANTS):
+            raise ValueError(f"{name}: variant {variant!r} (want one of {VARIANTS.get(name)})")
         _counts[name] += 1
+        if variant is not None:
+            _variant_counts[name][variant] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -58,10 +70,19 @@ def launch_counts() -> Dict[str, int]:
         return dict(_counts)
 
 
+def variant_counts(name: str) -> Dict[str, int]:
+    """Launches of kernel ``name`` by variant since the last reset."""
+    with _count_lock:
+        return dict(_variant_counts[name])
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         for k in _counts:
             _counts[k] = 0
+        for d in _variant_counts.values():
+            for v in d:
+                d[v] = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -87,6 +108,17 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev} (cpu or cuda)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the CUDA device ``t`` lies on."""
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
 
 
 def _nvcc() -> str:
@@ -122,6 +154,7 @@ def cuda_library(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed for {src} ({' '.join(cmd)}):\n"
                                    f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, out)
+            build_logs[name] = proc.stdout + proc.stderr
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib

@@ -59,7 +59,7 @@ def optimizers(tcfg: CifarTrainConfig) -> Dict[str, ScalelessAdam]:
 
 
 def new_train_state(cfg: ResnetGANConfig, acfg: CifarAlgoConfig, tcfg: CifarTrainConfig,
-                    seed: int = 0, device="cpu",
+                    seed: int = 0, device="cuda",
                     compute_dtype: torch.dtype = torch.float32) -> TrainState:
     """A :class:`CifarGAN` drawn from ``seed`` on ``device``, its parameters
     split into the optimiser groups (``confusion`` for rcgan-u only) with
@@ -79,7 +79,7 @@ class CifarTrainer:
     cycle then takes index batches and gathers on the device."""
 
     def __init__(self, cfg: ResnetGANConfig, acfg: CifarAlgoConfig, tcfg: CifarTrainConfig,
-                 confusion_actual: np.ndarray, device="cpu",
+                 confusion_actual: np.ndarray, device="cuda",
                  compute_dtype: torch.dtype = torch.float32,
                  device_dataset: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg

@@ -50,7 +50,7 @@ def _g_only(tree):
 
 def test_round_trip_is_bit_exact(jax_params):
     params, state = jax_params
-    gen = generator_from_jax(params, ResnetGANConfig(**_KW), state=state)
+    gen = generator_from_jax(params, ResnetGANConfig(**_KW), device="cpu", state=state)
     back, back_state = to_jax_tree(gen)
     g = _g_only(params)
     assert sorted(back) == sorted(g)
@@ -68,7 +68,7 @@ def test_npz_round_trip(jax_params, tmp_path):
     path = str(tmp_path / "generator.npz")
     save_npz(path, _g_only(params))
     loaded = load_npz(path)
-    gen = generator_from_jax(loaded, ResnetGANConfig(**_KW))
+    gen = generator_from_jax(loaded, ResnetGANConfig(**_KW), device="cpu")
     save_npz(str(tmp_path / "again.npz"), to_jax_tree(gen)[0])
     again = load_npz(str(tmp_path / "again.npz"))
     for layer, d in _g_only(params).items():
@@ -79,7 +79,7 @@ def test_npz_round_trip(jax_params, tmp_path):
 
 def test_port_generator_has_the_jax_names_and_shapes(jax_params):
     params, _ = jax_params
-    mine = param_tree(Generator(ResnetGANConfig(**_KW)))
+    mine = param_tree(Generator(ResnetGANConfig(**_KW), device="cpu"))
     theirs = _g_only(params)
     assert {k: {v: tuple(t.shape) for v, t in d.items()} for k, d in mine.items()} == \
         {k: {v: a.shape for v, a in d.items()} for k, d in theirs.items()}
@@ -90,25 +90,26 @@ def test_load_tree_rejects_mismatches(jax_params):
     cfg = ResnetGANConfig(**_KW)
     missing = {k: v for k, v in params.items() if k != "G.Block.2.Conv1"}
     with pytest.raises(KeyError, match="G.Block.2.Conv1"):
-        generator_from_jax(missing, cfg)
+        generator_from_jax(missing, cfg, device="cpu")
     extra = dict(params, **{"G.Extra": {"W": np.zeros((2, 2), np.float32)}})
     with pytest.raises(KeyError, match="G.Extra"):
-        generator_from_jax(extra, cfg)
+        generator_from_jax(extra, cfg, device="cpu")
     wrong = {k: dict(v) for k, v in params.items()}
     wrong["G.Output"]["Filters"] = np.zeros((3, 3, 16, 4), np.float32)
     with pytest.raises(ValueError, match="G.Output/Filters"):
-        generator_from_jax(wrong, cfg)
+        generator_from_jax(wrong, cfg, device="cpu")
     with pytest.raises(KeyError, match="state layers differ"):
-        generator_from_jax(params, cfg, state={"G.Input": {"u": np.zeros((1, 4))}})
+        generator_from_jax(params, cfg, device="cpu", state={"G.Input": {"u": np.zeros((1, 4))}})
     with pytest.raises(ValueError, match="shape"):
-        load_tree(Generator(ResnetGANConfig(dim_g=16, dim_d=8, embedding_dim=12)), params)
+        load_tree(Generator(ResnetGANConfig(dim_g=16, dim_d=8, embedding_dim=12), device="cpu"),
+                  params)
 
 
 def test_trainer_tree_round_trip_is_bit_exact(jax_params):
     """Every G.*, D.* and confusion_logits parameter and every SN u of a
     trainer's tree, through gan_from_jax and back."""
     params, state = jax_params
-    gan = gan_from_jax(params, state, ResnetGANConfig(**_KW), TorchAlgoConfig(**_ALGO))
+    gan = gan_from_jax(params, state, ResnetGANConfig(**_KW), TorchAlgoConfig(**_ALGO), "cpu")
     back, back_state = to_jax_tree(gan)
     assert "confusion_logits" in back and "D.d_perm_classifier_h1" in back_state
     assert len(back_state) == 17 and all(set(d) == {"u"} for d in back_state.values())
@@ -127,12 +128,12 @@ def test_load_tree_rejects_a_missing_or_misshapen_u(jax_params):
     cfg, acfg = ResnetGANConfig(**_KW), TorchAlgoConfig(**_ALGO)
     missing = {k: v for k, v in state.items() if k != "D.Block.3.Conv1"}
     with pytest.raises(KeyError, match="state layers differ.*D.Block.3.Conv1"):
-        gan_from_jax(params, missing, cfg, acfg)
+        gan_from_jax(params, missing, cfg, acfg, "cpu")
     renamed = dict(state, **{"D.Output": {"v": state["D.Output"]["u"]}})
     with pytest.raises(KeyError, match="state vars of D.Output"):
-        gan_from_jax(params, renamed, cfg, acfg)
+        gan_from_jax(params, renamed, cfg, acfg, "cpu")
     wrong = dict(state, **{"D.Output": {"u": np.zeros((1, 2), np.float32)}})
     with pytest.raises(ValueError, match="D.Output/u"):
-        gan_from_jax(params, wrong, cfg, acfg)
+        gan_from_jax(params, wrong, cfg, acfg, "cpu")
     with pytest.raises(KeyError, match="state layers differ"):
-        gan_from_jax(params, None, cfg, acfg)
+        gan_from_jax(params, None, cfg, acfg, "cpu")

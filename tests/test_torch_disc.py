@@ -219,7 +219,7 @@ def test_disc_loss_gradients_match_jax(algorithm):
     acfg = CifarAlgoConfig(algorithm=algorithm)
     jacfg = jcifar.CifarAlgoConfig(algorithm=algorithm)
     cfg, jcfg = (c.__class__(**TINY, algorithm=algorithm) for c in (CFG, JCFG))
-    gan = CifarGAN(cfg, acfg, seed=6)
+    gan = CifarGAN(cfg, acfg, seed=6, device="cpu")
     params, state = perturbed_trees(gan, 6)
     batch, z, c = make_batch(4, 6)
 

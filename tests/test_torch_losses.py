@@ -109,7 +109,8 @@ def test_disc_and_gen_loss_match_jax(algorithm, loss_type, soft_plus, perm, monk
     kw = dict(TINY, algorithm=algorithm)
     acfg_kw = dict(algorithm=algorithm, loss_type=loss_type, soft_plus=soft_plus,
                    perm_classifier=perm, confuse_init=algorithm == "rcgan-u" and perm)
-    gan = CifarGAN(ResnetGANConfig(**kw), CifarAlgoConfig(**acfg_kw), seed=7)
+    gan = CifarGAN(ResnetGANConfig(**kw), CifarAlgoConfig(**acfg_kw), seed=7,
+                   device="cpu")
     params, state = perturbed_trees(gan, 7)
     assert len(state) == 16 + perm
     batch, z, c = make_batch(4, 8)

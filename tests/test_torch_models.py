@@ -43,7 +43,7 @@ def test_generator_matches_jax(dim_g, batch):
     params = _jax_g_params(jcfg, z, labels, dim_g)
     ref = jax.jit(lambda p, z, y: jax_generator(Ctx(params=p, train=True, update_sn=False),
                                                 jcfg, z, y))(params, z, labels)
-    gen = generator_from_jax(params, ResnetGANConfig(dim_g=dim_g))
+    gen = generator_from_jax(params, ResnetGANConfig(dim_g=dim_g), device="cpu")
     out = sample(gen, torch.from_numpy(z), torch.from_numpy(labels))
     assert out.dtype == torch.float32 and out.shape == (batch, 3072)
     assert not out.requires_grad and out.is_inference()
@@ -52,7 +52,7 @@ def test_generator_matches_jax(dim_g, batch):
 
 def test_seeded_init_is_deterministic_and_order_free():
     cfg = ResnetGANConfig(dim_g=8)
-    a, b, c = Generator(cfg, seed=3), Generator(cfg, seed=3), Generator(cfg, seed=4)
+    a, b, c = (Generator(cfg, seed=s, device="cpu") for s in (3, 3, 4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["block1.conv1.Filters"], sc["block1.conv1.Filters"])

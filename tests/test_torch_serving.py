@@ -55,7 +55,7 @@ def pair(tmp_path_factory):
     (run / "config.json").write_text(json.dumps(dict(_KW, algorithm="rcgan")))
     js = jserving.Sampler(tr, ts, "cifar", buckets=(2, 10))
     gen = generator_from_jax(jax.tree_util.tree_map(np.asarray, ts.params),
-                             ResnetGANConfig(**_KW))
+                             ResnetGANConfig(**_KW), device="cpu")
     return js, tserving.Sampler(gen, buckets=(2, 10)), run
 
 

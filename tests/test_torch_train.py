@@ -122,7 +122,7 @@ def test_train_state_bridge_round_trip_is_bit_exact():
     moments and counts are not zeros; and port → JAX → port the same."""
     cfg, acfg, tcfg, jcfg, jacfg, jtcfg = _configs("rcgan-u")
     c, _ = build_confusion(0.6)
-    tr = CifarTrainer(cfg, acfg, tcfg, c)
+    tr = CifarTrainer(cfg, acfg, tcfg, c, device="cpu")
     ts = tr.init(seed=1)
     d, g = _host_batches(1)
     ts, _ = tr.step(ts, d, g, 1, seed=3)
@@ -131,7 +131,7 @@ def test_train_state_bridge_round_trip_is_bit_exact():
     assert int(np_ts.opt_states["gen"][0].count) == 1
     assert int(np_ts.opt_states["disc"][0].count) == N_CRITIC
     jts = _np(_jax_state(np_ts))  # the JAX class, numpy leaves
-    back = to_jax_train_state(train_state_from_jax(jts, cfg, acfg, tcfg))
+    back = to_jax_train_state(train_state_from_jax(jts, cfg, acfg, tcfg, "cpu"))
     want_leaves, want_def = jax.tree_util.tree_flatten(_jax_state(np_ts))
     got_leaves, got_def = jax.tree_util.tree_flatten(_jax_state(back))
     assert got_def == want_def
@@ -206,7 +206,7 @@ def test_cycle_matches_jax_after_one_and_three_cycles(alg):
     run every step.  rcgan-u runs with the perm classifier and confuse_init."""
     cfg, acfg, tcfg, jcfg, jacfg, jtcfg = _configs(alg)
     c, _ = build_confusion(0.6)
-    tr = CifarTrainer(cfg, acfg, tcfg, c)
+    tr = CifarTrainer(cfg, acfg, tcfg, c, device="cpu")
     ts = tr.init(seed=2)
     perturbed_trees(ts.gan, 2)
     jtr = jloop.CifarTrainer(jcfg, jacfg, jtcfg, c)
@@ -236,7 +236,7 @@ def test_every_mode_cycles(alg):
     acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=alg == "rcgan-u",
                            confuse_init=alg == "rcgan-u")
     tcfg = CifarTrainConfig(n_critic=N_CRITIC, gen_bs_multiple=GEN_MULT)
-    tr = CifarTrainer(cfg, acfg, tcfg, build_confusion(0.6)[0])
+    tr = CifarTrainer(cfg, acfg, tcfg, build_confusion(0.6)[0], "cpu")
     runs = []
     for _ in range(2):
         ts = tr.init(seed=4)
@@ -274,8 +274,8 @@ def test_device_dataset_index_batches_equal_host_fed_rows():
     idx = rs.randint(0, n, (2, N_CRITIC, B))
     g = {"random": rs.randint(0, 10, (2, GEN_MULT * B)), "biased": rs.randint(0, 10, (2, GEN_MULT * B))}
 
-    tr_host = CifarTrainer(cfg, acfg, tcfg, c)
-    tr_dev = CifarTrainer(cfg, acfg, tcfg, c, device_dataset=ds)
+    tr_host = CifarTrainer(cfg, acfg, tcfg, c, "cpu")
+    tr_dev = CifarTrainer(cfg, acfg, tcfg, c, "cpu", device_dataset=ds)
     ts_h, ts_d, ts_s = tr_host.init(5), tr_dev.init(5), tr_dev.init(5)
     from rcgan_tpu_torch.core.rng import fold_in
 
