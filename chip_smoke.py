@@ -8,38 +8,44 @@ Drives the port's three paths once at the flagship width
 cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
 
 1. device check (CUDA required), card name and power limit, versions;
-2. build of the hand-written kernels from the repo's sources (the nvcc
-   builds in parallel, the Triton kernels at first launch), with what
-   ``ptxas -v`` reports for the tensor-core conv3x3 (registers, spills) and
-   the dynamic shared memory it asks for;
+2. build of the hand-written kernels from the repo's sources (the four
+   nvcc builds in parallel, the Triton kernels at first launch), with what
+   ``ptxas -v`` reports for both conv3x3 kernels and the projection
+   (registers, spills) and the dynamic shared memory each conv tile asks
+   for;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
-   cond-BN and conv3x3 at every generator shape, batch 1, 8, 32, 64 and
-   100, float32 and bfloat16; conv3x3 at every discriminator shape, batch
-   64 and 128; conv3x3 in bfloat16 at every G and D shape of the training
-   cycle, batch 64 and 128, with forward and input-grad filters, each call
-   checked to have launched the variant that ``conv3x3_variant`` names
-   (``wgmma``: the tensor-core kernel; ``ffma``: the CUDA-core one), and
-   once at 8200 images of 32x32, more M tiles than a grid's y dimension
-   holds;
-   spectral norm at every weight of the discriminator path; the all-label
-   projection at batch 64 and 128, float32 and bfloat16 in;
+   cond-BN and conv3x3 at every generator shape, and conv3x3 at every
+   discriminator shape, batch 1, 8, 32, 64 and 100 (D also 128), float32
+   and bfloat16, each call checked to have taken the route that
+   ``conv3x3_variant`` names (``wgmma``: the tensor-core kernel; ``ffma``:
+   the CUDA-core one, split-K at bucket 1; ``cudnn``: the ragged 3-channel
+   convs); conv3x3 in bfloat16 at every G and D shape of the training
+   cycle, batch 64 and 128, with forward and input-grad filters, likewise,
+   and once at 8200 images of 32x32, more M tiles than a grid's y dimension
+   holds; spectral norm at every weight of the discriminator path; the
+   all-label projection at batch 64 and 128 for the path's dtypes (all
+   float32, all bfloat16) and one mix;
 4. the serving slice: a seeded generator (or ``--checkpoint_dir``'s
    ``generator.npz``) behind ``Sampler`` and ``make_server``, concurrent
    ``/sample`` requests plus ``/healthz``, ``/models`` and ``/metrics``,
    with the kernels' launch counters read around that run, and the card's
    output held against the same generator run on the CPU;
 5. medians of CUDA-event times: each kernel against its plain version,
-   the generator forward per bucket, ``/sample`` latency and its host
-   stages at 100 images; and a ``torch.profiler`` trace of the forward at
-   buckets 1 and 100 for the device's busy share and the time by kernel;
+   the float32 G pass's convs per bucket in CUDA graphs (FFMA against cuDNN
+   float32 and the bound, and the ragged call on cuDNN), the projection in
+   CUDA graphs and issued alone against ``torch.addmm``, with a host-time
+   breakdown of one projection call, the generator forward per bucket,
+   ``/sample`` latency and its host stages at 100 images; and a
+   ``torch.profiler`` trace of the forward at buckets 1 and 100 for the
+   device's busy share and the time by kernel;
 6. the discriminator slice at batch 64: ``entry()`` in float32 (against
    the same weights on the CPU, 1e-3 of the logits' scale) and bfloat16
    (finite, against the CPU's bfloat16 run, and far enough from float32 to
    show it computes in bf16); ``disc_loss`` for rcgan
    and rcgan-u and ``gen_loss`` for rcgan-u, forward under ``no_grad``,
    costs and spectral-norm ``u`` state against the CPU's; each path's
-   launch counts asserted exactly, conv3x3's per variant too (``entry()``
-   bf16: 17 wgmma + 2 ffma); then times of spectral norm per D pass,
+   launch counts asserted exactly, conv3x3's per route too (``entry()``
+   bf16: 17 wgmma + 2 cudnn); then times of spectral norm per D pass,
    the projection, ``entry()`` and ``disc_loss``, and a profiler trace of
    ``entry()``;
 7. the training slice: the conv3x3 and cond-BN autograd functions (input
@@ -53,23 +59,27 @@ cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
    ``confuse_init``): Adam moments, parameters, SN ``u`` and costs; then
    ``bench.py``'s configuration (batch 64, bf16, n_critic 5,
    gen_bs_multiple 2) on a device-resident dataset of 50 000 images:
-   launches per cycle asserted exactly (conv3x3 per variant: rcgan 174
-   wgmma + 14 ffma), cycles/s for rcgan and rcgan-u, a
+   launches per cycle asserted exactly (conv3x3 per route: rcgan 174
+   wgmma + 14 cudnn), cycles/s for rcgan and rcgan-u, a
    profiler breakdown of a cycle of each (device-busy share, top kernels,
    conv3x3, cuDNN's weight grads, Adam), and an rcgan cycle's 3x3 convs
-   timed by kind and variant (forward and input grad on the kernels, on
-   cuDNN in bf16 and on the plain version; weight grads), beside their
+   timed by kind and route (forward and input grad through ``conv3x3``,
+   on cuDNN in bf16 and on the plain version; weight grads), beside their
    bound at the H100's peaks and the share of it each reaches.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
 PyTorch call computing the same function where there is one
-(``library_ms``); conv3x3's row is its FFMA kernel (``conv3x3.cu``) on a
-float32 generator pass at batch 100, as in earlier runs, and adds the
-launches split by variant (``variants``), each variant's own row with its
-source, launches, error and times on the rcgan cycle's bf16 convs
-(``by_variant``), and all those convs together (``cycle_bf16_ms``,
-``cycle_bf16_plain_ms``, ``cycle_bf16_bound_ms``, ``cycle_bf16_library_ms``);
+(``library_ms``); conv3x3's row is its FFMA kernel (``conv3x3.cu``) on the
+six hand-written calls of a float32 generator pass at batch 100, as in
+earlier runs, and adds the calls split by route (``variants``), each
+kernel's own row (``by_variant``: wgmma on the rcgan cycle's bf16 convs,
+ffma on that float32 pass in CUDA graphs), the cuDNN route's row
+(``library_route``: the cycle's 14 ragged convs), the float32 pass per
+bucket (``g_pass_f32``) and the cycle's bf16 convs together
+(``cycle_bf16_ms``, ``cycle_bf16_plain_ms``, ``cycle_bf16_bound_ms``,
+``cycle_bf16_library_ms``); the projection's row adds its device time in
+CUDA graphs beside ``torch.addmm``'s;
 the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
 any check fails.
@@ -106,35 +116,40 @@ CONV_SHAPES = [(8, 1024, 256), (8, 256, 256), (16, 256, 256), (16, 256, 256),
 # one D pass of rcgan-u) and 128 (the concatenated real+fake pass).
 D_CONV_SHAPES = [(32, 3, 128), (32, 128, 128), (16, 128, 128), (16, 128, 128)] \
     + [(8, 128, 128)] * 8
-D_BATCHES = (64, 128)
+D_BATCHES = KERNEL_BATCHES + (128,)
+D_TIMED_BATCHES = (64, 128)
 # Spectral-norm weights [m, cout] per D call: 15 in D, the projection's
 # D.Embedding_y, and the perm classifier's (checked, not on the timed pass).
 SN_SHAPES = [(3, 128), (27, 128), (1152, 128), (128, 128), (1152, 128), (1152, 128)] \
     + [(1152, 128)] * 8 + [(128, 1), (300, 128)]
 SN_EXTRA_SHAPES = [(3072, 10)]
 PROJ_BATCHES = (64, 128)
+# the projection's input dtypes (feat, emb, wgan): the path's (float32 in
+# the losses' checks, bf16 in training) and one mix
+PROJ_DTYPES = (("float32",) * 3, ("bfloat16",) * 3, ("bfloat16", "float32", "float16"))
 # The H100 SXM's published peaks (dense): bf16 tensor cores, float32 on
 # the CUDA cores, HBM3.  A kernel's bound is the larger of its operations
 # over the peak for their type and its bytes (each input read once, each
 # output written once) over the memory rate.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-# Launches per path (perm classifier off): conv3x3, cond_bn, sn, projection.
+# Launches per path (perm classifier off): conv3x3 (hand-written kernels
+# only), cond_bn, sn, projection.
 PATH_COUNTS = {
-    "entry() bfloat16": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 0},
-    "entry() float32": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 0},
-    "disc_loss rcgan": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 0},
-    "disc_loss rcgan-u": {"conv3x3": 31, "cond_bn": 7, "sn": 32, "projection": 1},
-    "gen_loss rcgan-u": {"conv3x3": 19, "cond_bn": 7, "sn": 16, "projection": 1},
+    "entry() bfloat16": {"conv3x3": 17, "cond_bn": 7, "sn": 16, "projection": 0},
+    "entry() float32": {"conv3x3": 17, "cond_bn": 7, "sn": 16, "projection": 0},
+    "disc_loss rcgan": {"conv3x3": 17, "cond_bn": 7, "sn": 16, "projection": 0},
+    "disc_loss rcgan-u": {"conv3x3": 28, "cond_bn": 7, "sn": 32, "projection": 1},
+    "gen_loss rcgan-u": {"conv3x3": 17, "cond_bn": 7, "sn": 16, "projection": 1},
 }
-# conv3x3 per variant on those paths: in bf16 all but G's output conv
-# (O = 3) and D's first (C = 3) on the tensor cores; float32 (the losses'
-# check) all on FFMA.
+# conv3x3 per route on those paths: G's output conv (O = 3) and D's first
+# (C = 3, once per D pass) on cuDNN; the rest on the tensor cores in bf16
+# and on FFMA in float32 (the losses' check).
 PATH_VARIANTS = {
-    "entry() bfloat16": {"wgmma": 17, "ffma": 2},
-    "entry() float32": {"wgmma": 0, "ffma": 19},
-    "disc_loss rcgan": {"wgmma": 0, "ffma": 19},
-    "disc_loss rcgan-u": {"wgmma": 0, "ffma": 31},
-    "gen_loss rcgan-u": {"wgmma": 0, "ffma": 19},
+    "entry() bfloat16": {"wgmma": 17, "ffma": 0, "cudnn": 2},
+    "entry() float32": {"wgmma": 0, "ffma": 17, "cudnn": 2},
+    "disc_loss rcgan": {"wgmma": 0, "ffma": 17, "cudnn": 2},
+    "disc_loss rcgan-u": {"wgmma": 0, "ffma": 28, "cudnn": 3},
+    "gen_loss rcgan-u": {"wgmma": 0, "ffma": 17, "cudnn": 2},
 }
 
 # Tolerances, |kernel - plain| <= atol * max|plain| + rtol * |plain|:
@@ -247,8 +262,7 @@ KERNEL_INFO = {
                 "replaces": "rcgan_tpu/ops/pallas/conv_kernel.py:101"},
     "sn": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/sn.cu",
            "replaces": "rcgan_tpu/ops/pallas/sn_kernel.py:73"},
-    "projection": {"route": "triton",
-                   "source": "rcgan_tpu_torch/ops/kernels/projection_kernel.py",
+    "projection": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/projection.cu",
                    "replaces": "rcgan_tpu/ops/pallas/projection_kernel.py:32"},
     "dequant": {"route": "triton", "source": "rcgan_tpu_torch/ops/kernels/dequant_kernel.py",
                 "replaces": "rcgan_tpu/ops/pallas/dequant_kernel.py:51"},
@@ -374,6 +388,130 @@ def cudnn_conv(x, w):
     import torch.nn.functional as F
 
     return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+
+
+def g_pass_conv_times(torch, inputs) -> dict:
+    """Device time (``graph_ms``) of a float32 generator pass's 3x3 convs
+    at each serving bucket, TF32 off, printed: the calls on the FFMA kernel
+    against cuDNN float32 on the same calls (alternating: kernel, cuDNN,
+    cuDNN, kernel; medians of each pair), beside their bound at the float32
+    peak, and G's output conv (256 -> 3) on its cuDNN route.  Returns
+    ``{bucket: {"kernel", "cudnn", "bound", "bound_by", "ragged",
+    "ragged_bound", "n"}}``."""
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3, conv3x3_variant
+
+    out = {}
+    print(f"  float32 G pass, 3x3 convs per bucket, device time in CUDA graphs (TF32 off; the "
+          f"bound at {PEAK_F32 / 1e12:.0f} TFLOP/s):", flush=True)
+    for b in BUCKETS:
+        r = dict(kernel=0.0, cudnn=0.0, ragged=0.0, ragged_bound=0.0, n=0)
+        calls = []
+        for s_ in sorted(set(CONV_SHAPES)):
+            mult = CONV_SHAPES.count(s_)
+            x, w = inputs[("conv3x3", b, *s_)]
+            with torch.no_grad():
+                if conv3x3_variant(x.shape, s_[2], torch.float32) == "cudnn":
+                    r["ragged"] += mult * graph_ms(torch, lambda: conv3x3(x, w))
+                    r["ragged_bound"] += mult * bound(*conv_work(b, *s_, 4), PEAK_F32)[0]
+                    continue
+                tk = graph_ms(torch, lambda: conv3x3(x, w))
+                tc = graph_ms(torch, lambda: cudnn_conv(x, w))
+                tc2 = graph_ms(torch, lambda: cudnn_conv(x, w))
+                tk2 = graph_ms(torch, lambda: conv3x3(x, w))
+            r["kernel"] += mult * statistics.median([tk, tk2])
+            r["cudnn"] += mult * statistics.median([tc, tc2])
+            r["n"] += mult
+            calls += [(b, *s_)] * mult
+        r["bound"], r["bound_by"] = conv_bound(calls, 4, PEAK_F32)
+        out[b] = r
+        print(f"    bucket {b}: {r['n']} FFMA calls {r['kernel']:.4f} ms vs cuDNN float32 "
+              f"{r['cudnn']:.4f} ms ({r['kernel'] / r['cudnn']:.2f}x), bound {r['bound']:.4f} ms "
+              f"({r['bound_by']}): kernel {r['bound'] / r['kernel']:.1%} of it, cuDNN "
+              f"{r['bound'] / r['cudnn']:.1%}; G's output conv on cuDNN {r['ragged']:.4f} ms "
+              f"(bound {r['ragged_bound']:.4f} ms)", flush=True)
+    return out
+
+
+def projection_times(torch, args) -> dict:
+    """The projection at ``args`` (float32 ``feat [64, 128]``, ``emb``,
+    ``wgan``) against ``torch.addmm`` (cuBLAS), each timed two ways,
+    alternating (kernel, addmm, addmm, kernel; medians of each pair):
+    device time in CUDA graphs (``graph_ms``) and one call issued alone
+    (``event_ms``, the host's cost included); then where the host time of
+    one call goes (:func:`projection_host_breakdown`).  Returns
+    ``{"graph", "addmm_graph", "alone", "addmm_alone", "host_us"}``."""
+    from rcgan_tpu_torch.ops.kernels.projection_kernel import all_label_projection_logits
+
+    feat, emb, wgan = args
+
+    def kern():
+        return all_label_projection_logits(feat, emb, wgan)
+
+    def addmm():
+        return torch.addmm(wgan, feat, emb.t())
+
+    out = {}
+    with torch.no_grad():
+        for key, timer in (("graph", graph_ms), ("alone", event_ms)):
+            tk, ta, ta2, tk2 = (timer(torch, f) for f in (kern, addmm, addmm, kern))
+            out[key], out[f"addmm_{key}"] = statistics.median([tk, tk2]), statistics.median([ta, ta2])
+    print(f"  projection [64,128]x[10,128] float32: device time in CUDA graphs {out['graph']:.4f} "
+          f"ms vs torch.addmm {out['addmm_graph']:.4f} ms; issued alone (host included) "
+          f"{out['alone']:.4f} ms vs torch.addmm {out['addmm_alone']:.4f} ms", flush=True)
+    out["host_us"] = projection_host_breakdown(torch, feat, emb, wgan)
+    return out
+
+
+def projection_host_breakdown(torch, feat, emb, wgan, n: int = 2000) -> dict:
+    """Host microseconds per projection call, no grad, by host clock over
+    ``n`` calls each: the whole call (``ProjectionLogitsFn.apply``), the
+    bare launch (``_launch``), and the launch's stages one at a time (the
+    checks, the output's ``torch.empty``, the library's entry point, the
+    current device and stream by ``runtime.on_device``'s raw lookups, the
+    four ``data_ptr``s, the ``ctypes`` call itself, the launch count),
+    beside the lookup the wrappers made before (``torch.cuda.device`` and
+    ``torch.cuda.current_stream``).  Printed; returns ``{stage: us}``."""
+    from rcgan_tpu_torch.ops.kernels import projection_kernel as pk
+    from rcgan_tpu_torch.ops.kernels import runtime
+
+    b, d = feat.shape
+    v = emb.shape[0]
+    out = torch.empty((b, v), dtype=torch.float32, device=feat.device)
+    fn = runtime.cuda_library("projection").projection_logits
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (feat.data_ptr(), 0, emb.data_ptr(), 0, wgan.data_ptr(), 0, out.data_ptr(), b, v, d,
+            stream)
+
+    def context_stream():
+        with torch.cuda.device(feat.device):
+            return torch.cuda.current_stream(feat.device).cuda_stream
+
+    stages = {
+        "whole call": lambda: pk.all_label_projection_logits(feat, emb, wgan),
+        "bare launch": lambda: pk._launch(feat, emb, wgan),
+        "checks": lambda: pk._check(feat, emb, wgan),
+        "torch.empty": lambda: torch.empty((b, v), dtype=torch.float32, device=feat.device),
+        "entry point": lambda: runtime.cuda_library("projection").projection_logits,
+        "device and stream": lambda: torch._C._cuda_getCurrentRawStream(
+            torch._C._cuda_getDevice()),
+        "data_ptr x4": lambda: (feat.data_ptr(), emb.data_ptr(), wgan.data_ptr(), out.data_ptr()),
+        "ctypes call": lambda: fn(*args),
+        "launch count": lambda: runtime.count_launch("projection"),
+        "former device and stream (context)": context_stream,
+    }
+    us = {}
+    with torch.no_grad():
+        for name, f in stages.items():
+            f()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                f()
+            us[name] = (time.perf_counter() - t) / n * 1e6
+            torch.cuda.synchronize()
+    print("  projection host time per call (us, host clock, mean of " + str(n) + "): "
+          + ", ".join(f"{k} {v_:.2f}" for k, v_ in us.items()), flush=True)
+    return us
 
 
 def png_size(body: bytes):
@@ -591,7 +729,9 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
     frozen (no backward), then D on real and fake data: one pass on the
     concatenated batch, or two for rcgan-u (real alone, then fake against
     every label through the projection kernel), each taking input grads in
-    all its convs but the first, whose input is data."""
+    all its convs but the first, whose input is data.  conv3x3 counts the
+    hand-written kernels' launches only: the ragged convs
+    (:func:`ragged_convs`) go to cuDNN."""
     g_conv, g_bn, d_conv, d_sn = 7, 7, 12, 15
     u = algorithm == "rcgan-u"
     counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "projection": 0, "dequant": 0}
@@ -605,20 +745,26 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
                   "sn": passes * (d_sn + 1) + perm, "projection": int(u), "dequant": 1}
     for k, v in per_d_step.items():
         counts[k] += n_critic * v
+    counts["conv3x3"] -= ragged_convs(algorithm, n_critic, g_step)
     return counts
 
 
-def cycle_variants(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dict:
-    """conv3x3 launches of one bf16 training cycle by variant.  Only G's
-    output conv (O = 3) and D's first conv (C = 3) are ragged and run on
-    FFMA: in the G step the forward and the input grad of each (4); in each
-    critic step G's output conv once and D's first conv once per D pass
-    (its input grad is not taken, its input being data).  Every other conv
-    has C and O multiples of 64 and runs on the tensor cores."""
+def ragged_convs(algorithm: str, n_critic: int, g_step: bool) -> int:
+    """3x3 convs of one training cycle with C or O = 3, which take the
+    cuDNN route: G's output conv (O = 3) and D's first conv (C = 3), in the
+    G step the forward and the input grad of each (4); in each critic step
+    G's output conv once and D's first conv once per D pass (its input grad
+    is not taken, its input being data)."""
     passes = 2 if algorithm == "rcgan-u" else 1
-    ffma = 4 * g_step + n_critic * (1 + passes)
-    total = cycle_counts(algorithm, perm, n_critic, g_step)["conv3x3"]
-    return {"wgmma": total - ffma, "ffma": ffma}
+    return 4 * g_step + n_critic * (1 + passes)
+
+
+def cycle_variants(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dict:
+    """conv3x3 calls of one bf16 training cycle by route: the ragged ones
+    on cuDNN, every other (C and O multiples of 64, maps that tile by 128
+    pixels) on the tensor cores, none on FFMA."""
+    return {"wgmma": cycle_counts(algorithm, perm, n_critic, g_step)["conv3x3"], "ffma": 0,
+            "cudnn": ragged_convs(algorithm, n_critic, g_step)}
 
 
 def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
@@ -893,13 +1039,14 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
 def cycle_conv_times(torch, dev, gen, b: int) -> dict:
     """Times of one rcgan cycle's 3x3 convs, bf16, summed with their
     multiplicities, and printed: per kind (forward, input grad) and per
-    variant, the device time (``graph_ms``) on the kernels, on cuDNN in
-    bf16 (``F.conv2d`` on channels-last views) and on the plain version,
-    beside their bound at the H100's bf16 peak; the time of each call
-    issued alone from the host (``event_ms``: host cost included), kernel
-    and cuDNN; the largest conv's rate; the weight grads (cuDNN).  Returns
-    ``{"fwd"|"dx"|"wgmma"|"ffma": {"kernel", "cudnn", "plain", "bound",
-    "bound_ops", "eager", "eager_cudnn", "n"}, "dw": {"ms", "n"},
+    route, the device time (``graph_ms``) through ``conv3x3`` (the kernels,
+    and cuDNN for the ragged convs), on cuDNN in bf16 (``F.conv2d`` on
+    channels-last views) and on the plain version, beside their bound at
+    the H100's bf16 peak; the time of each call issued alone from the host
+    (``event_ms``: host cost included), ``conv3x3`` and cuDNN; the largest
+    conv's rate; the weight grads (cuDNN).  Returns
+    ``{"fwd"|"dx"|"wgmma"|"ffma"|"cudnn": {"kernel", "cudnn", "plain",
+    "bound", "bound_ops", "eager", "eager_cudnn", "n"}, "dw": {"ms", "n"},
     "largest": (ms, flops)}``, where ``bound_ops`` sums the bounds of the
     calls that the operations, not the bytes, bound."""
     from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
@@ -919,7 +1066,7 @@ def cycle_conv_times(torch, dev, gen, b: int) -> dict:
     for i, (hw, c, o) in enumerate(D_CONV_SHAPES):  # D at 2B: G step, then 5 D steps
         add(2 * b, hw, c, o, 6, 1 + (5 if i else 0), 5)
     out = {k: dict(kernel=0.0, cudnn=0.0, plain=0.0, bound=0.0, bound_ops=0.0, eager=0.0,
-                   eager_cudnn=0.0, n=0) for k in ("fwd", "dx", "wgmma", "ffma")}
+                   eager_cudnn=0.0, n=0) for k in ("fwd", "dx", "wgmma", "ffma", "cudnn")}
     out["dw"] = {"ms": 0.0, "n": 0}
     out["largest"] = (0.0, 0.0)
     for (bb, hw, c, o), (nf, nd, nw) in calls.items():
@@ -951,24 +1098,28 @@ def cycle_conv_times(torch, dev, gen, b: int) -> dict:
             if nw:
                 out["dw"]["ms"] += nw * event_ms(torch, lambda: conv3x3_weight_grad(x, g), reps=10)
                 out["dw"]["n"] += nw
-    print(f"  per rcgan cycle, bf16, batch {b}: 3x3 convs by kind and variant, device time "
-          f"in CUDA graphs (kernel; cuDNN bf16; plain; the bound at {PEAK_BF16 / 1e12:.0f} "
+    print(f"  per rcgan cycle, bf16, batch {b}: 3x3 convs by kind and route, device time "
+          f"in CUDA graphs (conv3x3; cuDNN bf16; plain; the bound at {PEAK_BF16 / 1e12:.0f} "
           f"TFLOP/s, and the share of it each reaches), then each call issued alone (host "
           f"included)", flush=True)
     for label, key in (("forwards", "fwd"), ("input grads", "dx"),
-                       ("tensor-core kernel (wgmma)", "wgmma"), ("FFMA kernel (ragged)", "ffma")):
+                       ("tensor-core kernel (wgmma)", "wgmma"), ("FFMA kernel", "ffma"),
+                       ("cuDNN route (ragged: C or O = 3)", "cudnn")):
         r = out[key]
-        print(f"    {label} ({r['n']} calls): kernel {r['kernel']:.3f} ms, cuDNN bf16 "
+        if not r["n"]:
+            print(f"    {label}: no calls", flush=True)
+            continue
+        print(f"    {label} ({r['n']} calls): conv3x3 {r['kernel']:.3f} ms, cuDNN bf16 "
               f"{r['cudnn']:.3f} ms, plain {r['plain']:.3f} ms, bound {r['bound']:.3f} ms; share "
-              f"of bound: kernel {r['bound'] / r['kernel']:.1%}, cuDNN {r['bound'] / r['cudnn']:.1%}; "
-              f"issued alone: kernel {r['eager']:.3f} ms, cuDNN {r['eager_cudnn']:.3f} ms",
-              flush=True)
+              f"of bound: conv3x3 {r['bound'] / r['kernel']:.1%}, cuDNN "
+              f"{r['bound'] / r['cudnn']:.1%}; issued alone: conv3x3 {r['eager']:.3f} ms, cuDNN "
+              f"{r['eager_cudnn']:.3f} ms", flush=True)
     k = out["fwd"]["kernel"] + out["dx"]["kernel"]
     c = out["fwd"]["cudnn"] + out["dx"]["cudnn"]
     bd = out["fwd"]["bound"] + out["dx"]["bound"]
-    print(f"    forwards + input grads ({out['fwd']['n'] + out['dx']['n']} calls): kernel {k:.3f} ms "
-          f"vs cuDNN bf16 {c:.3f} ms ({k / c:.2f}x), bound {bd:.3f} ms: kernel {bd / k:.1%} of "
-          f"it, cuDNN {bd / c:.1%}", flush=True)
+    print(f"    forwards + input grads ({out['fwd']['n'] + out['dx']['n']} calls): conv3x3 "
+          f"{k:.3f} ms vs cuDNN bf16 {c:.3f} ms ({k / c:.2f}x), bound {bd:.3f} ms: conv3x3 "
+          f"{bd / k:.1%} of it, cuDNN {bd / c:.1%}", flush=True)
     ms, fl = out["largest"]
     print(f"    largest conv ({fl / 1e9:.1f} GFLOP): kernel {ms:.4f} ms, {fl / ms / 1e9:.1f} "
           f"TFLOP/s, {fl / ms / 1e9 / (PEAK_BF16 / 1e12):.1%} of peak", flush=True)
@@ -995,7 +1146,7 @@ def main(argv=None) -> int:
     from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
     from rcgan_tpu_torch.ops.kernels import runtime
     from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
-                                                         conv3x3_variant)
+                                                         conv3x3_variant, ffma_geometry)
     from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
     from rcgan_tpu_torch.ops.kernels.projection_kernel import (all_label_projection_logits,
                                                                projection_plain)
@@ -1024,7 +1175,7 @@ def main(argv=None) -> int:
         return time.perf_counter() - t
 
     t_all = time.perf_counter()
-    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn")
+    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn", "projection")
     with concurrent.futures.ThreadPoolExecutor(len(cuda_sources)) as pool:
         builds = {name: pool.submit(timed_build, name) for name in cuda_sources}
         gen_cpu = torch.Generator().manual_seed(args.seed)
@@ -1035,25 +1186,26 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print(f"build cond_bn (triton JIT, first launch): {time.perf_counter() - t0:.2f} s",
               flush=True)
-        t0 = time.perf_counter()
-        all_label_projection_logits(torch.zeros(2, 8, device=dev), torch.zeros(10, 8, device=dev),
-                                    torch.zeros(2, 1, device=dev))
-        torch.cuda.synchronize()
-        print(f"build projection (triton JIT, first launch): {time.perf_counter() - t0:.2f} s",
-              flush=True)
         for name, fut in builds.items():
             print(f"build {name} (nvcc, sm_90a): {fut.result():.2f} s", flush=True)
     print(f"builds, all together: {time.perf_counter() - t_all:.2f} s", flush=True)
-    # the tensor-core conv3x3 as ptxas saw it, and its dynamic shared memory
-    log = runtime.build_logs.get("conv3x3_wgmma")
-    for line in (log or "not built by this process: no ptxas report\n").splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill", "not built")):
-            print(f"  ptxas conv3x3_wgmma: {line.strip()}", flush=True)
+    # the CUDA kernels as ptxas saw them (registers, spills), and the dynamic
+    # shared memory each conv tile asks for
+    for name in ("conv3x3", "conv3x3_wgmma", "projection"):
+        log = runtime.build_logs.get(name)
+        for line in (log or "not built by this process: no ptxas report\n").splitlines():
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "not built")):
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
     smem = runtime.cuda_library("conv3x3_wgmma").conv3x3_wgmma_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     print("  conv3x3_wgmma dynamic shared memory per block: " + ", ".join(
         f"{bm} x {bn} tile {smem(bm, bn)} bytes" for bm, bn in ((64, 128), (128, 128), (128, 256))),
           flush=True)
+    smem = runtime.cuda_library("conv3x3").conv3x3_ffma_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    print("  conv3x3 (FFMA) dynamic shared memory per block: " + ", ".join(
+        f"{bm} x {bm} tile {smem(bm, size)} bytes ({name})"
+        for bm in (128, 64) for size, name in ((4, "float32"), (2, "bf16"))), flush=True)
 
     # ------------------------------------------------- 3. kernels against plain
     max_err = {k: 0.0 for k in runtime.KERNELS}
@@ -1077,7 +1229,12 @@ def main(argv=None) -> int:
                     max_err["cond_bn"] = max(max_err["cond_bn"], err)
                 check(ok, f"cond_bn [{b},{s},{c}] {name}: max abs err {err:.3e}, "
                           f"max rel err {rel:.3e}")
-    # conv3x3 at the generator's shapes and at the discriminator's
+    # conv3x3 at the generator's shapes and at the discriminator's, each call
+    # on the route conv3x3_variant names; float32 at bucket 1 includes
+    # split-K geometries of the FFMA kernel (on this card's SM count)
+    sms = runtime.sm_count(torch.empty(1, device=dev))
+    split_calls = []
+    max_err["conv3x3_cudnn"] = 0.0
     for tag, batches, shapes in (("conv3x3", KERNEL_BATCHES, CONV_SHAPES),
                                  ("conv3x3_d", D_BATCHES, D_CONV_SHAPES)):
         for b in batches:
@@ -1085,23 +1242,37 @@ def main(argv=None) -> int:
                 x = torch.relu(torch.randn(b, hw, hw, c, generator=gen_cpu))
                 w = torch.randn(3, 3, c, o, generator=gen_cpu) * (2.0 / (9 * c)) ** 0.5
                 args_f32 = [x.to(dev), w.to(dev)]
-                inputs[(tag, b, hw, c, o)] = args_f32
+                if tag == "conv3x3" or b in D_TIMED_BATCHES:
+                    inputs[(tag, b, hw, c, o)] = args_f32
                 for dt in (torch.float32, torch.bfloat16):
                     xd, wd = (t.to(dt) for t in args_f32)
+                    route = conv3x3_variant(xd.shape, o, dt)
+                    before = runtime.variant_counts("conv3x3")
                     got = conv3x3(xd, wd)
+                    ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
                     ref = conv3x3_plain(xd.float(), wd.float())
                     torch.cuda.synchronize()
                     name = str(dt).split(".")[1]
                     ok, err, rel = compare(torch, got, ref, name)
-                    if dt == torch.float32:
-                        max_err["conv3x3"] = max(max_err["conv3x3"], err)
-                    check(ok, f"{tag} [{b},{hw},{hw},{c}]x[3,3,{c},{o}] {name}: max abs err "
-                              f"{err:.3e}, max rel err {rel:.3e}")
+                    geo = ""
+                    if route == "ffma":
+                        geo = " (bm, bn, splits) = {}".format(ffma_geometry(xd.shape, o, sms))
+                        if dt == torch.float32:
+                            max_err["conv3x3"] = max(max_err["conv3x3"], err)
+                            if b == 1 and ffma_geometry(xd.shape, o, sms)[2] > 1:
+                                split_calls.append((hw, c, o))
+                    if route == "cudnn":
+                        max_err["conv3x3_cudnn"] = max(max_err["conv3x3_cudnn"], err)
+                    check(ok and ran == {v: int(v == route) for v in ran},
+                          f"{tag} [{b},{hw},{hw},{c}]x[3,3,{c},{o}] {name} on {route}{geo} "
+                          f"(ran {ran}): max abs err {err:.3e}, max rel err {rel:.3e}")
+    check(len(split_calls) > 0, f"float32 at bucket 1: {len(split_calls)} conv(s) launched the "
+                                f"FFMA kernel split over K, {sorted(set(split_calls))}")
     # conv3x3 in bf16 at every shape of the training cycle, with forward and
-    # input-grad filters: each call launches the variant conv3x3_variant
-    # names (wgmma unless C or O is 3) and matches the plain version; the
-    # largest error is kept per variant
-    max_err["conv3x3_bf16"] = {v: 0.0 for v in CONV_SOURCES}
+    # input-grad filters: each call takes the route conv3x3_variant names
+    # (wgmma unless C or O is 3, then cuDNN) and matches the plain version;
+    # the largest error is kept per route
+    max_err["conv3x3_bf16"] = {v: 0.0 for v in runtime.VARIANTS["conv3x3"]}
     for tag, shapes in (("G", CONV_SHAPES), ("D", D_CONV_SHAPES)):
         for b in TRAIN_BATCHES:
             for hw, c, o in sorted(set(shapes)):
@@ -1137,7 +1308,7 @@ def main(argv=None) -> int:
            for i in (0, 65535 * 128 // 1024 - 4, BIG_M_BATCH - 8)]
     finite = bool(torch.isfinite(got).all())
     torch.cuda.synchronize()
-    check(finite and all(ok for ok, _, _ in res) and ran == {"wgmma": 1, "ffma": 0},
+    check(finite and all(ok for ok, _, _ in res) and ran == {"wgmma": 1, "ffma": 0, "cudnn": 0},
           f"conv3x3 [{BIG_M_BATCH},32,32,64]x[3,3,64,64] bfloat16, {BIG_M_BATCH * 1024 // 128} "
           f"M tiles, on wgmma (launched {ran}): finite {finite}, max abs err "
           f"{max(r[1] for r in res):.3e}, max rel err {max(r[2] for r in res):.3e}")
@@ -1160,18 +1331,17 @@ def main(argv=None) -> int:
         emb = torch.randn(10, 128, generator=gen_cpu).to(dev)
         wgan = torch.randn(b, 1, generator=gen_cpu).to(dev)
         inputs[("projection", b)] = [feat, emb, wgan]
-        for dt in (torch.float32, torch.bfloat16):
-            targs = [t.to(dt) for t in (feat, emb, wgan)]
+        for dts in PROJ_DTYPES:
+            targs = [t.to(getattr(torch, dt)) for t, dt in zip((feat, emb, wgan), dts)]
             got, ref = all_label_projection_logits(*targs), projection_plain(*targs)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             scale = ref.abs().max().item()
             ok = got.dtype == torch.float32 and bool(torch.isfinite(got).all()) \
                 and err <= PROJ_TOL * scale
-            if dt == torch.float32:
-                max_err["projection"] = max(max_err["projection"], err)
-            check(ok, f"projection [{b},128]x[10,128] {str(dt).split('.')[1]} in: max abs err "
-                      f"{err:.3e} (limit {PROJ_TOL} of scale {scale:.2f})")
+            max_err["projection"] = max(max_err["projection"], err)
+            check(ok, f"projection [{b},128]x[10,128], feat/emb/wgan in {'/'.join(dts)}: max abs "
+                      f"err {err:.3e} (limit {PROJ_TOL} of scale {scale:.2f})")
 
     # --------------------------------------------------------------- 4. slice
     if args.checkpoint_dir:
@@ -1255,11 +1425,13 @@ def main(argv=None) -> int:
         check(code == 200 and 'rcgan_requests_total{model="default"} 6' in text,
               "GET /metrics: HTTP 200, 6 requests counted")
         check(get("/sample?labels=12")[0] == 400, "label out of range -> HTTP 400")
-        for k in ("cond_bn", "conv3x3"):
-            check(passes > 0 and counts[k] == 7 * passes,
-                  f"{k}: {counts[k]} launches over {passes} generator passes (want 7 per pass)")
-        check(serve_variants == {"wgmma": 0, "ffma": 7 * passes},
-              f"conv3x3 by variant on the float32 serving path: {serve_variants} (all on ffma)")
+        for k, per in (("cond_bn", 7), ("conv3x3", 6)):
+            check(passes > 0 and counts[k] == per * passes,
+                  f"{k}: {counts[k]} launches over {passes} generator passes (want {per} per "
+                  f"pass)")
+        check(serve_variants == {"wgmma": 0, "ffma": 6 * passes, "cudnn": passes},
+              f"conv3x3 by route on the float32 serving path: {serve_variants} (6 per pass on "
+              f"ffma, G's output conv on cudnn)")
         for k in ("sn", "projection", "dequant"):
             check(counts[k] == 0, f"{k}: {counts[k]} launches on the serving path (want 0)")
 
@@ -1273,11 +1445,16 @@ def main(argv=None) -> int:
         server_thread.join(timeout=10)
 
     print(f"times on {card}: medians of CUDA events, float32, TF32 off", flush=True)
+    # conv3x3's per-pass sums are its six FFMA calls; G's output conv (256 ->
+    # 3, on cuDNN) is timed on its own line and in g_pass_conv_times
+    ffma_shapes = [s_ for s_ in CONV_SHAPES
+                   if conv3x3_variant((1, s_[0], s_[0], s_[1]), s_[2], torch.float32) == "ffma"]
     impl = {"cond_bn": (cond_batchnorm, cond_batchnorm_plain, COND_BN_SHAPES,
                         "cond_bn per generator pass"),
-            "conv3x3": (conv3x3, conv3x3_plain, CONV_SHAPES, "conv3x3 per generator pass"),
+            "conv3x3": (conv3x3, conv3x3_plain, ffma_shapes,
+                        f"conv3x3 per generator pass ({len(ffma_shapes)} calls on the FFMA kernel)"),
             "conv3x3_d": (conv3x3, conv3x3_plain, D_CONV_SHAPES,
-                          "conv3x3 per D pass (12 calls)"),
+                          "conv3x3 per D pass (12 calls: 11 on the kernels, 1 on cuDNN)"),
             "projection": (all_label_projection_logits, projection_plain, [()],
                            "projection, one call")}
     per_pass = {k: {} for k in impl}  # kind -> batch -> [kernel ms, plain ms]
@@ -1293,27 +1470,27 @@ def main(argv=None) -> int:
         acc = per_pass[kname].setdefault(b, [0.0, 0.0])
         acc[0] += mult * tk
         acc[1] += mult * tp
-        print(f"  {kname} {key[1:]}: kernel {tk:.4f} ms, plain {tp:.4f} ms "
-              f"(x{mult} per pass)", flush=True)
+        on = "kernel"
+        if kname.startswith("conv3x3"):
+            on = conv3x3_variant(targs[0].shape, key[4], torch.float32)
+        print(f"  {kname} {key[1:]}: {on} {tk:.4f} ms, plain {tp:.4f} ms (x{mult} in the "
+              f"per-pass sum)", flush=True)
     for kname, d in per_pass.items():
         for b, (tk, tp) in d.items():
             print(f"  {impl[kname][3]} at batch {b}: kernel {tk:.4f} ms, plain {tp:.4f} ms",
                   flush=True)
-    # the one PyTorch call that computes the projection: cuBLAS's addmm
-    feat, emb, wgan = inputs[("projection", 64)]
-    proj_library_ms = statistics.median(
-        [event_ms(torch, lambda: torch.addmm(wgan, feat, emb.t())) for _ in range(2)])
-    print(f"  projection at batch 64, one torch.addmm (cuBLAS): {proj_library_ms:.4f} ms",
-          flush=True)
-    # the one PyTorch call for conv3x3 per generator pass at batch 100, float32
-    # (TF32 off): cuDNN
+    # the one PyTorch call for conv3x3, on the FFMA kernel's six calls per
+    # generator pass at batch 100, float32 (TF32 off): cuDNN
     conv_library_ms = sum(
-        CONV_SHAPES.count(s_) * statistics.median(
+        ffma_shapes.count(s_) * statistics.median(
             [event_ms(torch, lambda: cudnn_conv(*inputs[("conv3x3", 100, *s_)]))
              for _ in range(2)])
-        for s_ in set(CONV_SHAPES))
-    print(f"  conv3x3 per generator pass at batch 100, cuDNN float32: {conv_library_ms:.4f} ms",
-          flush=True)
+        for s_ in set(ffma_shapes))
+    print(f"  conv3x3 per generator pass at batch 100, its {len(ffma_shapes)} FFMA calls on cuDNN "
+          f"float32: {conv_library_ms:.4f} ms", flush=True)
+    g_pass = g_pass_conv_times(torch, inputs)
+    proj = projection_times(torch, inputs[("projection", 64)])
+    proj_library_ms = proj["addmm_alone"]
     for bkt in BUCKETS:
         zt = torch.from_numpy(rng.standard_normal((bkt, cfg.z_dim)).astype(np.float32)).to(dev)
         lt = torch.arange(bkt, device=dev) % cfg.vocab_size
@@ -1358,15 +1535,18 @@ def main(argv=None) -> int:
     # launches: the serving path's, the discriminator slice's paths' and the
     # counted training cycles', each counted from 0.  Times (and the bound
     # and the one-call library time beside each): per generator pass at
-    # batch 100, float32, eager (cond_bn; conv3x3, library: cuDNN float32);
-    # per D pass (sn); one call at batch 64 (projection; library: cuBLAS
-    # addmm); one call at [64, 3072] (dequant).  conv3x3 adds the rcgan
-    # training cycle's 188 bf16 forward and input-grad convs, device time in
-    # CUDA graphs, per variant (by_variant) and together (cycle_bf16_*;
-    # library: cuDNN bf16).  Operations
-    # counted per element:
-    # cond-BN 7 (moments 3, apply 4), sn 5 per weight entry (two GEMVs and
-    # the division), dequant 30 (Philox's rounds and the scaling).
+    # batch 100, float32, eager (cond_bn; conv3x3: its six FFMA calls,
+    # library: cuDNN float32 on them); per D pass (sn); one call at batch 64
+    # issued alone (projection; library: cuBLAS addmm), with both in CUDA
+    # graphs beside; one call at [64, 3072] (dequant).  conv3x3 adds each
+    # kernel's own row (by_variant: wgmma on the rcgan training cycle's bf16
+    # convs, ffma on the float32 pass at batch 100, device time in CUDA
+    # graphs), the cuDNN route's (library_route: the cycle's ragged convs),
+    # the float32 pass per bucket (g_pass_f32), and the cycle's 188 bf16
+    # forward and input-grad convs together (cycle_bf16_*; library: cuDNN
+    # bf16).  Operations counted per element: cond-BN 7 (moments 3, apply
+    # 4), sn 5 per weight entry (two GEMVs and the division), dequant 30
+    # (Philox's rounds and the scaling).
     conv = t_res["cycle_conv_times"]
     cycle_bound = conv["fwd"]["bound"] + conv["dx"]["bound"]
     cycle_ops = conv["fwd"]["bound_ops"] + conv["dx"]["bound_ops"]
@@ -1378,46 +1558,76 @@ def main(argv=None) -> int:
                           sum(4 * 2 * n + 8 * 100 + 4 * 2 * 10 * c for n, c in cbn), PEAK_F32),
                     None),
         "conv3x3": (per_pass["conv3x3"][100],
-                    conv_bound([(100, *s_) for s_ in CONV_SHAPES], 4, PEAK_F32),
+                    conv_bound([(100, *s_) for s_ in ffma_shapes], 4, PEAK_F32),
                     conv_library_ms),
         "sn": (sn_ms, bound(sum(5 * n for n in sn_w),
                             sum(4 * (2 * m * co + 2 * co + 1) for m, co in SN_SHAPES), PEAK_F32),
                None),
-        "projection": (per_pass["projection"][64],
+        "projection": ((proj["alone"], per_pass["projection"][64][1]),
                        bound(2 * 64 * 128 * 10 + 64 * 10,
                              4 * (64 * 128 + 10 * 128 + 64 + 64 * 10), PEAK_F32),
                        proj_library_ms),
         "dequant": (t_res["dequant_ms"], bound(30 * 64 * 3072, t_res["dequant_bytes"], PEAK_F32),
                     None),
     }
+
+    def bound_by(r):
+        return "operations" if 2 * r["bound_ops"] >= r["bound"] else "bytes"
+
     kernels = []
     for k in runtime.KERNELS:
-        (ms, plain_ms), (bound_ms, bound_by), library_ms = rows[k]
+        (ms, plain_ms), (bound_ms, by), library_ms = rows[k]
         row = dict(name=k, **KERNEL_INFO[k],
                    launches=counts[k] + d_counts[k] + t_res["counts"][k],
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms)
+                   bound_by=by, library_ms=library_ms)
+        if k == "projection":
+            row.update(ms_is="one call at batch 64, float32, issued alone (host included), CUDA "
+                             "events; library_ms: torch.addmm the same way",
+                       device_ms=proj["graph"], library_device_ms=proj["addmm_graph"],
+                       device_ms_is="the same call in CUDA graphs (device time), against "
+                                    "torch.addmm in CUDA graphs",
+                       host_us=proj["host_us"])
         if k == "conv3x3":
             row["variants"] = {v: serve_variants[v] + d_variants[v] + t_res["variants"][v]
                                for v in runtime.VARIANTS[k]}
-            row["ms_is"] = ("the FFMA kernel on one float32 generator pass at batch 100 (7 convs), "
-                            "eager, CUDA events")
-            # each variant on its own: its calls of an rcgan training cycle in
-            # bf16, device time in CUDA graphs, against cuDNN bf16 on the same
-            # calls; max_abs_err over the bf16 checks at the cycle's shapes
+            row["ms_is"] = (f"the FFMA kernel on one float32 generator pass at batch 100 "
+                            f"({len(ffma_shapes)} convs; G's 256 -> 3 conv is on cuDNN), eager, "
+                            f"CUDA events")
+            g100 = g_pass[100]
             row["by_variant"] = {
-                v: {"source": CONV_SOURCES[v], "launches": row["variants"][v],
-                    "max_abs_err": max_err["conv3x3_bf16"][v], "ms": conv[v]["kernel"],
-                    "plain_ms": conv[v]["plain"], "bound_ms": conv[v]["bound"],
-                    "bound_by": "operations" if 2 * conv[v]["bound_ops"] >= conv[v]["bound"]
-                    else "bytes",
-                    "library_ms": conv[v]["cudnn"],
-                    "ms_is": f"the {conv[v]['n']} calls on {v} of an rcgan training cycle, "
-                             f"bf16, batch 64, device time in CUDA graphs"}
-                for v in runtime.VARIANTS[k]}
+                "wgmma": {"source": CONV_SOURCES["wgmma"], "launches": row["variants"]["wgmma"],
+                          "max_abs_err": max_err["conv3x3_bf16"]["wgmma"],
+                          "ms": conv["wgmma"]["kernel"], "plain_ms": conv["wgmma"]["plain"],
+                          "bound_ms": conv["wgmma"]["bound"], "bound_by": bound_by(conv["wgmma"]),
+                          "library_ms": conv["wgmma"]["cudnn"],
+                          "ms_is": f"the {conv['wgmma']['n']} calls on wgmma of an rcgan "
+                                   f"training cycle, bf16, batch 64, device time in CUDA graphs"},
+                "ffma": {"source": CONV_SOURCES["ffma"], "launches": row["variants"]["ffma"],
+                         "max_abs_err": max_err["conv3x3"], "ms": g100["kernel"],
+                         "plain_ms": per_pass["conv3x3"][100][1], "bound_ms": g100["bound"],
+                         "bound_by": g100["bound_by"], "library_ms": g100["cudnn"],
+                         "ms_is": f"the {g100['n']} FFMA calls of a float32 generator pass at "
+                                  f"batch 100, device time in CUDA graphs (plain_ms eager)"}}
+            row["library_route"] = {
+                "variant": "cudnn", "calls": row["variants"]["cudnn"],
+                "max_abs_err": max(max_err["conv3x3_bf16"]["cudnn"], max_err["conv3x3_cudnn"]),
+                "ms": conv["cudnn"]["kernel"], "plain_ms": conv["cudnn"]["plain"],
+                "bound_ms": conv["cudnn"]["bound"], "bound_by": bound_by(conv["cudnn"]),
+                "ms_is": f"the {conv['cudnn']['n']} ragged calls (C or O = 3) of an rcgan "
+                         f"training cycle, bf16, batch 64, through conv3x3 on cuDNN, device time "
+                         f"in CUDA graphs",
+                "g_pass_f32_ms": g100["ragged"], "g_pass_f32_bound_ms": g100["ragged_bound"]}
+            row["g_pass_f32"] = {
+                str(b): {"calls": r["n"], "ffma_ms": r["kernel"], "cudnn_ms": r["cudnn"],
+                         "bound_ms": r["bound"], "ragged_cudnn_ms": r["ragged"]}
+                for b, r in g_pass.items()}
+            row["g_pass_f32_is"] = ("per float32 generator pass and bucket, device time in CUDA "
+                                    "graphs, TF32 off: the FFMA calls, cuDNN float32 on the same "
+                                    "calls, their bound, and G's output conv on cuDNN")
             row["cycle_bf16_is"] = (f"an rcgan training cycle's {conv['fwd']['n'] + conv['dx']['n']}"
-                                    f" bf16 forward and input-grad convs at batch 64, device time"
-                                    f" in CUDA graphs")
+                                    f" bf16 forward and input-grad convs at batch 64 through "
+                                    f"conv3x3, device time in CUDA graphs")
             row.update(cycle_bf16_ms=conv["fwd"]["kernel"] + conv["dx"]["kernel"],
                        cycle_bf16_plain_ms=conv["fwd"]["plain"] + conv["dx"]["plain"],
                        cycle_bf16_bound_ms=cycle_bound,

@@ -3,10 +3,12 @@
 ``conv_type="conv2d"`` and optional spectral norm, ``mean_pool``,
 ``upsample_depth_to_space``).
 
-Every 3x3 / stride 1 / SAME call goes to the hand-written kernel
-(:func:`rcgan_tpu_torch.ops.kernels.conv_kernel.conv3x3`).  The other
-shapes on the ported paths (the 1x1 shortcut convs) stay with
-``F.conv2d`` on permuted views, as the JAX package leaves them to XLA.
+Every 3x3 / stride 1 / SAME call goes to
+:func:`rcgan_tpu_torch.ops.kernels.conv_kernel.conv3x3`, which routes it by
+shape (the hand-written kernels for C and O multiples of 64, cuDNN for the
+3-channel convs).  The other shapes on the ported paths (the 1x1 shortcut
+convs) stay with ``F.conv2d`` on permuted views, as the JAX package leaves
+them to XLA.
 ``x`` and the filter are cast to the layer's ``compute_dtype`` at the conv,
 and the bias to the conv's output dtype, as in JAX.  Weight norm, PixelCNN
 masks and the depthwise/separable variants are not ported yet.

@@ -1,41 +1,46 @@
-"""3x3, stride 1, SAME convolution (NHWC x HWIO): two CUDA kernels and the
-plain version.
+"""3x3, stride 1, SAME convolution (NHWC x HWIO): two CUDA kernels, the
+cuDNN route for ragged channel counts, and the plain version.
 
 Replaces the Pallas TPU kernel ``_conv3x3_kernel`` / ``conv3x3_fused``
 (``rcgan_tpu/ops/pallas/conv_kernel.py``).  Both kernels are an implicit
 GEMM with M = B*H*W, N = O, K = 9*C, float32 accumulation and the output in
-the input dtype.  Which one a call takes is a pure function of its shape
-and dtype, :func:`conv3x3_variant`:
+the input dtype.  Which route a CUDA call takes is a pure function of its
+shape and dtype, :func:`conv3x3_variant`:
 
 - ``"wgmma"``, ``rcgan_tpu_torch/csrc/conv3x3_wgmma.cu``: bf16 on the
   tensor cores, operands brought by TMA (SAME padding by the TMA's zero
   fill), for bf16 calls with C and O multiples of 64 whose maps split into
-  whole rows or whole images per 128-pixel tile (:func:`wgmma_geometry`):
-  every bf16 conv of the training cycle and of ``entry()`` but D's first
-  (C = 3) and G's output conv (O = 3);
-- ``"ffma"``, ``rcgan_tpu_torch/csrc/conv3x3.cu``: every other call, on
-  the CUDA cores: float32 (serving, with TF32 off) and the ragged bf16
-  convs.  It masks ragged C and O and handles the halo with bounds checks,
-  so every 3x3/s1/SAME call is in its class.
+  whole rows or whole images per 128-pixel tile (:func:`wgmma_geometry`);
+- ``"ffma"``, ``rcgan_tpu_torch/csrc/conv3x3.cu``: the other calls with C
+  and O multiples of 64, on the CUDA cores: float32 (serving, with TF32
+  off) and bf16 calls whose maps do not tile.  Its tile, and its split of
+  K where no tile fills the card, come from :func:`ffma_geometry`;
+- ``"cudnn"``: every other shape (on the main path G's 256 -> 3 output
+  conv, D's 3 -> 128 first conv and their input grads) goes to ``F.conv2d``
+  on channels-last views, under the caller's TF32 setting.  The TPU kernel
+  takes only C and O multiples of 128 (its ``supported``) and hands every
+  other 3x3 conv to XLA; the hand-written class here, multiples of 64, is a
+  superset of that.  The route is a rule of shape, not a fallback.
 
-A failure in either kernel raises; nothing falls back to the other kernel
-or to the plain version.  Each launch counts under ``conv3x3`` and under
-its variant (``runtime.variant_counts("conv3x3")``).  Both kernels are
-bound by arithmetic on the H100; the source notes say how each answers it.
+A failure in either kernel raises; nothing falls back to another route or
+to the plain version.  Each kernel launch counts under ``conv3x3`` and under
+its variant; a ``"cudnn"`` call counts under its variant only
+(``runtime.variant_counts("conv3x3")``).  Both kernels are bound by
+arithmetic on the H100; the source notes say how each answers it.
 
 Autograd: :class:`Conv3x3Fn` is the route on both devices, the counterpart
 of ``conv3x3_fused``'s ``custom_vjp``.  Its backward is the TPU kernel's
 ``_bwd``: the input grad is another 3x3/s1/SAME conv, of the cotangent with
 the spatially flipped, io-transposed filter, so it goes through
-:func:`conv3x3` and on the card launches one of these kernels; the weight
-grad is the batch-reducing conv that JAX leaves to XLA, here cuDNN's (or
-the CPU's) ``convolution_backward``.  Each runs only when its input takes a
-gradient, and each cotangent is in its primal's dtype.
+:func:`conv3x3` and takes the route of its own shape (a ragged conv's input
+grad is ragged too); the weight grad is the batch-reducing conv that JAX
+leaves to XLA, here cuDNN's (or the CPU's) ``convolution_backward``.  Each
+runs only when its input takes a gradient, and each cotangent is in its
+primal's dtype.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
@@ -43,12 +48,14 @@ import torch.nn.functional as F
 
 from rcgan_tpu_torch.ops.kernels import runtime
 
-_ENTRY = {torch.float32: "conv3x3_nhwc_f32", torch.bfloat16: "conv3x3_nhwc_bf16"}
+_FFMA_ENTRY = {torch.float32: "conv3x3_ffma_f32", torch.bfloat16: "conv3x3_ffma_bf16"}
 _INT32_MAX = 2**31 - 1
-# The tensor-core kernel: 64 channels per K step; tiles of (output pixels,
-# output channels) 64 x 128, 128 x 128 or 128 x 256, chosen from the grid
-# each gives on the card's SMs.
-WGMMA_BK = 64
+# The hand-written class: C and O multiples of 64.
+CHANNEL_MULTIPLE = 64
+# The FFMA kernel's square tiles, largest first, and the channels per K step
+# of each.
+FFMA_TILES = (128, 64, 32, 16)
+FFMA_BK = {128: 32, 64: 16, 32: 16, 16: 16}
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -62,7 +69,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[3]:
         raise ValueError(f"conv3x3 wants x [B,H,W,C] and w [3,3,C,O]; got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _ENTRY or w.dtype != x.dtype:
+    if x.dtype not in _FFMA_ENTRY or w.dtype != x.dtype:
         raise TypeError(f"conv3x3 takes float32 or bfloat16, x and w alike; got "
                         f"{x.dtype} and {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -85,13 +92,14 @@ def _box(h: int, w: int, bm: int):
 
 
 def conv3x3_variant(x_shape, o: int, dtype: torch.dtype) -> str:
-    """Which kernel a CUDA call with input shape ``[B,H,W,C]``, ``o`` output
-    channels and ``dtype`` launches: ``"wgmma"`` (tensor cores) for bf16
-    with C and O multiples of 64 and a map that tiles by 128 pixels, else
-    ``"ffma"``.  A function of shape and dtype only."""
+    """The route of a CUDA call with input shape ``[B,H,W,C]``, ``o`` output
+    channels and ``dtype``: ``"cudnn"`` unless C and O are multiples of 64;
+    then ``"wgmma"`` (tensor cores) for bf16 with a map that tiles by 128
+    pixels, else ``"ffma"``.  A function of shape and dtype only."""
     _, h, w, c = x_shape
-    if (dtype == torch.bfloat16 and c % WGMMA_BK == 0 and o % 64 == 0
-            and _box(h, w, 128) is not None):
+    if c % CHANNEL_MULTIPLE or o % CHANNEL_MULTIPLE:
+        return "cudnn"
+    if dtype == torch.bfloat16 and _box(h, w, 128) is not None:
         return "wgmma"
     return "ffma"
 
@@ -118,25 +126,53 @@ def wgmma_geometry(x_shape, o: int, sms: int):
     return bm, bn, rows, imgs
 
 
-@contextlib.contextmanager
-def _device_stream(t: torch.Tensor):
-    """Makes ``t``'s device current and yields its current stream's handle."""
-    with torch.cuda.device(t.device):
-        yield torch.cuda.current_stream(t.device).cuda_stream
+def ffma_geometry(x_shape, o: int, sms: int):
+    """``(bm, bn, splits)`` of an FFMA launch on a card with ``sms`` SMs:
+    the largest of the square tiles ``FFMA_TILES`` that gives at least one
+    block per SM, unsplit.  Each tile sums every output as one chain of FMAs
+    over K in order, so the choice of tile changes no result.  Where even
+    16 x 16 tiles are fewer than the SMs, 64 x 64 tiles with K split into
+    ``splits`` slices (whole K steps, at most one slice per step) so that
+    blocks times splits reach the SM count; splitting reorders the sum."""
+    b, h, w, c = x_shape
+    m = b * h * w
+    for t in FFMA_TILES:
+        if _blocks(m, o, t, t) >= sms:
+            return t, t, 1
+    blocks = _blocks(m, o, 64, 64)
+    return 64, 64, min(-(-sms // blocks), 9 * c // FFMA_BK[64])
+
+
+def ffma_k_ranges(c: int, bm: int, splits: int):
+    """``[(k_begin, k_end), ...]``: the slice of K = 9*C (tap-major,
+    channel-minor) that each split of an FFMA launch with tile ``bm``
+    sums, as the kernel computes it: split ``z`` takes K steps
+    ``z*S//splits`` to ``(z+1)*S//splits`` of the ``S = 9*C/BK``."""
+    bk = FFMA_BK[bm]
+    steps = 9 * c // bk
+    return [(z * steps // splits * bk, (z + 1) * steps // splits * bk) for z in range(splits)]
 
 
 def _launch_ffma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, wd, c = x.shape
     o = w.shape[3]
+    bm, bn, splits = ffma_geometry(x.shape, o, runtime.sm_count(x))
     y = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
+    # split-K partial sums, float32, one [M, O] slice per split
+    ws = (torch.empty((splits, b * h * wd, o), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    # 16-byte cp.async copies and stores
+    if any(t.data_ptr() % 16 for t in (x, w, y, ws) if t is not None):
+        raise ValueError("conv3x3 ffma wants 16-byte aligned x, w, y and workspace")
     lib = runtime.cuda_library("conv3x3")
-    fn = getattr(lib, _ENTRY[x.dtype])
+    fn = getattr(lib, _FFMA_ENTRY[x.dtype])
     if fn.argtypes is None:  # first use of this entry point
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    with _device_stream(x) as stream:
-        code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, o, stream)
-    runtime.check_cuda_status(lib, "conv3x3_error_string", code, "conv3x3 launch")
+    code = runtime.on_device(x, fn, x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                             ws.data_ptr() if ws is not None else None, b, h, wd, c, o, bm, bn,
+                             splits)
+    runtime.check_cuda_status(lib, "conv3x3_error_string", code, "conv3x3 ffma launch")
     runtime.count_launch("conv3x3", variant="ffma")
     return y
 
@@ -154,19 +190,29 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if fn.argtypes is None:  # first use of this entry point
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    with _device_stream(x) as stream:
-        code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, o, bm, bn, rows, imgs,
-                  stream)
+    code = runtime.on_device(x, fn, x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, o, bm,
+                             bn, rows, imgs)
     runtime.check_cuda_status(lib, "conv3x3_wgmma_error_string", code, "conv3x3 wgmma launch")
     runtime.count_launch("conv3x3", variant="wgmma")
     return y
 
 
+def _launch_cudnn(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The ``"cudnn"`` route: ``F.conv2d`` on NCHW views of NHWC ``x`` (a
+    channels-last tensor, so the output is one too) and HWIO ``w``."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    runtime.count_launch("conv3x3", variant="cudnn")
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
-    if conv3x3_variant(x.shape, w.shape[-1], x.dtype) == "wgmma":
+    route = conv3x3_variant(x.shape, w.shape[-1], x.dtype)
+    if route == "wgmma":
         return _launch_wgmma(x, w)
-    return _launch_ffma(x, w)
+    if route == "ffma":
+        return _launch_ffma(x, w)
+    return _launch_cudnn(x, w)
 
 
 def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -188,8 +234,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class Conv3x3Fn(torch.autograd.Function):
-    """``(x, w) → conv``: a CUDA kernel on the card, :func:`conv3x3_plain`
-    on the CPU.  Backward as the module note says."""
+    """``(x, w) → conv``: a CUDA kernel or cuDNN by shape on the card,
+    :func:`conv3x3_plain` on the CPU.  Backward as the module note says."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -212,6 +258,6 @@ class Conv3x3Fn(torch.autograd.Function):
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3/s1/SAME conv.  CPU tensors take :func:`conv3x3_plain`; CUDA
-    tensors launch one of the CUDA kernels on the current stream (or
-    raise).  Differentiable on both (:class:`Conv3x3Fn`)."""
+    tensors take the route :func:`conv3x3_variant` names on the current
+    stream (or raise).  Differentiable on both (:class:`Conv3x3Fn`)."""
     return Conv3x3Fn.apply(x, w)

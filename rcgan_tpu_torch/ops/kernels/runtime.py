@@ -43,9 +43,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels.
 KERNELS = ("cond_bn", "conv3x3", "sn", "projection", "dequant")
-# A kernel with several implementations also counts each launch under its
-# variant; the kernel's own count is the total.
-VARIANTS = {"conv3x3": ("wgmma", "ffma")}
+# A kernel with several implementations also counts each call under its
+# variant.  A variant in LIBRARY_VARIANTS is a call routed by shape to a
+# library (cuDNN), not a launch of a hand-written kernel: it is counted by
+# variant, so that a run shows where every call went, and left out of the
+# kernel's own count, which is the total of the other variants.
+VARIANTS = {"conv3x3": ("wgmma", "ffma", "cudnn")}
+LIBRARY_VARIANTS = {"conv3x3": ("cudnn",)}
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}
 _variant_counts: Dict[str, Dict[str, int]] = {k: dict.fromkeys(v, 0) for k, v in VARIANTS.items()}
 _count_lock = threading.Lock()
@@ -58,9 +62,11 @@ _locks_lock = threading.Lock()
 
 def count_launch(name: str, variant: Optional[str] = None) -> None:
     with _count_lock:
-        if (variant is None) != (name not in VARIANTS):
+        if (variant is None) != (name not in VARIANTS) \
+                or (variant is not None and variant not in VARIANTS[name]):
             raise ValueError(f"{name}: variant {variant!r} (want one of {VARIANTS.get(name)})")
-        _counts[name] += 1
+        if variant not in LIBRARY_VARIANTS.get(name, ()):
+            _counts[name] += 1
         if variant is not None:
             _variant_counts[name][variant] += 1
 
@@ -108,6 +114,21 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev} (cpu or cuda)")
+
+
+def on_device(t: torch.Tensor, fn, *args):
+    """``fn(*args, stream)``: a kernel's C entry point called with the raw
+    handle of the current stream of CUDA tensor ``t``'s device, with that
+    device current.  The raw lookups (the ones Triton's launcher makes)
+    cost under a microsecond; ``torch.cuda.current_stream()`` builds a
+    Python stream object and ``torch.cuda.device`` switches devices twice,
+    about 10 us of host time a call on an H100's host (``PERF.md``), so the
+    device is switched only when it is not already the current one."""
+    index = t.device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 @functools.lru_cache(maxsize=None)

@@ -73,10 +73,8 @@ def _launch(w_mat: torch.Tensor, u0: torch.Tensor):
     if fn.argtypes is None:  # first use of this entry point
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(w_mat.data_ptr(), u0.data_ptr(), wbar.data_ptr(), u_new.data_ptr(),
-                  sigma.data_ptr(), v_scratch.data_ptr(), m, cout, stream)
+    code = runtime.on_device(w_mat, fn, w_mat.data_ptr(), u0.data_ptr(), wbar.data_ptr(),
+                             u_new.data_ptr(), sigma.data_ptr(), v_scratch.data_ptr(), m, cout)
     runtime.check_cuda_status(lib, "sn_error_string", code, "sn launch")
     runtime.count_launch("sn")
     return wbar, u_new, sigma

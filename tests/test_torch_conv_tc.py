@@ -1,13 +1,14 @@
-"""The tensor-core conv3x3 (``csrc/conv3x3_wgmma.cu``) on the CPU: its route
-table, a numpy emulation of its addressing against the Pallas kernel, and its
-wrapper with the launch mocked.
+"""The tensor-core conv3x3 (``csrc/conv3x3_wgmma.cu``) on the CPU: the
+three-way route table, a numpy emulation of its addressing against the
+Pallas kernel, and its wrapper with the launch mocked.
 
 The kernel itself runs only on the card (``chip_smoke.py`` holds it against
 the plain version there).  Here:
 
-- the route: which of the two kernels every conv of the training cycle and
-  of ``entry()`` takes, and the totals per cycle, read from a real cycle at
-  dim 64 whose conv launches are recorded instead of run;
+- the route: which route (the two kernels, or cuDNN for ragged channel
+  counts) every conv of the training cycle and of ``entry()`` takes, and the
+  totals per cycle, read from a real cycle at dim 64 whose conv calls are
+  recorded instead of run;
 - the addressing: per-tap TMA boxes with zero fill (negative coordinates
   included), K chunks of 64, BM tiles at 8x8, 16x16 and 32x32, against
   ``conv3x3_fused`` run in interpret mode as tests/test_pallas.py runs it;
@@ -43,15 +44,17 @@ D_SHAPES = [(32, 3, 128), (32, 128, 128), (16, 128, 128), (16, 128, 128)] + [(8,
 
 
 def _want_variant(c, o, dtype):
-    return "wgmma" if dtype == torch.bfloat16 and 3 not in (c, o) else "ffma"
+    if 3 in (c, o):
+        return "cudnn"
+    return "wgmma" if dtype == torch.bfloat16 else "ffma"
 
 
 # ------------------------------------------------------------- route table
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_table_covers_every_cycle_and_entry_shape(dtype):
     """Forward (C -> O) and input grad (O -> C) of every G and D conv at
-    batch 64 and 128: bf16 goes to the tensor cores unless C or O is 3;
-    float32 stays on FFMA.  The tensor-core calls take a 128 x 256 tile
+    batch 64 and 128: C or O = 3 goes to cuDNN in either dtype; otherwise
+    bf16 goes to the tensor cores and float32 to FFMA.  The tensor-core calls take a 128 x 256 tile
     where O is a multiple of 256 and that gives at least 99 blocks (three
     quarters of the H100's 132 SMs), else BM = 64 exactly where 128 x 128
     would leave fewer than 132 blocks; their box covers BM pixels of whole
@@ -75,12 +78,15 @@ def test_route_table_covers_every_cycle_and_entry_shape(dtype):
 
 
 def test_route_rule_edges():
-    """C or O not a multiple of 64, and maps that do not tile by 128 pixels
-    (W not dividing 128, or H*W neither dividing nor divided by 128), stay
-    on FFMA; a map smaller than the tile takes whole images."""
+    """C or O not a multiple of 64 goes to cuDNN in either dtype; bf16 maps
+    that do not tile by 128 pixels (W not dividing 128, or H*W neither
+    dividing nor divided by 128) go to FFMA; a map smaller than the tile
+    takes whole images."""
     bf = torch.bfloat16
-    assert conv3x3_variant((2, 8, 8, 96), 128, bf) == "ffma"
-    assert conv3x3_variant((2, 8, 8, 128), 96, bf) == "ffma"
+    assert conv3x3_variant((2, 8, 8, 96), 128, bf) == "cudnn"
+    assert conv3x3_variant((2, 8, 8, 128), 96, bf) == "cudnn"
+    assert conv3x3_variant((2, 8, 8, 96), 128, torch.float32) == "cudnn"
+    assert conv3x3_variant((2, 8, 8, 128), 192, torch.float32) == "ffma"
     assert conv3x3_variant((2, 12, 12, 128), 128, bf) == "ffma"  # 144 px
     assert conv3x3_variant((2, 32, 12, 128), 128, bf) == "ffma"  # 384 px, W 12
     assert conv3x3_variant((2, 4, 4, 64), 64, bf) == "wgmma"
@@ -96,7 +102,7 @@ def test_route_rule_edges():
 
 def _recording_route(monkeypatch):
     """Makes ``conv3x3`` take its CUDA branch on CPU tensors and replaces the
-    two launchers by recorders that compute the plain version; returns the
+    three routes by recorders that compute the plain version; returns the
     list of ``(variant, x shape, O)`` they see."""
     seen = []
     proxy = types.SimpleNamespace(**{k: getattr(runtime, k) for k in dir(runtime)
@@ -112,11 +118,12 @@ def _recording_route(monkeypatch):
 
     monkeypatch.setattr(conv_kernel, "_launch_wgmma", recorder("wgmma"))
     monkeypatch.setattr(conv_kernel, "_launch_ffma", recorder("ffma"))
+    monkeypatch.setattr(conv_kernel, "_launch_cudnn", recorder("cudnn"))
     return seen
 
 
 def _split(seen):
-    return {v: sum(s[0] == v for s in seen) for v in ("wgmma", "ffma")}
+    return {v: sum(s[0] == v for s in seen) for v in ("wgmma", "ffma", "cudnn")}
 
 
 # dim 64 keeps every C and O of the flagship's routes (multiples of 64, the
@@ -124,13 +131,15 @@ def _split(seen):
 DIM64 = dict(dim_g=64, dim_d=64, embedding_dim=24)
 
 
-@pytest.mark.parametrize("algorithm,want", [("rcgan", {"wgmma": 174, "ffma": 14}),
-                                            ("rcgan-u", {"wgmma": 284, "ffma": 19})])
+@pytest.mark.parametrize("algorithm,want", [
+    ("rcgan", {"wgmma": 174, "ffma": 0, "cudnn": 14}),
+    ("rcgan-u", {"wgmma": 284, "ffma": 0, "cudnn": 19})])
 def test_cycle_routes_174_14(monkeypatch, algorithm, want):
     """One full training cycle (a G step, five critic steps) in bf16 sends
-    174 convs to the tensor cores and 14 to FFMA for rcgan (D's first conv
-    and G's output conv, forwards and input grads), 284 and 19 for rcgan-u
-    with the perm classifier: the totals chip_smoke.py asserts on the card."""
+    174 convs to the tensor cores, none to FFMA and 14 to cuDNN for rcgan
+    (D's first conv and G's output conv, forwards and input grads), 284, 0
+    and 19 for rcgan-u with the perm classifier: the totals chip_smoke.py
+    asserts on the card."""
     seen = _recording_route(monkeypatch)
     perm = algorithm == "rcgan-u"
     acfg = CifarAlgoConfig(algorithm=algorithm, perm_classifier=perm, confuse_init=perm)
@@ -151,11 +160,11 @@ def test_cycle_routes_174_14(monkeypatch, algorithm, want):
 
 def test_entry_routes_17_2(monkeypatch):
     """``entry()`` in bf16: G's seven convs and D's twelve, all but G's
-    output conv and D's first on the tensor cores."""
+    output conv and D's first (on cuDNN) on the tensor cores."""
     seen = _recording_route(monkeypatch)
     fwd, (z, labels) = entry("cpu", torch.bfloat16, cfg=ResnetGANConfig(**DIM64), batch=2)
     fwd(z, labels)
-    assert _split(seen) == {"wgmma": 17, "ffma": 2}
+    assert _split(seen) == {"wgmma": 17, "ffma": 0, "cudnn": 2}
 
 
 # -------------------------------------------------------------- addressing
@@ -238,7 +247,7 @@ class _FakeFn:
 
 
 def _fake_libs(monkeypatch, wgmma_code=0, sms=132):
-    libs = {"conv3x3": types.SimpleNamespace(conv3x3_nhwc_f32=_FakeFn(), conv3x3_nhwc_bf16=_FakeFn(),
+    libs = {"conv3x3": types.SimpleNamespace(conv3x3_ffma_f32=_FakeFn(), conv3x3_ffma_bf16=_FakeFn(),
                                              conv3x3_error_string=_FakeFn()),
             "conv3x3_wgmma": types.SimpleNamespace(conv3x3_wgmma_bf16=_FakeFn(wgmma_code),
                                                    conv3x3_wgmma_error_string=_FakeFn())}
@@ -246,26 +255,17 @@ def _fake_libs(monkeypatch, wgmma_code=0, sms=132):
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
     monkeypatch.setattr(runtime, "cuda_library", lambda name: libs[name])
     monkeypatch.setattr(runtime, "sm_count", lambda t: sms)
-
-    class _Stream:
-        def __init__(self, t):
-            pass
-
-        def __enter__(self):
-            return 7  # the stream handle
-
-        def __exit__(self, *exc):
-            return False
-
-    monkeypatch.setattr(conv_kernel, "_device_stream", _Stream)
+    monkeypatch.setattr(runtime, "on_device", lambda t, fn, *args: fn(*args, 7))  # stream 7
     return libs
 
 
 def test_wrapper_passes_the_geometry_and_counts_per_variant(monkeypatch):
     """A qualifying bf16 call reaches the tensor-core entry point with the
     pointers, shape, BM and box it computed, and the stream; a float32 call
-    and a ragged bf16 call reach the FFMA entry points.  Each counts once
-    under conv3x3 and once under its variant."""
+    and a bf16 call whose map does not tile by 128 pixels reach the FFMA
+    entry points, and a ragged bf16 call goes to cuDNN (here the CPU's
+    conv).  Each kernel launch counts once under conv3x3 and once under its
+    variant; the cuDNN call under its variant only."""
     libs = _fake_libs(monkeypatch)
     runtime.reset_launch_counts()
     x = torch.randn(2, 8, 8, 128).bfloat16()
@@ -277,13 +277,20 @@ def test_wrapper_passes_the_geometry_and_counts_per_variant(monkeypatch):
     assert args[3:] == (2, 8, 8, 128, 256, 64, 128, 8, 1, 7)
     assert libs["conv3x3_wgmma"].conv3x3_wgmma_bf16.argtypes is not None
     conv3x3(x.float(), w.float())
-    conv3x3(torch.randn(2, 8, 8, 3).bfloat16(), torch.randn(3, 3, 3, 128).bfloat16())
-    assert len(libs["conv3x3"].conv3x3_nhwc_f32.calls) == 1
-    assert libs["conv3x3"].conv3x3_nhwc_bf16.calls[0][3:] == (2, 8, 8, 3, 128, 7)
+    conv3x3(torch.randn(2, 12, 12, 128).bfloat16(), torch.randn(3, 3, 128, 64).bfloat16())
+    xr, wr = torch.randn(2, 8, 8, 3).bfloat16(), torch.randn(3, 3, 3, 128).bfloat16()
+    yr = conv3x3(xr, wr)
+    assert len(libs["conv3x3"].conv3x3_ffma_f32.calls) == 1
+    # 288 pixels x 64 channels: 5 tiles of 64 x 64, so K splits 27 ways
+    # (into a float32 workspace) to fill 132 SMs
+    (args,) = libs["conv3x3"].conv3x3_ffma_bf16.calls
+    assert isinstance(args[3], int) and args[4:] == (2, 12, 12, 128, 64, 64, 64, 27, 7)
+    assert yr.dtype == torch.bfloat16 and yr.is_contiguous()
+    torch.testing.assert_close(yr, conv_kernel.conv3x3_plain(xr, wr), rtol=2.0 ** -7, atol=1e-2)
     assert runtime.launch_counts()["conv3x3"] == 3
-    assert runtime.variant_counts("conv3x3") == {"wgmma": 1, "ffma": 2}
+    assert runtime.variant_counts("conv3x3") == {"wgmma": 1, "ffma": 2, "cudnn": 1}
     runtime.reset_launch_counts()
-    assert runtime.variant_counts("conv3x3") == {"wgmma": 0, "ffma": 0}
+    assert runtime.variant_counts("conv3x3") == {"wgmma": 0, "ffma": 0, "cudnn": 0}
     with pytest.raises(ValueError, match="variant"):
         runtime.count_launch("conv3x3")
 

@@ -7,6 +7,8 @@ The Pallas kernels run in interpret mode (their CPU route), as
 tests/test_pallas.py runs them.  Inputs come from numpy seeds.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -23,7 +25,7 @@ from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
 from rcgan_tpu_torch.core.module import sn_updates, state_tree
 from rcgan_tpu_torch.ops import conv as tconv
 from rcgan_tpu_torch.ops import linear as tlinear
-from rcgan_tpu_torch.ops.kernels import conv_kernel, norm_kernel, runtime
+from rcgan_tpu_torch.ops.kernels import conv_kernel, norm_kernel, projection_kernel, runtime
 from rcgan_tpu_torch.ops.kernels.projection_kernel import (ProjectionLogitsFn,
                                                            all_label_projection_logits,
                                                            projection_plain)
@@ -221,6 +223,85 @@ def test_projection_bf16_cotangents_keep_their_primal_dtypes():
     np.testing.assert_allclose(feat.grad.float().numpy(), want_dfeat.numpy(),
                                rtol=2.0 ** -8, atol=1e-6)
     np.testing.assert_array_equal(wgan.grad.float().numpy(), g.sum(1, keepdim=True).numpy())
+
+
+# ------------------------------------------------- the projection's wrapper
+class _FakeFn:
+    def __init__(self, code=0):
+        self.argtypes = self.restype = None
+        self.calls, self.code = [], code
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.code
+
+
+def _fake_projection_library(monkeypatch, code=0):
+    """A fake of ``csrc/projection.cu``'s library behind the CUDA branch:
+    ``on_cuda`` mocked true, the stream handle 7; returns (entry point,
+    library lookups)."""
+    fn = _FakeFn(code)
+    lib = types.SimpleNamespace(projection_logits=fn,
+                                projection_error_string=_FakeFn(b"an illegal memory access"))
+    lookups = []
+    monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
+    monkeypatch.setattr(runtime, "cuda_library", lambda name: lookups.append(name) or lib)
+    monkeypatch.setattr(runtime, "on_device", lambda t, f, *args: f(*args, 7))
+    return fn, lookups
+
+
+@pytest.mark.parametrize("dtypes,codes", [
+    ((torch.float32,) * 3, (0, 0, 0)),
+    ((torch.bfloat16,) * 3, (1, 1, 1)),
+    ((torch.bfloat16, torch.float32, torch.float16), (1, 0, 2)),
+])
+def test_projection_wrapper_passes_pointers_dtype_codes_and_counts(monkeypatch, dtypes, codes):
+    """Each call reaches the CUDA entry point with the pointers, each
+    input's own dtype code, the float32 output, B, V, D and the stream, and
+    counts one launch; the entry point's argtypes are set at its first use."""
+    fn, lookups = _fake_projection_library(monkeypatch)
+    runtime.reset_launch_counts()
+    feat, emb, wgan = (torch.randn(*s).to(dt) for s, dt in zip(((64, 128), (10, 128), (64, 1)),
+                                                              dtypes))
+    outs = [all_label_projection_logits(feat, emb, wgan) for _ in range(2)]
+    assert all(o.shape == (64, 10) and o.dtype == torch.float32 for o in outs)
+    assert [c[6] for c in fn.calls] == [o.data_ptr() for o in outs]
+    for c in fn.calls:
+        assert c[:6] == (feat.data_ptr(), codes[0], emb.data_ptr(), codes[1], wgan.data_ptr(),
+                         codes[2])
+        assert c[7:] == (64, 10, 128, 7)
+    assert lookups == ["projection"] * 2 and len(fn.argtypes) == 11
+    assert runtime.launch_counts()["projection"] == 2
+
+
+def test_projection_wrapper_raises_with_no_fallback(monkeypatch):
+    """A launch error, a failing build, a feat off 16-byte alignment and a
+    D that is not a multiple of 8 all raise: the plain version is never
+    called, and nothing is counted."""
+    fn, _ = _fake_projection_library(monkeypatch, code=700)
+
+    def refuse(*a, **k):
+        raise AssertionError("fell back")
+
+    monkeypatch.setattr(projection_kernel, "projection_plain", refuse)
+    runtime.reset_launch_counts()
+    feat, emb, wgan = torch.randn(8, 16), torch.randn(10, 16), torch.randn(8, 1)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        all_label_projection_logits(feat, emb, wgan)
+    base = torch.zeros(8 * 16 + 1)
+    with pytest.raises(ValueError, match="aligned"):
+        all_label_projection_logits(base[1:].view(8, 16), emb, wgan)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        all_label_projection_logits(torch.randn(8, 12), torch.randn(10, 12), wgan)
+    assert len(fn.calls) == 1
+
+    def broken_build(name):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(runtime, "cuda_library", broken_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        all_label_projection_logits(feat, emb, wgan)
+    assert runtime.launch_counts()["projection"] == 0
 
 
 # ------------------------------------------- grad mode on the CUDA branch
