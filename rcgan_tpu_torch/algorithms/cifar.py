@@ -27,7 +27,8 @@ from torch import nn
 
 from rcgan_tpu_torch.algorithms.losses import d_fake_loss, d_real_loss, g_loss, sigmoid_ce
 from rcgan_tpu_torch.core import initializers as inits
-from rcgan_tpu_torch.core.module import Scoped, set_compute_dtype, sn_updates
+from rcgan_tpu_torch.core.module import (Scoped, float32_policy, set_compute_dtype,
+                                          sn_updates)
 from rcgan_tpu_torch.models.resnet_gan import (Discriminator, DiscriminatorProjection,
                                                Generator, PermClassifier, ResnetGANConfig,
                                                projection_logits)
@@ -90,6 +91,7 @@ class CifarGAN(nn.Module):
         self.perm = PermClassifier(cfg, seed) if acfg.perm_classifier else None
         self.confusion = ConfusionLogits(acfg, seed) if acfg.algorithm == "rcgan-u" else None
         set_compute_dtype(self, compute_dtype)
+        float32_policy(compute_dtype)
         self.to(resolve_device(device))
 
     def confusion_matrix(self, c_actual: Optional[torch.Tensor]) -> torch.Tensor:

@@ -32,7 +32,9 @@ Two pieces of ``Ctx`` live on the layers instead of a context object:
   whole sub-hierarchy, as JAX's ``sn_updates(ctx, flag)`` does;
 - ``Scoped.compute_dtype`` is ``Ctx.compute_dtype``: the dtype a layer casts
   ``x`` and its weight to at a conv or matmul, set for a whole hierarchy by
-  :func:`set_compute_dtype`.  Parameters stay float32.
+  :func:`set_compute_dtype`.  Parameters stay float32.  An entry point that
+  chooses float32 also calls :func:`float32_policy`, which turns TF32 off,
+  so that float32 on the card is float32 throughout, as it is in JAX.
 """
 
 from __future__ import annotations
@@ -109,6 +111,21 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(m, Scoped):
             m.compute_dtype = dtype
     return module
+
+
+def float32_policy(compute_dtype: torch.dtype) -> None:
+    """The one place where the port's float32 policy is set; every entry
+    point that chooses its compute dtype calls it (``Sampler``,
+    ``EntryForward``, ``CifarGAN``, ``CifarTrainer``).  With float32, full
+    float32 on the card, for the whole process: cuDNN runs float32
+    convolutions in TF32 by default (``torch.backends.cudnn.allow_tf32``;
+    the 3-channel convs, the 1x1 shortcuts and the weight grads go there),
+    and TF32 matmuls, off by default, are pinned off too
+    (``torch.backends.cuda.matmul.allow_tf32``).  With bfloat16 both flags
+    stay as they are: no bf16 op reads them."""
+    if compute_dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def scoped_modules(module: nn.Module) -> Dict[str, Scoped]:

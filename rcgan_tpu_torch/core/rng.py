@@ -11,16 +11,19 @@ integer hash (splitmix64), so nothing waits on the device:
   batch index, as JAX's ``example_keys`` keys them: an example's
   dequantisation noise does not depend on how the batch is laid out.
 
-``z`` is drawn from one device ``torch.Generator`` per draw
-(:func:`normal`), so its rows are not yet keyed per example: that waits for
-parallel training (ROADMAP.md, Queue 1).  The streams differ from JAX's
-threefry; tests hand both frameworks the same noise instead.
+``z`` is drawn by :func:`example_normal`, the counterpart of JAX's
+``example_normal``: a counter-based draw on the device (splitmix64 of the
+seed, the row's **global** example index and the column, then Box-Muller),
+so a row does not depend on the batch it is drawn in, and no host
+generator is involved.  The streams differ from JAX's threefry; tests hand
+both frameworks the same noise instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import math
+from typing import List
 
 import numpy as np
 import torch
@@ -70,9 +73,45 @@ def cycle_seeds(seed: int, n_critic: int, batch: int) -> CycleSeeds:
                       dequant=np.stack([example_seeds(fold_in(k, 1), batch) for k in keys]))
 
 
-def normal(seed: int, shape: Sequence[int], device) -> torch.Tensor:
-    """float32 standard normals of ``shape`` on ``device`` from a generator
-    on that device seeded with ``seed``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed & _SEED_MASK)
-    return torch.randn(tuple(shape), generator=gen, device=device)
+def _mix_device(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix` on an int64 tensor holding the same 64 bits: the adds
+    and multiplies wrap as uint64's do, and each logical right shift is an
+    arithmetic one with the copied sign bits masked off."""
+    def shr(v, k):
+        return (v >> k) & ((1 << (64 - k)) - 1)
+
+    x = x + _signed(0x9E3779B97F4A7C15)
+    x = (x ^ shr(x, 30)) * _signed(0xBF58476D1CE4E5B9)
+    x = (x ^ shr(x, 27)) * _signed(0x94D049BB133111EB)
+    return x ^ shr(x, 31)
+
+
+def _signed(x: int) -> int:
+    """The int64 with the bits of uint64 ``x``."""
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def example_bits(seed: int, n: int, dim: int, device, first_index: int = 0) -> torch.Tensor:
+    """``[n, dim]`` int64 hashes, one per (example, column):
+    ``mix(mix(mix(seed) ^ mix(index)) ^ mix(column))`` with the example's
+    global index ``first_index + i``; computed on ``device``."""
+    base = _signed(int(_mix(np.array([seed & ((1 << 64) - 1)], np.uint64))[0]))
+    index = torch.arange(first_index, first_index + n, dtype=torch.int64, device=device)
+    column = torch.arange(dim, dtype=torch.int64, device=device)
+    rows = _mix_device(_mix_device(index) ^ base)
+    return _mix_device(rows[:, None] ^ _mix_device(column)[None, :])
+
+
+def example_normal(seed: int, n: int, dim: int, device, first_index: int = 0) -> torch.Tensor:
+    """``[n, dim]`` float32 standard normals on ``device`` whose row ``i``
+    depends only on ``(seed, first_index + i)`` (JAX ``example_normal``):
+    rows ``[k, k + m)`` of a draw of ``n`` equal a draw of ``m`` with
+    ``first_index=k``.  Each element's 64-bit hash gives two uniforms, its
+    high 32 bits ``u1`` in (0, 1] and its low 32 bits ``u2`` in [0, 1), and
+    Box-Muller's ``sqrt(-2 ln u1) cos(2 pi u2)`` the normal (|z| < 6.7)."""
+    bits = example_bits(seed, n, dim, device, first_index)
+    hi = (bits >> 32) & 0xFFFFFFFF
+    lo = bits & 0xFFFFFFFF
+    u1 = (hi.to(torch.float32) + 1.0) * 2.0 ** -32
+    u2 = lo.to(torch.float32) * 2.0 ** -32
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rcgan_tpu_torch.core.module import set_compute_dtype, sn_updates
+from rcgan_tpu_torch.core.module import float32_policy, set_compute_dtype, sn_updates
 from rcgan_tpu_torch.models.resnet_gan import (Discriminator, DiscriminatorProjection,
                                                Generator, ResnetGANConfig, projection_logits)
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
@@ -39,6 +39,7 @@ class EntryForward(nn.Module):
         self.D = Discriminator(cfg, seed)
         self.projection = DiscriminatorProjection(cfg, seed)
         set_compute_dtype(self, compute_dtype)
+        float32_policy(compute_dtype)
         self.to(resolve_device(device))
 
     def forward(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

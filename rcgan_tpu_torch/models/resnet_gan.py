@@ -36,6 +36,7 @@ from rcgan_tpu_torch.ops.kernels.projection_kernel import all_label_projection_l
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.ops.linear import Embedding, LinearLib
 from rcgan_tpu_torch.ops.norm import CondBatchNorm
+from rcgan_tpu_torch.ops.sn import clear_prepared, prepare_spectral_norms, sn_layers
 
 _NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1"
 
@@ -88,6 +89,14 @@ class Normalize(nn.Module):
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
         return x if self.cbn is None else self.cbn(x, labels)
 
+    def activated(self, x: torch.Tensor, labels: Optional[torch.Tensor],
+                  kind: str) -> torch.Tensor:
+        """``nonlinearity(self(x, labels), kind)``; a ReLU after a cond-BN
+        runs inside the cond-BN kernel (XLA fuses it on the JAX side)."""
+        if self.cbn is not None and kind == "relu":
+            return self.cbn(x, labels, relu=True)
+        return nonlinearity(self(x, labels), kind)
+
 
 def upsample_conv(conv: Conv2dLib, x: torch.Tensor) -> torch.Tensor:
     return conv(upsample_depth_to_space(x))
@@ -135,9 +144,9 @@ class ResidualBlock(nn.Module):
             shortcut = conv_mean_pool(self.shortcut, x)
         else:
             shortcut = self.shortcut(x)
-        out = nonlinearity(self.n1(x, labels), self.cfg.nonlinearity)
+        out = self.n1.activated(x, labels, self.cfg.nonlinearity)
         out = upsample_conv(self.conv1, out) if up else self.conv1(out)
-        out = nonlinearity(self.n2(out, labels), self.cfg.nonlinearity)
+        out = self.n2.activated(out, labels, self.cfg.nonlinearity)
         out = conv_mean_pool(self.conv2, out) if down else self.conv2(out)
         return shortcut + out
 
@@ -170,7 +179,7 @@ class Generator(nn.Module):
         out = self.input(z).reshape(-1, 4, 4, cfg.dim_g * 8)
         for block in (self.block1, self.block2, self.block3):
             out = block(out, labels)
-        out = nonlinearity(self.output_norm(out, labels), cfg.nonlinearity)
+        out = self.output_norm.activated(out, labels, cfg.nonlinearity)
         out = torch.tanh(self.output(out))
         return out.reshape(-1, cfg.output_dim)
 
@@ -210,17 +219,24 @@ class Discriminator(nn.Module):
             + [ResidualBlock(cfg, d, d, 3, f"D.Block.{i}", None, seed, spectral_normed=True)
                for i in (3, 4, 5, 6)])
         self.output = LinearLib(d, 1, "D.Output", seed=seed, spectral_normed=True)
+        self._sn_layers = sn_layers(self)  # a plain list: the layers are registered above
 
     def forward(self, inputs: torch.Tensor, labels: Optional[torch.Tensor]):
         cfg = self.cfg
         labels_disc = None if cfg.algorithm in ("unbiased", "rcgan-u") else labels
         out = inputs.reshape(-1, cfg.img_size, cfg.img_size, cfg.img_dim)
-        out = self.block1(out)
-        for block in self.blocks:
-            out = block(out, labels_disc)
-        out = nonlinearity(out, cfg.nonlinearity)
-        out = out.mean(dim=(1, 2))  # [B, dim_d]
-        return out, self.output(out).reshape(-1)
+        # the power-iteration step of all 15 layers in one group (one kernel
+        # launch on the card); each layer below takes its prepared W / sigma
+        prepare_spectral_norms(self._sn_layers)
+        try:
+            out = self.block1(out)
+            for block in self.blocks:
+                out = block(out, labels_disc)
+            out = nonlinearity(out, cfg.nonlinearity)
+            out = out.mean(dim=(1, 2))  # [B, dim_d]
+            return out, self.output(out).reshape(-1)
+        finally:
+            clear_prepared(self._sn_layers)
 
 
 class DiscriminatorProjection(nn.Module):

@@ -51,7 +51,7 @@ class Conv2dLib(Scoped):
                        inits.conv_uniform(he=he_init, gain=gain))
         self.spectral_normed = spectral_normed
         if spectral_normed:
-            add_sn_state(self, output_dim)
+            add_sn_state(self, output_dim, "Filters")
         if biases:
             self.add_param("Biases", (output_dim,), inits.zeros)
         else:

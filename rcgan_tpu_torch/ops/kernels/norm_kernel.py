@@ -1,4 +1,5 @@
-"""Conditional batch-norm forward: Triton kernel and plain version.
+"""Conditional batch-norm forward (with an optional fused ReLU): CUDA kernel
+and plain version.
 
 Replaces the Pallas TPU kernels ``_moments_kernel`` + ``_apply_kernel``
 (``rcgan_tpu/ops/pallas/norm_kernel.py``, reached through
@@ -6,21 +7,18 @@ Replaces the Pallas TPU kernels ``_moments_kernel`` + ``_apply_kernel``
 per-channel f32 sums of x and x² over (batch, spatial), then
 ``var = max(E[x²] − mean², 0)`` and
 ``(x − mean) · rsqrt(var + eps) · scale[label[b]] + offset[label[b]]``,
-written in ``x.dtype``.
+written in ``x.dtype``; with ``relu`` the result passes through
+``max(·, 0)`` before it is stored (the generator follows every cond-BN
+with a ReLU, which XLA fuses on the JAX side).
 
-On the H100 this is bound by memory: it reads x twice and writes it once,
-and does no tensor-core work.  The design moves no byte it need not:
-
-1. **moments** — a grid of (row chunk, channel block) programs; each sums
-   its rows in registers and writes one partial per channel into
-   ``[n_chunks, C]`` buffers.  The TPU's sequential grid carried the sums in
-   scratch from step to step; blocks on the card run in no order, so the
-   partials take its place.  No atomics: the result is the same every run.
-2. **finalize** — one program per channel block folds the partials into
-   ``mean`` and ``rsqrt(var + eps)`` (the jnp lines between the TPU
-   kernel's two ``pallas_call``\\ s).
-3. **apply** — one pass over x that gathers ``scale``/``offset`` by label
-   itself, so the ``[B, C]`` per-example tables are never materialised.
+The kernel is ``rcgan_tpu_torch/csrc/cond_bn.cu``: one cooperative launch
+of at most one block per SM.  Each block sums its rows into per-block
+partials while it keeps as many of them as fit in shared memory, the grid
+meets at a barrier, every block folds the partials in block order (no
+atomics: the same bits on every run), and the apply pass gathers
+``scale``/``offset`` by label itself and reads what it can from shared
+memory, the rest backwards out of L2.  It is bound by bytes; the source
+note says more.  :func:`geometry` is the launch's shape, computed here.
 
 The TPU's VMEM tiling rules (``_tiles``, ``_MIN_FUSED_BYTES``) have no
 counterpart here: every generator map goes through the kernel.
@@ -28,25 +26,30 @@ counterpart here: every generator map goes through the kernel.
 Autograd: :class:`CondBatchNormFn` is the route on both devices, the
 counterpart of ``cond_batchnorm_fused``'s ``custom_vjp`` together with the
 autodiff of the table gather in ``cond_batchnorm_bhwc``.  The forward keeps
-the ``mean`` and ``rsqrt(var + eps)`` it computed; the backward is the TPU
-kernel's ``_bwd``, in PyTorch ops as JAX's is in jnp, all in float32: the
-batch-norm VJP for ``dx`` (in ``x.dtype``) and the per-example
+the ``mean`` and ``rsqrt(var + eps)`` it computed (and, with ``relu``, its
+output, whose sign masks the incoming gradient first); the backward is the
+TPU kernel's ``_bwd``, in PyTorch ops as JAX's is in jnp, all in float32:
+the batch-norm VJP for ``dx`` (in ``x.dtype``) and the per-example
 ``Σ_S g·x̂`` and ``Σ_S g`` scattered into the float32 ``[n_labels, C]``
 tables by label.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from rcgan_tpu_torch.ops.kernels import runtime
 
-_BLOCK_C = 128      # channels per program (C rides the fast axis)
-_BLOCK_R = 32       # rows per moments step
-_APPLY_ROWS = 32    # rows per apply program
-_TARGET_PROGRAMS = 512  # moments grid size to aim for: ~4 per SM on 132 SMs
-
-_kernels = None
+# The kernel's geometry (``csrc/cond_bn.cu``).
+THREADS = 1024             # one block
+_MAX_TX = 256              # 16-byte vectors across a channel block
+_SMEM_BYTES = 224 * 1024   # dynamic shared memory per block, of the SM's 227 KB
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32_MAX = 2**31 - 1
 
 
 def _moments_plain(x: torch.Tensor, eps: float):
@@ -59,89 +62,65 @@ def _moments_plain(x: torch.Tensor, eps: float):
     return mean, torch.rsqrt(var + eps)
 
 
-def _apply_plain(x, labels, scale_table, offset_table, mean, inv):
+def _apply_plain(x, labels, scale_table, offset_table, mean, inv, relu=False):
     scale = scale_table.float()[labels][:, None, :]
     offset = offset_table.float()[labels][:, None, :]
-    return ((x.float() - mean) * inv * scale + offset).to(x.dtype)
+    out = (x.float() - mean) * inv * scale + offset
+    return (torch.relu(out) if relu else out).to(x.dtype)
 
 
 def cond_batchnorm_plain(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,
-                         offset_table: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                         offset_table: torch.Tensor, eps: float = 1e-5,
+                         relu: bool = False) -> torch.Tensor:
     """Plain version.  ``x [B,S,C]``; ``labels [B]`` int; tables
     ``[n_labels, C]``.  Same formula as the kernel (f32 sums, var from
-    ``E[x²] − mean²`` clamped at 0), output in ``x.dtype``."""
+    ``E[x²] − mean²`` clamped at 0, the optional ReLU), output in
+    ``x.dtype``."""
     mean, inv = _moments_plain(x, eps)
-    return _apply_plain(x, labels, scale_table, offset_table, mean, inv)
+    return _apply_plain(x, labels, scale_table, offset_table, mean, inv, relu)
 
 
-def _build():
-    """Compile-on-first-use Triton kernels.  ``triton`` is imported here, never
-    at module import, so the CPU test suite (which has no triton) imports
-    this module.  ``tl`` is bound as a module global because Triton resolves
-    the names in a kernel's body through the module's globals."""
-    global _kernels, tl
-    if _kernels is not None:
-        return _kernels
-    import triton
-    import triton.language as tl
+class Geometry(NamedTuple):
+    vec: int             # elements per thread per row: 16 bytes' worth, or 1
+    tx: int              # vectors across a channel block (a power of two)
+    cb: int              # channel blocks
+    rb: int              # row blocks; the grid is cb * rb
+    rows_per_block: int  # a multiple of THREADS // tx
+    keep_rows: int       # rows of a block that stay in shared memory
+    smem_bytes: int
 
-    @triton.jit
-    def moments(x_ptr, psum_ptr, psq_ptr, n_rows, n_cols, rows_per_chunk,
-                BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        chunk = tl.program_id(0)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < n_cols
-        acc = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK_R, BLOCK_C], dtype=tl.float32)
-        r0 = chunk * rows_per_chunk
-        for r in range(r0, r0 + rows_per_chunk, BLOCK_R):
-            rows = r + tl.arange(0, BLOCK_R)
-            mask = (rows < n_rows)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * n_cols + cols[None, :]
-            v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            acc += v
-            acc2 += v * v
-        tl.store(psum_ptr + chunk * n_cols + cols, tl.sum(acc, axis=0), mask=cmask)
-        tl.store(psq_ptr + chunk * n_cols + cols, tl.sum(acc2, axis=0), mask=cmask)
 
-    @triton.jit
-    def finalize(psum_ptr, psq_ptr, mean_ptr, inv_ptr, n_chunks, n_cols, n, eps,
-                 BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < n_cols
-        s = tl.zeros([BLOCK_C], dtype=tl.float32)
-        q = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for i in range(0, n_chunks):
-            s += tl.load(psum_ptr + i * n_cols + cols, mask=cmask, other=0.0)
-            q += tl.load(psq_ptr + i * n_cols + cols, mask=cmask, other=0.0)
-        mean = s / n
-        var = tl.maximum(q / n - mean * mean, 0.0)
-        tl.store(mean_ptr + cols, mean, mask=cmask)
-        tl.store(inv_ptr + cols, 1.0 / tl.sqrt(var + eps), mask=cmask)
+def vector_width(c: int, itemsize: int, aligned: bool) -> int:
+    """Elements a thread takes per row: 16 bytes' worth when every row is a
+    whole number of such vectors and the tensors are ``aligned`` to 16
+    bytes, else one."""
+    vec = 16 // itemsize
+    return vec if aligned and c % vec == 0 else 1
 
-    @triton.jit
-    def apply(x_ptr, labels_ptr, scale_ptr, offset_ptr, mean_ptr, inv_ptr, out_ptr,
-              n_rows, rows_per_example, n_cols,
-              BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        rmask = rows < n_rows
-        cmask = cols < n_cols
-        mask = rmask[:, None] & cmask[None, :]
-        lab = tl.load(labels_ptr + rows // rows_per_example, mask=rmask, other=0)
-        offs = rows.to(tl.int64)[:, None] * n_cols + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
-        inv = tl.load(inv_ptr + cols, mask=cmask, other=0.0)
-        toffs = lab.to(tl.int64)[:, None] * n_cols + cols[None, :]
-        scale = tl.load(scale_ptr + toffs, mask=mask, other=0.0)
-        offset = tl.load(offset_ptr + toffs, mask=mask, other=0.0)
-        xhat = (x - mean[None, :]) * inv[None, :]
-        out = xhat * scale + offset
-        tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty), mask=mask)
 
-    _kernels = (triton, moments, finalize, apply)
-    return _kernels
+@functools.lru_cache(maxsize=None)
+def geometry(n_rows: int, c: int, itemsize: int, vec: int, max_blocks: int) -> Geometry:
+    """The launch for ``[n_rows, c]`` of ``itemsize``-byte elements, ``vec``
+    to a thread, on a device that holds ``max_blocks`` blocks at once: a
+    block is ``tx`` vectors wide and ``THREADS // tx`` rows tall; the rows
+    are split evenly over as many row blocks as fit, and each block keeps as
+    many of its rows in shared memory as there is room for."""
+    cv = c // vec
+    tx = 1
+    while tx * 2 <= min(cv, _MAX_TX):
+        tx *= 2
+    ty = THREADS // tx
+    cb = -(-cv // tx)
+    if cb > max_blocks:
+        raise ValueError(f"cond_batchnorm: {c} channels need {cb} channel blocks, more than "
+                         f"the {max_blocks} blocks the device holds at once")
+    per_block = -(-n_rows // (max_blocks // cb))
+    rows_per_block = -(-per_block // ty) * ty
+    rb = -(-n_rows // rows_per_block)
+    fixed = 4 * (THREADS * vec + 2 * tx * vec)   # the fold's buffer, mean and inv
+    row_bytes = tx * vec * itemsize
+    keep_rows = min(rows_per_block, (_SMEM_BYTES - fixed) // row_bytes)
+    return Geometry(vec, tx, cb, rb, rows_per_block, keep_rows, fixed + keep_rows * row_bytes)
 
 
 def _check(x, labels, scale_table, offset_table):
@@ -159,56 +138,74 @@ def _check(x, labels, scale_table, offset_table):
                              f"{t.dtype} {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in (x, labels, scale_table, offset_table)):
         raise ValueError("cond_batchnorm wants contiguous tensors")
+    if x.numel() == 0 or x.numel() > _INT32_MAX:
+        raise ValueError(f"cond_batchnorm: x of {x.numel()} elements is out of range")
 
 
-def _launch(x, labels, scale_table, offset_table, eps):
-    """The three Triton launches; returns ``(out, mean, inv)``."""
+@functools.lru_cache(maxsize=None)
+def _max_blocks(device_index: int, dtype_code: int, vec: int) -> int:
+    """Blocks of the (dtype, vec) kernel that a cooperative launch may have
+    on the device, at the largest shared memory a launch asks for."""
+    fn = runtime.cuda_library("cond_bn").cond_bn_max_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    with torch.cuda.device(device_index):
+        n = fn(dtype_code, vec, _SMEM_BYTES)
+    if n < 1:
+        raise RuntimeError(f"cond_bn: no block of the (dtype {dtype_code}, vec {vec}) kernel "
+                           f"fits an SM with {_SMEM_BYTES} bytes of shared memory")
+    return n
+
+
+def _launch(x, labels, scale_table, offset_table, eps, relu=False):
+    """The one cooperative launch; returns ``(out, mean, inv)``."""
     _check(x, labels, scale_table, offset_table)
-    triton, moments, finalize, apply = _build()
     b, s, c = x.shape
-    n = b * s
-    c_blocks = triton.cdiv(c, _BLOCK_C)
-    n_chunks = max(1, min(triton.cdiv(n, _BLOCK_R), _TARGET_PROGRAMS // c_blocks))
-    rows_per_chunk = triton.cdiv(triton.cdiv(n, n_chunks), _BLOCK_R) * _BLOCK_R
-    n_chunks = triton.cdiv(n, rows_per_chunk)
-
-    dev = x.device
-    psum = torch.empty((n_chunks, c), dtype=torch.float32, device=dev)
-    psq = torch.empty((n_chunks, c), dtype=torch.float32, device=dev)
-    mean = torch.empty((c,), dtype=torch.float32, device=dev)
-    inv = torch.empty((c,), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        moments[(n_chunks, c_blocks)](x, psum, psq, n, c, rows_per_chunk,
-                                      BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C, num_warps=4)
-        finalize[(c_blocks,)](psum, psq, mean, inv, n_chunks, c, float(n), float(eps),
-                              BLOCK_C=_BLOCK_C, num_warps=4)
-        apply[(triton.cdiv(n, _APPLY_ROWS), c_blocks)](
-            x, labels, scale_table, offset_table, mean, inv, out, n, s, c,
-            BLOCK_R=_APPLY_ROWS, BLOCK_C=_BLOCK_C, num_warps=4)
+    aligned = not any(t.data_ptr() % 16 for t in (x, out, scale_table, offset_table))
+    code = _DTYPE_CODES[x.dtype]
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    vec = vector_width(c, x.element_size(), aligned)
+    geo = geometry(b * s, c, x.element_size(), vec, _max_blocks(index, code, vec))
+    # mean, inv, then the row blocks' partial sums and partial squares
+    stats = torch.empty((2 + 2 * geo.rb, c), dtype=torch.float32, device=x.device)
+    lib = runtime.cuda_library("cond_bn")
+    fn = lib.cond_bn_forward
+    if fn.argtypes is None:  # first use of this entry point
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+            + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    status = runtime.on_device(
+        x, fn, x.data_ptr(), labels.data_ptr(), int(labels.dtype == torch.int64),
+        scale_table.data_ptr(), offset_table.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        b * s, s, c, code, geo.vec, geo.tx, geo.cb, geo.rb, geo.rows_per_block, geo.keep_rows,
+        geo.smem_bytes, float(eps), int(relu))
+    runtime.check_cuda_status(lib, "cond_bn_error_string", status, "cond_bn launch")
     runtime.count_launch("cond_bn")
-    return out, mean, inv
+    return out, stats[0], stats[1]
 
 
 class CondBatchNormFn(torch.autograd.Function):
-    """``(x, labels, scale_table, offset_table, eps) → out``: the Triton
-    kernels on the card, the plain version on the CPU.  Backward as the
+    """``(x, labels, scale_table, offset_table, eps, relu) → out``: the CUDA
+    kernel on the card, the plain version on the CPU.  Backward as the
     module note says."""
 
     @staticmethod
-    def forward(ctx, x, labels, scale_table, offset_table, eps):
+    def forward(ctx, x, labels, scale_table, offset_table, eps, relu=False):
         if runtime.on_cuda(x, labels, scale_table, offset_table):
-            out, mean, inv = _launch(x, labels, scale_table, offset_table, eps)
+            out, mean, inv = _launch(x, labels, scale_table, offset_table, eps, relu)
         else:
             mean, inv = _moments_plain(x, eps)
-            out = _apply_plain(x, labels, scale_table, offset_table, mean, inv)
-        ctx.save_for_backward(x, labels, scale_table, mean, inv)
+            out = _apply_plain(x, labels, scale_table, offset_table, mean, inv, relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, labels, scale_table, mean, inv, *((out,) if relu else ()))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, labels, scale_table, mean, inv = ctx.saved_tensors
+        x, labels, scale_table, mean, inv = ctx.saved_tensors[:5]
         g = g.float()
+        if ctx.relu:
+            g = g * (ctx.saved_tensors[5] > 0)
         xhat = (x.float() - mean) * inv
         dx = dscale = doffset = None
         if ctx.needs_input_grad[0]:
@@ -223,15 +220,16 @@ class CondBatchNormFn(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             doffset = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
             doffset.index_add_(0, idx, g.sum(dim=1))
-        return dx, None, dscale, doffset, None
+        return dx, None, dscale, doffset, None, None
 
 
 def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,
-                   offset_table: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                   offset_table: torch.Tensor, eps: float = 1e-5,
+                   relu: bool = False) -> torch.Tensor:
     """``x [B,S,C]``, ``labels [B]``, tables ``[n_labels, C]`` → ``[B,S,C]`` in
-    ``x.dtype``.  CPU tensors take :func:`cond_batchnorm_plain`; CUDA
-    tensors launch the Triton kernels on the current stream (or raise).
-    Differentiable on both (:class:`CondBatchNormFn`).  Labels must lie in
-    ``[0, n_labels)``: the kernel does not check them (callers validate on
-    the host)."""
-    return CondBatchNormFn.apply(x, labels, scale_table, offset_table, eps)
+    ``x.dtype``, through a ReLU when ``relu``.  CPU tensors take
+    :func:`cond_batchnorm_plain`; CUDA tensors launch the kernel on the
+    current stream (or raise).  Differentiable on both
+    (:class:`CondBatchNormFn`).  Labels must lie in ``[0, n_labels)``: the
+    kernel does not check them (callers validate on the host)."""
+    return CondBatchNormFn.apply(x, labels, scale_table, offset_table, eps, relu)

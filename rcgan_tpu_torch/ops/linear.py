@@ -39,7 +39,7 @@ class LinearLib(Scoped):
         self.add_param("W", (input_dim, output_dim), inits.linear_uniform(initialization, gain))
         self.spectral_normed = spectral_normed
         if spectral_normed:
-            add_sn_state(self, output_dim)
+            add_sn_state(self, output_dim, "W")
         if biases:
             self.add_param("b", (output_dim,), inits.zeros)
         else:

@@ -19,13 +19,15 @@ from rcgan_tpu_torch.ops.kernels import norm_kernel
 
 
 def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,
-                   offset_table: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
-    """``x [B,H,W,C]``, ``labels [B]`` int → ``[B,H,W,C]`` in ``x.dtype``."""
+                   offset_table: torch.Tensor, epsilon: float = 1e-5,
+                   relu: bool = False) -> torch.Tensor:
+    """``x [B,H,W,C]``, ``labels [B]`` int → ``[B,H,W,C]`` in ``x.dtype``;
+    with ``relu`` the kernel applies a ReLU before it stores."""
     if x.dim() != 4:
         raise ValueError(f"cond_batchnorm expects BHWC; got {tuple(x.shape)}")
     b, h, w, c = x.shape
     out = norm_kernel.cond_batchnorm(x.reshape(b, h * w, c), labels, scale_table,
-                                     offset_table, epsilon)
+                                     offset_table, epsilon, relu)
     return out.reshape(b, h, w, c)
 
 
@@ -38,5 +40,5 @@ class CondBatchNorm(Scoped):
         self.add_param("offset", (n_labels, channels), inits.zeros)
         self.add_param("scale", (n_labels, channels), inits.ones)
 
-    def forward(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        return cond_batchnorm(x, labels, self.scale, self.offset)
+    def forward(self, x: torch.Tensor, labels: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        return cond_batchnorm(x, labels, self.scale, self.offset, relu=relu)

@@ -25,8 +25,9 @@ What differs:
   reach the device, where JAX's gather would have filled them silently.
 
 On a CUDA device the generator runs through the hand-written cond-BN and
-3x3-conv kernels.  Constructing a :class:`Sampler` turns TF32 off for
-cuDNN convolutions and cuBLAS matmuls, so float32 serving is float32
+3x3-conv kernels.  Constructing a :class:`Sampler` applies the port's
+float32 policy (``core.module.float32_policy``: TF32 off for cuDNN
+convolutions and cuBLAS matmuls), so float32 serving is float32
 throughout, as it is in JAX.
 
 CLI:  python -m rcgan_tpu_torch.serving --model cifar --checkpoint_dir D \\
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
+from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
 from rcgan_tpu_torch.utils.images import merge
 
@@ -73,20 +75,12 @@ def _load_run_config(checkpoint_dir: str) -> dict:
     return {}
 
 
-def pin_float32() -> None:
-    """Full float32 on the card: cuDNN runs float32 convolutions in TF32 by
-    default (``torch.backends.cudnn.allow_tf32``), and TF32 matmuls are off
-    by default but are pinned here too (``torch.backends.cuda.matmul.allow_tf32``)."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 class Sampler:
     """Generator-backed conditional sampler with bucketed batch shapes
     (pad-and-slice for ragged requests)."""
 
     def __init__(self, generator: Generator, buckets: Sequence[int] = DEFAULT_BUCKETS):
-        pin_float32()
+        float32_policy(torch.float32)  # serving is float32 throughout
         self.generator = generator
         self.buckets = tuple(sorted(buckets))
         self.cfg: ResnetGANConfig = generator.cfg

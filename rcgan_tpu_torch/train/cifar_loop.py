@@ -29,7 +29,7 @@ import torch
 from rcgan_tpu_torch.algorithms.cifar import (CifarAlgoConfig, CifarGAN, lr_decay,
                                               partition_predicates)
 from rcgan_tpu_torch.core import rng
-from rcgan_tpu_torch.core.module import sn_updates
+from rcgan_tpu_torch.core.module import float32_policy, sn_updates
 from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
                                           dequantize_chw_to_hwc_seeded)
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
@@ -85,6 +85,7 @@ class CifarTrainer:
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        float32_policy(compute_dtype)
         self.confusion_actual = torch.as_tensor(np.asarray(confusion_actual, np.float32),
                                                 device=self.device)
         if device_dataset is not None and (
@@ -191,8 +192,8 @@ class CifarTrainer:
             q_seeds = torch.from_numpy(seeds.dequant).to(self.device, non_blocking=True)
 
         if iteration > 0:
-            zg = noise["zg"] if noise else rng.normal(seeds.g_z, (len(g_random), cfg.z_dim),
-                                                      self.device)
+            zg = noise["zg"] if noise else rng.example_normal(seeds.g_z, len(g_random),
+                                                              cfg.z_dim, self.device)
             g_cost = self._g_step(ts, g_random, g_biased, zg, lr, confuse_lr)
         else:  # the reference skips the G step at iteration 0
             g_cost = torch.zeros((), device=self.device)
@@ -207,7 +208,7 @@ class CifarTrainer:
             else:
                 real = dequantize_chw_to_hwc_seeded(batch["images"], q_seeds[k], cfg.img_size,
                                                     cfg.img_dim)
-                z = rng.normal(seeds.d_z[k], (b, cfg.z_dim), self.device)
+                z = rng.example_normal(seeds.d_z[k], b, cfg.z_dim, self.device)
             d_costs.append(self._d_step(ts, batch, real, z, lr))
         ts.step += 1
         d_costs = torch.stack(d_costs)
@@ -248,7 +249,7 @@ class CifarTrainer:
         else:
             seeds = torch.from_numpy(rng.example_seeds(rng.fold_in(seed, 1), b)).to(self.device)
             real = dequantize_chw_to_hwc_seeded(sb["images"], seeds, cfg.img_size, cfg.img_dim)
-            z = rng.normal(rng.fold_in(seed, 0), (b, cfg.z_dim), self.device)
+            z = rng.example_normal(rng.fold_in(seed, 0), b, cfg.z_dim, self.device)
         sb["real_data"] = real
         with sn_updates(ts.gan, False):
             return ts.gan.disc_loss(sb, z, self.confusion_actual)["disc_cost"]

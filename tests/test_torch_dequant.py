@@ -122,8 +122,8 @@ def test_cycle_seeds_are_keyed_by_global_index_and_step():
     assert len({tuple(r) for r in a.dequant.tolist()}) == 5
     c = trng.cycle_seeds(trng.fold_in(7, 1), 5, 64)
     assert c.g_z != a.g_z and not np.array_equal(c.dequant, a.dequant)
-    z1, z2 = trng.normal(a.g_z, (3, 4), "cpu"), trng.normal(a.g_z, (3, 4), "cpu")
-    assert torch.equal(z1, z2) and not torch.equal(z1, trng.normal(a.d_z[0], (3, 4), "cpu"))
+    z1, z2 = trng.example_normal(a.g_z, 3, 4, "cpu"), trng.example_normal(a.g_z, 3, 4, "cpu")
+    assert torch.equal(z1, z2) and not torch.equal(z1, trng.example_normal(a.d_z[0], 3, 4, "cpu"))
 
 
 @pytest.mark.parametrize("class_depend", [False, True])

@@ -29,7 +29,8 @@ from rcgan_tpu_torch.ops.kernels import conv_kernel, norm_kernel, projection_ker
 from rcgan_tpu_torch.ops.kernels.projection_kernel import (ProjectionLogitsFn,
                                                            all_label_projection_logits,
                                                            projection_plain)
-from rcgan_tpu_torch.ops.kernels.sn_kernel import SpectralNormFn, sn_plain, spectral_norm
+from rcgan_tpu_torch.ops.kernels.sn_kernel import (SpectralNormGroupFn, sn_plain,
+                                                   spectral_norm)
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -64,9 +65,9 @@ def test_sn_plain_matches_sn_fused(m, cout):
 @pytest.mark.parametrize("all_outputs", [False, True])
 def test_sn_gradient_flows_through_the_power_iteration(all_outputs):
     """d/dW of sum(W/σ·R) (and, with all_outputs, of σ and u' too) through
-    SpectralNormFn against jax.grad through sn_fused, whose VJP re-runs
-    sn_math: 1e-4 of the gradient's scale (float32, a few hundred terms
-    per entry in another order).  u0 gets no gradient."""
+    SpectralNormGroupFn (a group of one) against jax.grad through sn_fused,
+    whose VJP re-runs sn_math: 1e-4 of the gradient's scale (float32, a few
+    hundred terms per entry in another order).  u0 gets no gradient."""
     rs = np.random.RandomState(7)
     w = rs.randn(40, 24).astype(np.float32)
     u0 = rs.randn(1, 24).astype(np.float32)
@@ -81,7 +82,7 @@ def test_sn_gradient_flows_through_the_power_iteration(all_outputs):
     ref = np.asarray(jax.grad(jloss)(jnp.asarray(w)))
     wt = _t(w).requires_grad_(True)
     ut = _t(u0).requires_grad_(True)
-    wbar, u_new, sigma = SpectralNormFn.apply(wt, ut)
+    wbar, u_new, sigma = SpectralNormGroupFn.apply(wt, ut)
     loss = torch.sum(wbar * _t(r))
     if all_outputs:
         loss = loss + 0.7 * sigma + torch.sum(u_new * _t(r2))
@@ -324,11 +325,11 @@ def test_kernels_take_grad_mode_on_cuda_through_their_functions(monkeypatch, ker
                 torch.randn(3, 3, 2, 3, requires_grad=True)]
         fn, plain, want_launches = conv_kernel.conv3x3, conv_kernel.conv3x3_plain, 2
     else:
-        def launch(x, labels, scale_table, offset_table, eps):
+        def launch(x, labels, scale_table, offset_table, eps, relu=False):
             launches.append(x.shape)
             mean, inv = norm_kernel._moments_plain(x, eps)
-            return (norm_kernel._apply_plain(x, labels, scale_table, offset_table, mean, inv),
-                    mean, inv)
+            return (norm_kernel._apply_plain(x, labels, scale_table, offset_table, mean, inv,
+                                             relu), mean, inv)
 
         monkeypatch.setattr(norm_kernel, "_launch", launch)
         args = [torch.randn(2, 4, 3, requires_grad=True), torch.tensor([0, 1]),
