@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``rcgan_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's three paths once at the flagship width
+Drives the port's four paths once at the flagship width
 (``ResnetGANConfig()``: z_dim 128, dim_g 128, dim_d 128, embedding 300,
 10 classes): the serving path (float32), the discriminator forward
-(``rcgan_tpu_torch.entry.entry()`` and the CIFAR losses) and the training
-cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
+(``rcgan_tpu_torch.entry.entry()`` and the CIFAR losses), the training
+cycle (``CifarTrainer.step``: 1 G step + 5 critic steps) and the CIFAR app
+around it (``rcgan_tpu_torch.apps.cifar_app.main``):
 
 1. device check (CUDA required), card name and power limit, versions;
-2. build of the hand-written kernels from the repo's sources (the five
-   nvcc builds in parallel, the Triton dequantisation at first launch),
+2. build of the hand-written kernels from the repo's sources (the six
+   nvcc builds in parallel),
    with what ``ptxas -v`` reports for each CUDA kernel (registers, spills,
    static shared memory) and the dynamic shared memory each conv tile asks
    for; then the float32 policy: a float32 ``entry()`` built before any
@@ -62,10 +63,12 @@ cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
    and weight grads, table grads; cond-BN with and without its ReLU)
    against autograd of their plain versions
    at every G and D shape of the cycle (batch 64 and 128, float32 and
-   bfloat16); the dequantisation kernel at [64, 3072] (exact noise-free
-   part, noise in [0, 1/128), a flat 16-bin histogram, rows that do not
-   depend on the batch, other seeds other rows) and its time against the
-   plain version; two cycles at batch 8 on the card against the CPU from
+   bfloat16); the dequantisation kernel bit for bit against its plain
+   version (the same splitmix64 hash in int64 tensor ops) at batch 1, 64
+   and 100, on the card and on the CPU, noise in [0, 1/128), rows that do
+   not depend on the batch, other seeds other rows; its device time in CUDA
+   graphs and issued alone against the plain version's; two cycles at
+   batch 8 on the card against the CPU from
    the same weights and noise, float32, rcgan and rcgan-u (perm classifier,
    ``confuse_init``): Adam moments, parameters, SN ``u`` and costs (the
    check runs under PyTorch's deterministic algorithms, so it repeats from
@@ -81,7 +84,17 @@ cycle (``CifarTrainer.step``: 1 G step + 5 critic steps):
    conv3x3, cuDNN's weight grads, Adam, sn, cond-BN), and an rcgan cycle's 3x3 convs
    timed by kind and route (forward and input grad through ``conv3x3``,
    on cuDNN in bf16 and on the plain version; weight grads), beside their
-   bound at the H100's peaks and the share of it each reaches.
+   bound at the H100's peaks and the share of it each reaches;
+8. the CIFAR app at full width (bf16, batch 64, rcgan-u with the perm
+   classifier and ``confuse_init``, so that all five kernels run) on
+   synthetic data, under PyTorch's deterministic algorithms: 12 iterations
+   in blocks of 4 with the inception score, the dev cost, the sample grid,
+   the generated-label accuracy and checkpoints landing inside the run;
+   launches asserted exactly for every cycle, every kernel launched, the
+   run dir's files; then the same run killed by ``RCGAN_FAULT_AT_STEP`` at
+   iteration 11 and restarted with ``--restore`` from checkpoint 9, whose
+   final state must equal the uninterrupted run's bit for bit; the app's
+   own timings (cycles/s, each eval, checkpoint save and restore).
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -94,7 +107,8 @@ ffma on that float32 pass in CUDA graphs), the cuDNN route's row
 (``library_route``: the cycle's 14 ragged convs), the float32 pass per
 bucket (``g_pass_f32``) and the cycle's bf16 convs together
 (``cycle_bf16_ms``, ``cycle_bf16_plain_ms``, ``cycle_bf16_bound_ms``,
-``cycle_bf16_library_ms``); cond_bn's and sn's rows are device times in
+``cycle_bf16_library_ms``); the dequantisation's row is one call at
+[64, 3072] in CUDA graphs, issued alone beside it; cond_bn's and sn's rows are device times in
 CUDA graphs (a float32 generator pass's seven calls at batch 100 with the
 ReLU fused; the two launches of a D pass), with the same calls issued
 alone beside them (``alone_ms``, ``plain_alone_ms``); the projection's
@@ -160,6 +174,16 @@ PROJ_DTYPES = (("float32",) * 3, ("bfloat16",) * 3, ("bfloat16", "float32", "flo
 # over the peak for their type and its bytes (each input read once, each
 # output written once) over the memory rate.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# 32-bit integer instructions: 64 lanes per SM, half the float32 lanes, on
+# 132 SMs at the 1.98 GHz at which 128 float32 lanes give the 67 TFLOP/s
+# above (two operations per FMA), so 16.7e12 per second.
+PEAK_INT32 = 64 * 132 * 1.98e9
+# The dequantisation's work per element in 32-bit instructions: two
+# splitmix64 (a 64-bit add, three 64-bit shift-xors and two 64-bit
+# multiplies by constants, about 20 instructions), the xor between them,
+# the shift to the top 24 bits, two conversions to float and four float
+# operations.
+DEQUANT_OPS = 48
 # Launches per path (perm classifier off): conv3x3 (hand-written kernels
 # only), cond_bn, sn, projection.
 # sn: one launch per D pass (its 15 layers are one group) and one per call
@@ -308,7 +332,7 @@ KERNEL_INFO = {
            "replaces": "rcgan_tpu/ops/pallas/sn_kernel.py:73"},
     "projection": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/projection.cu",
                    "replaces": "rcgan_tpu/ops/pallas/projection_kernel.py:32"},
-    "dequant": {"route": "triton", "source": "rcgan_tpu_torch/ops/kernels/dequant_kernel.py",
+    "dequant": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/dequant.cu",
                 "replaces": "rcgan_tpu/ops/pallas/dequant_kernel.py:51"},
 }
 CONV_SOURCES = {"wgmma": "rcgan_tpu_torch/csrc/conv3x3_wgmma.cu",
@@ -974,12 +998,11 @@ def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
 def training_slice(torch, dev, seed: int, card: str, max_err: dict):
     """Phase 7: the training cycle.  Returns a dict: the launches of each
     kernel over the timed configuration's counted cycles (``counts``),
-    conv3x3's by variant (``variants``), (kernel ms, plain ms) of the
-    dequantisation at [64, 3072] (``dequant_ms``) and the bytes it moves
-    (``dequant_bytes``), and an rcgan cycle's conv times
-    (``cycle_conv_times``).  The dequantisation's ``max_err`` is how far
-    its noise strays outside [0, 1/128]: its random bits are Philox's, so
-    it is held to the plain version in distribution."""
+    conv3x3's by variant (``variants``), the dequantisation's times at
+    [64, 3072] (``dequant_ms``: kernel and plain, in CUDA graphs and issued
+    alone) and the bytes it moves (``dequant_bytes``), and an rcgan cycle's
+    conv times (``cycle_conv_times``).  The dequantisation's ``max_err`` is
+    its largest difference from the plain version (0: bit for bit)."""
     import numpy as np
 
     from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
@@ -991,7 +1014,8 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
     from rcgan_tpu_torch.ops.kernels import runtime
     from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
                                                          conv3x3_weight_grad)
-    from rcgan_tpu_torch.ops.kernels.dequant_kernel import dequantize, dequantize_plain
+    from rcgan_tpu_torch.ops.kernels.dequant_kernel import (dequantize, dequantize_plain,
+                                                            row_noise)
     from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
     from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
 
@@ -1046,26 +1070,34 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
                           f"dx err {res[0][1]:.3e}, dscale {res[1][1]:.3e}, doffset "
                           f"{res[2][1]:.3e}")
 
-    # ---- dequantisation at [64, 3072]
+    # ---- dequantisation: the kernel against its plain version (the same
+    # hash in int64 tensor ops), bit for bit, on the card and on the CPU
+    for b in (1, 64, 100):
+        xb = torch.randint(0, 256, (b, 3072), generator=gen, dtype=torch.uint8).to(dev)
+        sb = torch.from_numpy(trng.example_seeds(seed + b, b)).to(dev)
+        got = dequantize(xb, sb)
+        plain = dequantize_plain(xb, row_noise(sb, 3072))
+        on_cpu = dequantize(xb.cpu(), sb.cpu())
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        max_err["dequant"] = max(max_err["dequant"], err)
+        check(got.dtype == torch.float32 and got.shape == (b, 3072) and torch.equal(got, plain)
+              and torch.equal(got.cpu(), on_cpu),
+              f"dequant [{b},3072]: kernel bit-equal to its plain version on the card and on the "
+              f"CPU (max abs err {err:.1e})")
     x = torch.randint(0, 256, (64, 3072), generator=gen, dtype=torch.uint8).to(dev)
     seeds = torch.from_numpy(trng.example_seeds(seed, 64)).to(dev)
     out = dequantize(x, seeds)
     base = dequantize_plain(x, torch.zeros(64, 3072, device=dev))
     noise = out.double() - base.double()
     at_top = noise == 1.0 / 128
-    max_err["dequant"] = max(0.0, -noise.min().item(), noise.max().item() - 1.0 / 128)
-    check(out.dtype == torch.float32 and out.shape == (64, 3072)
-          and noise.min().item() >= 0.0 and noise.max().item() <= 1.0 / 128
+    check(noise.min().item() >= 0.0 and noise.max().item() <= 1.0 / 128
           and bool((base[at_top].abs() >= 2.0 ** -7).all())
           and bool((noise[base == 0] < 1.0 / 128).all()),
           f"dequant [64,3072]: noise in [0, 1/128) ({noise.min().item() * 128:.6f} to "
           f"{noise.max().item() * 128:.6f} /128; {int(at_top.sum())} element(s) rounded up to "
-          f"base + 1/128 by float32, all at |base| >= 2^-7; < 1/128 strictly where base = 0)")
-    hist = torch.histc((noise * 128).float(), bins=16, min=0.0, max=1.0)
-    dev_ = (hist / hist.mean() - 1).abs().max().item()
-    check(dev_ <= 0.05 and abs(noise.mean().item() * 256 - 1) <= 0.02,
-          f"dequant noise: 16-bin histogram within {dev_:.4f} of flat (limit 0.05), mean "
-          f"{noise.mean().item() * 256:.5f}/256")
+          f"base + 1/128 by float32, all at |base| >= 2^-7; < 1/128 strictly where base = 0), "
+          f"mean {noise.mean().item() * 256:.5f}/256")
     perm = torch.randperm(64, generator=gen).to(dev)
     check(torch.equal(dequantize(x[perm], seeds[perm]), out[perm])
           and torch.equal(dequantize(x[5:21].contiguous(), seeds[5:21].contiguous()), out[5:21]),
@@ -1074,11 +1106,18 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
           "dequant: other seeds give other rows")
     dequant_bytes = x.numel() * x.element_size() + seeds.numel() * seeds.element_size() \
         + out.numel() * out.element_size()
-    tk = statistics.median([event_ms(torch, lambda: dequantize(x, seeds)) for _ in range(2)])
-    tp = statistics.median([event_ms(torch, lambda: dequantize_plain(
-        x, torch.rand(64, 3072, device=dev) / 128.0)) for _ in range(2)])
-    print(f"  dequant [64,3072]: kernel {tk:.4f} ms, plain (torch.rand + ops) {tp:.4f} ms",
-          flush=True)
+
+    def dq_plain():
+        return dequantize_plain(x, row_noise(seeds, 3072))
+
+    dq = {"graph": graph_ms(torch, lambda: dequantize(x, seeds), calls=20),
+          "plain_graph": graph_ms(torch, dq_plain, calls=20),
+          "alone": statistics.median([event_ms(torch, lambda: dequantize(x, seeds))
+                                      for _ in range(2)]),
+          "plain_alone": statistics.median([event_ms(torch, dq_plain) for _ in range(2)])}
+    print(f"  dequant [64,3072]: kernel {dq['graph']:.4f} ms in CUDA graphs, {dq['alone']:.4f} "
+          f"ms issued alone; plain (hash in int64 tensor ops) {dq['plain_graph']:.4f} ms in "
+          f"graphs, {dq['plain_alone']:.4f} ms alone", flush=True)
 
     # ---- card against CPU, float32, TF32 off: two cycles from the same weights and noise,
     # under PyTorch's deterministic algorithms so that a reading repeats from run to run
@@ -1184,7 +1223,7 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
                   f"{sum(r[1] for r in hit)} launches", flush=True)
         if alg == "rcgan":
             conv_ms = cycle_conv_times(torch, dev, gen, bt)
-    return {"counts": totals, "variants": var_totals, "dequant_ms": (tk, tp),
+    return {"counts": totals, "variants": var_totals, "dequant_ms": dq,
             "dequant_bytes": dequant_bytes, "cycle_conv_times": conv_ms}
 
 
@@ -1279,6 +1318,154 @@ def cycle_conv_times(torch, dev, gen, b: int) -> dict:
     return out
 
 
+# Phase 8, the CIFAR app at full width on synthetic data.  The split holds 10
+# batches of 64; each iteration takes 5 critic and 2 generator batches, so
+# iteration 10 begins an epoch of both: a run resumed from checkpoint 9
+# (whose batch iterators restart at position 0 of the split, as JAX's do)
+# draws what the uninterrupted run drew from there.  Checkpoints land at 0,
+# 3, 6 and 9, the inception score at 7, the dev cost, the sample grid and
+# the generated-label accuracy at 5 and 11.
+APP = {"niters": 12, "fault_at": 11, "resume_from": 9}
+APP_FLAGS = ["--algorithm", "rcgan-u", "--alpha", "0.6", "--perm_classifier", "--confuse_init",
+             "--perm_gen_label_acc", "--mesh_devices", "1", "--nomulti_gpu_multi_batch",
+             "--synthetic_train_size", "640", "--eval_train_size", "2000",
+             "--niters", str(APP["niters"]), "--scan_block", "4", "--ckpt_early_every", "3",
+             "--sample_freq", "6", "--generated_label_accuracy_freq", "6"]
+
+
+def app_slice(torch, seed: int, card: str) -> dict:
+    """Phase 8: ``cifar_app.main`` on the card (module doc, item 8).
+    Returns the launches of each kernel over the uninterrupted run
+    (``counts``) and conv3x3's by variant (``variants``)."""
+    import os
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from rcgan_tpu_torch.apps import cifar_app
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.checkpoint import state_payload
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainer
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_app")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["RCGAN_SYNTH_CACHE"] = "0"
+    os.environ.pop("RCGAN_FAULT_AT_STEP", None)
+
+    def argv(expt, *extra):
+        # a data dir that does not exist, inside the run's own ground: load()
+        # takes the synthetic split whatever lies around the checkout
+        return APP_FLAGS + ["--seed", str(seed), "--parent_dir", root, "--expt_dir", expt,
+                            "--data_dir", os.path.join(root, "data"),
+                            "--log_file", os.path.join(root, f"{expt}.log"), *extra]
+
+    # every cycle's launches, counted around CifarTrainer.step
+    cycles = []
+    step = CifarTrainer.step
+
+    def counted(self, ts, d_batches, g_labels, iteration, seed_, noise=None):
+        before = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+        out = step(self, ts, d_batches, g_labels, iteration, seed_, noise)
+        after = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+        cycles.append((iteration, {k: after[0][k] - before[0][k] for k in after[0]},
+                       {k: after[1][k] - before[1][k] for k in after[1]}))
+        return out
+
+    stats, resumed_stats = {}, {}
+    with deterministic_algorithms(torch):
+        CifarTrainer.step = counted
+        try:
+            runtime.reset_launch_counts()
+            t = time.perf_counter()
+            whole, acc = cifar_app.main(argv("whole", "--inception_freq", "8"), device="cuda",
+                                        stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts, variants = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+        finally:
+            CifarTrainer.step = step
+        os.environ["RCGAN_FAULT_AT_STEP"] = str(APP["fault_at"])
+        try:
+            cifar_app.main(argv("killed", "--inception_freq", "1000000"), device="cuda")
+            killed = None
+        except RuntimeError as e:
+            killed = str(e)
+        finally:
+            os.environ.pop("RCGAN_FAULT_AT_STEP", None)
+        ck = os.path.join(root, "killed", "checkpoint")
+        left = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+        t = time.perf_counter()
+        resumed, _ = cifar_app.main(argv("killed", "--inception_freq", "1000000"),
+                                    device="cuda", stats=resumed_stats)
+        torch.cuda.synchronize()
+        wall_resumed = time.perf_counter() - t
+
+    check(len(cycles) == APP["niters"] and all(
+        c == cycle_counts("rcgan-u", True, 5, it > 0) and v == cycle_variants("rcgan-u", True, 5,
+                                                                              it > 0)
+        for it, c, v in cycles) and [it for it, _, _ in cycles] == list(range(APP["niters"])),
+          f"app rcgan-u bf16 batch 64: {len(cycles)} cycles, each with the launches of a "
+          f"training cycle (iteration 0: {cycles[0][1] if cycles else None}, then "
+          f"{cycles[-1][1] if cycles else None}; conv3x3 by variant {cycles[-1][2] if cycles else None})")
+    check(all(counts[k] > 0 for k in runtime.KERNELS),
+          f"app: every kernel launched over the run: {counts}, conv3x3 by variant {variants}")
+    run = os.path.join(root, "whole")
+    names = set(os.listdir(run))
+    want = {"checkpoint", "samples_5.png", "samples_11.png", "log.pkl", "metrics.jsonl",
+            "command.txt", "config.json", "scripts"}
+    with open(os.path.join(run, "log.pkl"), "rb") as f:
+        hist = pickle.load(f)
+    text = open(os.path.join(root, "whole.log")).read()
+    with open(os.path.join(run, "samples_11.png"), "rb") as f:
+        grid = png_size(f.read())
+    ckpts = sorted(int(n) for n in os.listdir(os.path.join(run, "checkpoint")) if n.isdigit())
+    # each eval's value as the app's MetricLogger recorded it (one inception
+    # score, two dev costs)
+    score = max(hist.get("inception_50k", {}).values(), default=float("nan"))
+    dev_costs = list(hist.get("dev_cost", {}).values())
+    dev_cost = dev_costs[-1] if len(dev_costs) == 2 else float("nan")
+    check(want <= names and ckpts == [0, 3, 6, 9] and grid == (320, 320)
+          and 1.0 <= score <= 10.0 and math.isfinite(dev_cost) and 0.0 <= acc <= 1.0
+          and all(math.isfinite(v) for v in hist["d_cost"].values())
+          and "final generated label accuracy" in text and "learned-C recovery" in text,
+          f"app run dir: {sorted(names & want)} (want {sorted(want)}), checkpoints {ckpts}, "
+          f"sample grid {grid}, inception (stand-in) {score:.4f} at 7, dev cost {dev_cost:.4f} "
+          f"at 11, final gen-label-acc {acc:.4f}, d_cost finite")
+    a, b = state_payload(whole), state_payload(resumed)
+    flat = [(f"{g}/{k}", a["groups"][g][k], b["groups"][g][k])
+            for g in a["groups"] for k in a["groups"][g]]
+    flat += [(f"u {k}", a["state"][k], b["state"][k]) for k in a["state"]]
+    flat += [(f"{m} {g}/{k}", a["opt_states"][g][m][k], b["opt_states"][g][m][k])
+             for g in a["opt_states"] for m in ("mu", "nu") for k in a["opt_states"][g][m]]
+    differ = [n for n, x, y in flat if not torch.equal(x, y)]
+    same_counts = all(a["opt_states"][g]["count"] == b["opt_states"][g]["count"]
+                      for g in a["opt_states"]) and a["step"] == b["step"] == APP["niters"]
+    check(killed is not None and f"at step {APP['fault_at']}" in killed
+          and left[-1] == APP["resume_from"] and not differ and same_counts
+          and f"restored from step {APP['resume_from'] + 1}" in open(
+              os.path.join(root, "killed.log")).read(),
+          f"app: killed at iteration {APP['fault_at']} ({killed}), checkpoints left {left}, "
+          f"resumed from {APP['resume_from']}: {len(flat) - len(differ)} of {len(flat)} tensors, "
+          f"the Adam counts and the step bit-equal to the uninterrupted run "
+          f"(differ: {differ[:3]})")
+
+    tr_s, tr_n = stats["train"]
+    print(f"  app on {card}: {wall:.1f} s for the uninterrupted run ({tr_n} cycles in "
+          f"{tr_s:.3f} s of blocks, {tr_n / tr_s:.3f} cycles/s, first block's warm-up "
+          f"included); the resumed run {wall_resumed:.1f} s", flush=True)
+    for k in ("data", "classifier", "inception", "dev_cost", "samples", "gen_label_acc",
+              "checkpoint_save"):
+        sec, n = stats.get(k, (float("nan"), 0))
+        print(f"    {k}: {sec:.3f} s over {n} call(s) ({sec / max(n, 1):.3f} s each)", flush=True)
+    sec, n = resumed_stats.get("restore", (float("nan"), 0))
+    print(f"    restore: {sec:.3f} s ({n} call)", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"counts": counts, "variants": variants,
+            "dequant_per_cycle": sum(c["dequant"] for _, c, _ in cycles) / len(cycles)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint_dir", default=None,
@@ -1293,7 +1480,6 @@ def main(argv=None) -> int:
         return 2
 
     import numpy as np
-    import triton
 
     from rcgan_tpu_torch.core import rng as trng
     from rcgan_tpu_torch.entry import entry
@@ -1313,21 +1499,20 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, triton {triton.__version__}", flush=True)
+          f"CUDA {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     print(f"TF32 as the process starts: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
     # ----------------------------------------------------------------- 2. build
-    # one nvcc per CUDA source, all started together; the Triton kernel
-    # (the dequantisation) compiles at its first launch, in phase 7
+    # one nvcc per CUDA source, all started together
     def timed_build(name):
         t = time.perf_counter()
         runtime.cuda_library(name)
         return time.perf_counter() - t
 
     t_all = time.perf_counter()
-    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn", "projection", "cond_bn")
+    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn", "projection", "cond_bn", "dequant")
     with concurrent.futures.ThreadPoolExecutor(len(cuda_sources)) as pool:
         builds = {name: pool.submit(timed_build, name) for name in cuda_sources}
         for name, fut in builds.items():
@@ -1735,6 +1920,9 @@ def main(argv=None) -> int:
     # ------------------------------------------------------ 7. the training cycle
     t_res = training_slice(torch, dev, args.seed, card, max_err)
 
+    # ------------------------------------------------------------- 8. the app
+    app = app_slice(torch, args.seed, card)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -1746,15 +1934,16 @@ def main(argv=None) -> int:
     # library: cuDNN float32 on them); per D pass (sn: its two launches in
     # CUDA graphs, issued alone beside it); one call at batch 64
     # issued alone (projection; library: cuBLAS addmm), with both in CUDA
-    # graphs beside; one call at [64, 3072] (dequant).  conv3x3 adds each
+    # graphs beside; one call at [64, 3072] in CUDA graphs (dequant; issued
+    # alone beside it).  conv3x3 adds each
     # kernel's own row (by_variant: wgmma on the rcgan training cycle's bf16
     # convs, ffma on the float32 pass at batch 100, device time in CUDA
     # graphs), the cuDNN route's (library_route: the cycle's ragged convs),
     # the float32 pass per bucket (g_pass_f32), and the cycle's 188 bf16
     # forward and input-grad convs together (cycle_bf16_*; library: cuDNN
     # bf16).  Operations counted per element: cond-BN 7 (moments 3, apply
-    # 4), sn 5 per weight entry (two GEMVs and the division), dequant 30
-    # (Philox's rounds and the scaling).
+    # 4), sn 5 per weight entry (two GEMVs and the division), dequant
+    # DEQUANT_OPS 32-bit instructions (the hash) at PEAK_INT32.
     conv = t_res["cycle_conv_times"]
     cycle_bound = conv["fwd"]["bound"] + conv["dx"]["bound"]
     cycle_ops = conv["fwd"]["bound_ops"] + conv["dx"]["bound_ops"]
@@ -1772,8 +1961,8 @@ def main(argv=None) -> int:
                        bound(2 * 64 * 128 * 10 + 64 * 10,
                              4 * (64 * 128 + 10 * 128 + 64 + 64 * 10), PEAK_F32),
                        proj_library_ms),
-        "dequant": (t_res["dequant_ms"], bound(30 * 64 * 3072, t_res["dequant_bytes"], PEAK_F32),
-                    None),
+        "dequant": ((t_res["dequant_ms"]["graph"], t_res["dequant_ms"]["plain_graph"]),
+                    bound(DEQUANT_OPS * 64 * 3072, t_res["dequant_bytes"], PEAK_INT32), None),
     }
 
     def bound_by(r):
@@ -1783,7 +1972,7 @@ def main(argv=None) -> int:
     for k in runtime.KERNELS:
         (ms, plain_ms), (bound_ms, by), library_ms = rows[k]
         row = dict(name=k, **KERNEL_INFO[k],
-                   launches=counts[k] + d_counts[k] + t_res["counts"][k],
+                   launches=counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k],
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":
@@ -1805,6 +1994,14 @@ def main(argv=None) -> int:
                        alone_ms_is="the same two launches issued alone (host included), CUDA "
                                    "events",
                        launches_per_d_pass=1)
+        if k == "dequant":
+            row.update(ms_is="one call at [64, 3072], device time in CUDA graphs (plain_ms: "
+                             "dequantize_plain with row_noise, the same bits, likewise)",
+                       alone_ms=t_res["dequant_ms"]["alone"],
+                       plain_alone_ms=t_res["dequant_ms"]["plain_alone"],
+                       alone_ms_is="the same call issued alone (host included), CUDA events",
+                       launches_per_cycle=app["dequant_per_cycle"],
+                       app_launches=app["counts"]["dequant"])
         if k == "projection":
             row.update(ms_is="one call at batch 64, float32, issued alone (host included), CUDA "
                              "events; library_ms: torch.addmm the same way",
@@ -1814,7 +2011,7 @@ def main(argv=None) -> int:
                        host_us=proj["host_us"])
         if k == "conv3x3":
             row["variants"] = {v: serve_variants[v] + d_variants[v] + t_res["variants"][v]
-                               for v in runtime.VARIANTS[k]}
+                               + app["variants"][v] for v in runtime.VARIANTS[k]}
             row["ms_is"] = (f"the FFMA kernel on one float32 generator pass at batch 100 "
                             f"({len(ffma_shapes)} convs; G's 256 -> 3 conv is on cuDNN), eager, "
                             f"CUDA events")

@@ -20,7 +20,8 @@ What differs:
   ``config.json``;
 - only ``--model cifar`` is ported; ``mnist`` and ``pggan`` raise, and
   ``--export`` (``jax.export``) is not ported (ROADMAP.md);
-- PNGs are encoded with the standard library (``zlib`` + ``struct``);
+- PNGs are encoded with the standard library (``zlib`` + ``struct``,
+  ``utils/images.py::encode_png``);
 - labels outside ``[0, vocab_size)`` are refused (HTTP 400) before they
   reach the device, where JAX's gather would have filled them silently.
 
@@ -42,10 +43,8 @@ import argparse
 import dataclasses
 import json
 import os
-import struct
 import threading
 import time
-import zlib
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -54,7 +53,7 @@ import torch
 from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
 from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
-from rcgan_tpu_torch.utils.images import merge
+from rcgan_tpu_torch.utils.images import encode_png, merge
 
 DEFAULT_BUCKETS = (1, 8, 32, 100)
 _NOT_PORTED = ("only --model cifar is ported; the MNIST and PGGAN samplers are "
@@ -355,18 +354,7 @@ def to_unit_range(imgs: np.ndarray) -> np.ndarray:
 
 def _png(img: np.ndarray) -> bytes:
     """8-bit RGB PNG of ``img`` ``[H,W,3]`` in [0,1]."""
-    arr = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
-    h, w = arr.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, -1)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + chunk(b"IEND", b""))
+    return encode_png((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
 
 
 def _to_png_grid(imgs: np.ndarray) -> bytes:

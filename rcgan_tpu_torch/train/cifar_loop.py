@@ -32,7 +32,7 @@ from rcgan_tpu_torch.core import rng
 from rcgan_tpu_torch.core.module import float32_policy, sn_updates
 from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
                                           dequantize_chw_to_hwc_seeded)
-from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, init_train_state,
                                          trainable)
@@ -48,7 +48,7 @@ class CifarTrainConfig:
     decay: bool = True
     confuse_multiplier: float = 1.0
     confuse_lr_decay: bool = False
-    # low-precision Adam moments ("bfloat16"): off the reference path, not ported
+    # Adam moments stored in a narrower dtype ("bfloat16"); None: float32
     moment_dtype: Optional[str] = None
 
 
@@ -237,10 +237,13 @@ class CifarTrainer:
                        noise: Optional[Mapping] = None) -> torch.Tensor:
         """The discriminator cost on a held-out ``batch`` (``images`` uint8
         ``[B, 3072]`` and the labels), with no SN update and no parameter
-        update.  ``noise``, when given, supplies ``z [B, z_dim]`` and
-        ``u [B, 3072]``."""
+        update (the dev cost of ``gan_resnet.py:976-989``).  ``noise``, when
+        given, supplies ``z [B, z_dim]`` and ``u [B, 3072]``."""
+        return self._disc_cost(ts, self._batch_to_device(batch), seed, noise)
+
+    def _disc_cost(self, ts: TrainState, sb: Dict[str, torch.Tensor], seed: int,
+                   noise: Optional[Mapping]) -> torch.Tensor:
         cfg = self.cfg
-        sb = self._batch_to_device(batch)
         b = sb["labels"].shape[0]
         if noise is not None:
             real = dequantize_chw_to_hwc(sb["images"], self._to_device(noise["u"], torch.float32),
@@ -250,9 +253,35 @@ class CifarTrainer:
             seeds = torch.from_numpy(rng.example_seeds(rng.fold_in(seed, 1), b)).to(self.device)
             real = dequantize_chw_to_hwc_seeded(sb["images"], seeds, cfg.img_size, cfg.img_dim)
             z = rng.example_normal(rng.fold_in(seed, 0), b, cfg.z_dim, self.device)
-        sb["real_data"] = real
+        sb = dict(sb, real_data=real)
         with sn_updates(ts.gan, False):
             return ts.gan.disc_loss(sb, z, self.confusion_actual)["disc_cost"]
+
+    @torch.no_grad()
+    def eval_disc_cost_scan(self, ts: TrainState, dataset: Mapping[str, torch.Tensor], idx,
+                            seed: int, noise: Optional[Mapping] = None) -> torch.Tensor:
+        """The mean discriminator cost over ``idx [K, B]`` index batches of a
+        split resident on the device (``dataset`` as
+        :func:`~rcgan_tpu_torch.data.cifar10.device_dataset_of` returns it),
+        each batch gathered on the device and keyed by
+        ``fold_in(seed, k)``; no SN or parameter update (JAX's
+        ``eval_disc_cost_scan``).  ``noise``, when given, supplies ``z [K,
+        B, z_dim]`` and ``u [K, B, 3072]``.  Returns a device scalar."""
+        idx = self._to_device(idx, torch.int64)
+        costs = []
+        for k in range(idx.shape[0]):
+            sb = self._batch_to_device({key: v[idx[k]] for key, v in dataset.items()})
+            nk = None if noise is None else {"z": noise["z"][k], "u": noise["u"][k]}
+            costs.append(self._disc_cost(ts, sb, rng.fold_in(seed, k), nk))
+        return torch.stack(costs).mean()
+
+    def sample(self, ts: TrainState, z, labels) -> torch.Tensor:
+        """The generator forward for evals and sample grids, float32 ``[B,
+        output_dim]`` on the device: cond-BN with batch statistics, as the
+        reference (``normalization.py:47-58``), in the trainer's compute
+        dtype."""
+        return sample(ts.gan.G, self._to_device(z, torch.float32),
+                      self._to_device(labels, torch.int64))
 
 
 def _grads(cost: torch.Tensor, params):

@@ -16,8 +16,11 @@ place, which saves a copy of every parameter per update:
 
 :class:`ScalelessAdam` is optax's ``scale_by_adam`` ∘ ``scale(-1)`` times a
 learning rate that the caller passes every step (``scaleless_adam`` +
-``apply_updates_with_lr``): float32 moments, bias-corrected, eps outside
-the square root, written with ``torch._foreach`` ops in optax's order.
+``apply_updates_with_lr``): bias-corrected moments, eps outside the square
+root, written with ``torch._foreach`` ops in optax's order.  The moments
+are float32, or stored in a narrower dtype (``moment_dtype="bfloat16"``,
+JAX's ``_scale_by_adam_lowp``): widened to float32 for the update, then
+rounded back for storage.
 """
 
 from __future__ import annotations
@@ -38,24 +41,30 @@ ParamKey = Tuple[str, str]  # (scope, var)
 @dataclasses.dataclass
 class AdamState:
     count: int                 # host int, optax's ``count``
-    mu: List[torch.Tensor]     # float32, in the order of the group's params
+    mu: List[torch.Tensor]     # moment_dtype (float32), in the order of the group's params
     nu: List[torch.Tensor]
 
 
 class ScalelessAdam:
     """``p ← p − lr · m̂ / (√v̂ + eps)`` with ``m̂, v̂`` optax's bias-corrected
-    moments.  ``moment_dtype="bfloat16"`` (the JAX package's low-precision
-    moments) is off the reference path and not ported."""
+    moments.  ``moment_dtype`` (a torch dtype name such as ``"bfloat16"``)
+    stores both moments in that dtype; the arithmetic stays float32 and the
+    update uses the float32 moments before they are rounded, as JAX's
+    ``_scale_by_adam_lowp``."""
 
     def __init__(self, b1: float, b2: float, eps: float = 1e-8,
                  moment_dtype: Optional[str] = None):
-        if moment_dtype is not None:
-            raise NotImplementedError("low-precision Adam moments are not ported: see "
-                                      "ROADMAP.md, Queue 1")
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.moment_dtype = torch.float32
+        if moment_dtype is not None:
+            dt = getattr(torch, str(moment_dtype), None)
+            if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+                raise ValueError(f"moment_dtype must name a torch floating dtype; got "
+                                 f"{moment_dtype!r}")
+            self.moment_dtype = dt
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
-        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        zeros = [torch.zeros_like(p, dtype=self.moment_dtype) for p in params]
         return AdamState(0, zeros, [torch.zeros_like(z) for z in zeros])
 
     @torch.no_grad()
@@ -65,16 +74,22 @@ class ScalelessAdam:
         params, grads = list(params), [g.float() for g in grads]
         state.count += 1
         b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(state.mu, b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(state.nu, b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(state.nu, _bias_correction(b2, state.count))
+        narrow = self.moment_dtype != torch.float32
+        mu = [m.float() for m in state.mu] if narrow else state.mu
+        nu = [v.float() for v in state.nu] if narrow else state.nu
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        denom = torch._foreach_div(nu, _bias_correction(b2, state.count))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(state.mu, _bias_correction(b1, state.count))
+        step = torch._foreach_div(mu, _bias_correction(b1, state.count))
         torch._foreach_div_(step, denom)
         torch._foreach_add_(params, step, alpha=-lr)
+        if narrow:  # rounded to nearest even for storage, as JAX's astype
+            torch._foreach_copy_(state.mu, mu)
+            torch._foreach_copy_(state.nu, nu)
 
 
 def _bias_correction(decay: float, count: int) -> float:

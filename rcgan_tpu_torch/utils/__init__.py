@@ -1,1 +1,2 @@
-"""Host-side utilities (numpy only)."""
+"""Host utilities: run directories, metrics, summaries, image grids and
+PNGs, profiling (numpy, the standard library and torch)."""

@@ -1,0 +1,34 @@
+"""TensorBoard scalars, the counterpart of ``rcgan_tpu/utils/summary.py``
+(the reference's ``tf.summary`` scalars,
+``cifar10/gan_resnet.py:698,787,905-907``): PyTorch's TensorBoard writer
+where the ``tensorboard`` package imports, else a no-op with one logged
+warning (metrics still reach :class:`~rcgan_tpu_torch.utils.metrics.MetricLogger`)."""
+
+from __future__ import annotations
+
+import logging
+
+log = logging.getLogger(__name__)
+
+
+class SummaryWriter:
+    def __init__(self, log_dir: str):
+        self._w = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter as _SW
+
+            self._w = _SW(log_dir)
+        except Exception as e:  # no tensorboard package
+            log.warning("tensorboard writer unavailable (%s); summaries disabled", e)
+
+    def scalar(self, tag: str, value, step: int):
+        if self._w is not None:
+            self._w.add_scalar(tag, float(value), step)
+
+    def flush(self):
+        if self._w is not None:
+            self._w.flush()
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()

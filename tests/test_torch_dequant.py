@@ -1,12 +1,13 @@
 """The port's data path against the JAX package, on the CPU: dequantisation
 (explicit noise against ``dequantize_chw_to_hwc_keys``, the plain version's
-seeded noise, per-row determinism), the host-side seeds of a cycle, the
+seeded noise against a numpy splitmix64 reference, its range and
+distribution, per-row determinism), the host-side seeds of a cycle, the
 copied confusion-matrix code and the device-resident dataset.
 
 The JAX dequantisation kernel (``dequantize_fused``) has no CPU lowering
 (``pltpu.prng_*``), so JAX's reference here is the keyed jnp function its
-cycle runs off the TPU; the Triton kernel is held against the plain
-version on the card by ``chip_smoke.py``.
+cycle runs off the TPU; the CUDA kernel is held bit for bit against the
+plain version on the card by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -70,11 +71,11 @@ def noise_range_ok(out, base):
 
 
 def test_seeded_plain_noise_range_mean_and_histogram():
-    """The seeded form on the CPU (the kernel's plain version, noise by
-    torch.rand per row): the range check of :func:`noise_range_ok`, the
-    mean within 2% of 1/256 and each of 16 bins within ±5% of flat over
-    64 × 3072 samples (binomial σ ≈ 0.9% of a bin).  No launch is counted
-    on the CPU."""
+    """The seeded form on the CPU (the kernel's plain version, noise from
+    the splitmix64 hash of seed and CHW offset): the range check of
+    :func:`noise_range_ok`, the mean within 2% of 1/256 and each of 16 bins
+    within ±5% of flat over 64 × 3072 samples (binomial σ ≈ 0.9% of a
+    bin).  No launch is counted on the CPU."""
     x = _images(64, 1)
     seeds = torch.from_numpy(trng.example_seeds(11, 64))
     before = runtime.launch_counts()
@@ -86,6 +87,38 @@ def test_seeded_plain_noise_range_mean_and_histogram():
     assert abs(noise.mean() * 256 - 1.0) < 0.02
     hist = np.histogram(noise * 128, bins=16, range=(0.0, 1.0))[0]
     np.testing.assert_allclose(hist / hist.mean(), 1.0, atol=0.05)
+
+
+def _splitmix64(x):
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+def test_seeded_plain_equals_a_numpy_splitmix64_reference(batch):
+    """The plain version's noise is the kernel's by construction:
+    ``u = (h >> 40) · 2⁻³¹`` with ``h = mix(mix(seed) ^ mix(chw))`` in
+    uint64 (numpy, wrapping), and the output ``fl(2(x/256 − 0.5) + u)`` in
+    float32, transposed to HWC: bit for bit, negative seeds included (the
+    int32 seed widened with its sign, as the kernel widens it).  Every
+    noise value lies in [0, 1/128) exactly."""
+    from rcgan_tpu_torch.ops.kernels.dequant_kernel import row_noise
+
+    x = _images(batch, 4)
+    seeds = np.array([7, -3, 2**31 - 2, 0, 12345][:batch], np.int32)
+    with np.errstate(over="ignore"):
+        base = _splitmix64(seeds.astype(np.int64).astype(np.uint64))
+        col = _splitmix64(np.arange(3072, dtype=np.uint64))
+        h = _splitmix64(base[:, None] ^ col[None, :])
+    u = (h >> np.uint64(40)).astype(np.float32) * np.float32(2.0 ** -31)
+    assert u.min() >= 0 and u.max() < 1 / 128
+    np.testing.assert_array_equal(row_noise(torch.from_numpy(seeds), 3072).numpy(), u)
+    want = np.float32(2.0) * (x.astype(np.float32) / np.float32(256.0) - np.float32(0.5)) + u
+    want = want.reshape(batch, 3, 32, 32).transpose(0, 2, 3, 1).reshape(batch, 3072)
+    got = dequantize_chw_to_hwc_seeded(torch.from_numpy(x), torch.from_numpy(seeds))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_seeded_rows_do_not_depend_on_the_batch():

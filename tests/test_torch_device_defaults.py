@@ -8,8 +8,10 @@ import torch
 
 from rcgan_tpu_torch import bridge
 from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
+from rcgan_tpu_torch.apps import cifar_app
 from rcgan_tpu_torch.data.confusion import build_confusion
 from rcgan_tpu_torch.entry import EntryForward
+from rcgan_tpu_torch.evals.classifier import cifar_classifier
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer, new_train_state
 
@@ -26,6 +28,8 @@ CALLS = {
     "EntryForward": lambda: EntryForward(CFG),
     "CifarGAN": lambda: CifarGAN(CFG, ACFG),
     "Generator": lambda: Generator(CFG),
+    "cifar_classifier": lambda: cifar_classifier(dim=8),
+    "cifar_app.main": lambda: cifar_app.main(["--niters", "1"]),
 }
 
 

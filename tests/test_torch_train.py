@@ -90,7 +90,7 @@ def test_scaleless_adam_matches_optax_over_three_steps():
     """β = (0, 0.9) and (0.5, 0.999), lr changing every step: params and
     both moments against optax's scale_by_adam ∘ scale(-1) ×
     apply_updates_with_lr, float32, to 1e-6 relative (the same ops in the
-    same order, on other kernels)."""
+    same order, on other kernels); bfloat16 moments are stored as such."""
     rs = np.random.RandomState(0)
     p0 = [rs.randn(6, 5).astype(np.float32), rs.randn(7).astype(np.float32)]
     grads = [[rs.randn(*p.shape).astype(np.float32) for p in p0] for _ in range(3)]
@@ -111,8 +111,12 @@ def test_scaleless_adam_matches_optax_over_three_steps():
             for got, want in ((tp[i], jp["l"][var]), (ts.mu[i], js[0].mu["l"][var]),
                               (ts.nu[i], js[0].nu["l"][var])):
                 np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ScalelessAdam(0.0, 0.9, moment_dtype="bfloat16")
+    # low-precision moments are stored in their dtype (held to JAX's
+    # _scale_by_adam_lowp by test_torch_app_train.py); a non-float one is refused
+    assert ScalelessAdam(0.0, 0.9, moment_dtype="bfloat16").init(
+        [torch.zeros(3)]).mu[0].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="moment_dtype"):
+        ScalelessAdam(0.0, 0.9, moment_dtype="int32")
 
 
 # -------------------------------------------------------------------- bridge
