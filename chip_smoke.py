@@ -6,7 +6,8 @@ Drives the port's four paths once at the flagship width
 10 classes): the serving path (float32), the discriminator forward
 (``rcgan_tpu_torch.entry.entry()`` and the CIFAR losses), the training
 cycle (``CifarTrainer.step``: 1 G step + 5 critic steps) and the CIFAR app
-around it (``rcgan_tpu_torch.apps.cifar_app.main``):
+around it (``rcgan_tpu_torch.apps.cifar_app.main``); then the MNIST stack
+at the archived recipes' width (``DCGANConfig()``):
 
 1. device check (CUDA required), card name and power limit, versions;
 2. build of the hand-written kernels from the repo's sources (the six
@@ -94,7 +95,22 @@ around it (``rcgan_tpu_torch.apps.cifar_app.main``):
    run dir's files; then the same run killed by ``RCGAN_FAULT_AT_STEP`` at
    iteration 11 and restarted with ``--restore`` from checkpoint 9, whose
    final state must equal the uninterrupted run's bit for bit; the app's
-   own timings (cycles/s, each eval, checkpoint save and restore).
+   own timings (cycles/s, each eval, checkpoint save and restore);
+9. the MNIST slice (the projection D with spectral norm and max-norm,
+   rcgan-u with the perm classifier; the sn kernel is its only kernel):
+   ``example_uniform`` on the card; sn against its plain version at
+   MNIST's groups (a D pass's four convs, and ``concat_y``'s), the same
+   bits twice, timed in CUDA graphs and issued alone beside the bound; two
+   float32 ``MnistTrainer`` iterations on the card against the CPU from the
+   same state over five data seeds, under deterministic algorithms, their
+   spread printed and held to ``MNIST_SPREAD``; full width, bf16, batch 100,
+   ``step_scan`` on the 70 000 synthetic digits resident on the card, 4 sn
+   launches and nothing else asserted per iteration, iterations/s and a
+   profiler breakdown; ``mnist_app.main`` with the rcgan-u recipe's flags
+   cut to 100 iterations, its run dir, every iteration's launches, then the
+   run restored without ``--train`` to the same bits and the same recovery;
+   an MNIST ``Sampler`` on that checkpoint behind ``make_server``, card
+   against CPU.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -111,7 +127,8 @@ bucket (``g_pass_f32``) and the cycle's bf16 convs together
 [64, 3072] in CUDA graphs, issued alone beside it; cond_bn's and sn's rows are device times in
 CUDA graphs (a float32 generator pass's seven calls at batch 100 with the
 ReLU fused; the two launches of a D pass), with the same calls issued
-alone beside them (``alone_ms``, ``plain_alone_ms``); the projection's
+alone beside them (``alone_ms``, ``plain_alone_ms``), and sn's adds
+MNIST's group (``mnist_group``); the projection's
 row adds its device time in CUDA graphs beside ``torch.addmm``'s;
 the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
@@ -632,10 +649,12 @@ def projection_host_breakdown(torch, feat, emb, wgan, n: int = 2000) -> dict:
 
 def png_size(body: bytes):
     """(width, height) of a PNG after checking its signature, IHDR and that
-    its IDAT data inflates to the size the header implies (8-bit RGB)."""
+    its IDAT data inflates to the size the header implies (8-bit RGB or
+    grey)."""
     if body[:8] != b"\x89PNG\r\n\x1a\n" or body[12:16] != b"IHDR":
         raise ValueError("not a PNG")
     w, h = struct.unpack(">II", body[16:24])
+    channels = {0: 1, 2: 3}[body[25]]
     pos, idat = 8, b""
     while pos < len(body):
         (n,) = struct.unpack(">I", body[pos:pos + 4])
@@ -643,7 +662,7 @@ def png_size(body: bytes):
         if tag == b"IDAT":
             idat += body[pos + 8:pos + 8 + n]
         pos += 12 + n
-    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+    if len(zlib.decompress(idat)) != h * (1 + channels * w):
         raise ValueError("IDAT size does not match IHDR")
     return w, h
 
@@ -943,7 +962,8 @@ def check_train_feeds(seed: int, data_seed: int = CHECK_TRAIN["data_seed"]) -> l
     return feeds
 
 
-def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
+def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict,
+                   cost_keys=("d_cost", "d_cost_mean", "g_cost")):
     """How far one train state is from another (``to_jax_train_state``
     layout): ``(readings, where)``, each reading the larger the worse and
     ``where`` naming the tensor behind each per-tensor one.  Per group that
@@ -957,8 +977,10 @@ def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
     tensor over the group's largest (a dead tensor stays dead);
     ``far.<group>``, the share of the live tensors' parameters more than
     lr/100 apart; ``params_max``, the largest parameter gap of any tensor in
-    units of 2·lr per update; ``u``, the SN ``u`` max abs error; ``cost``,
-    each cost's |diff| / (1 + |cost|)."""
+    units of 2·lr per update; ``u``, the SN ``u`` max abs error; ``stats``
+    (where the state holds BN moving statistics), the worst max |diff| of
+    one over its own max; ``cost``, each of ``cost_keys``' |diff| /
+    (1 + |cost|)."""
     import numpy as np
 
     out, where = {"params_max": 0.0}, {}
@@ -989,9 +1011,14 @@ def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict):
                    for la, v in keys)
         out["params_max"] = max(out["params_max"], float(full / (2 * lr * steps[g])))
     out["u"] = float(max(np.abs(np_got.state[la]["u"] - np_ref.state[la]["u"]).max()
-                         for la in np_ref.state))
+                         for la, d in np_ref.state.items() if "u" in d))
+    stats = [(la, v) for la, d in np_ref.state.items() for v in d if v != "u"]
+    if stats:
+        worst("stats", [(np.abs(np_got.state[la][v] - np_ref.state[la][v]).max()
+                         / max(np.abs(np_ref.state[la][v]).max(), 1e-12), f"{la}/{v}")
+                        for la, v in stats])
     out["cost"] = max(abs(float(m_got[k]) - float(m_ref[k])) / (1 + abs(float(m_ref[k])))
-                      for k in ("d_cost", "d_cost_mean", "g_cost"))
+                      for k in cost_keys)
     return out, where
 
 
@@ -1466,6 +1493,419 @@ def app_slice(torch, seed: int, card: str) -> dict:
             "dequant_per_cycle": sum(c["dequant"] for _, c, _ in cycles) / len(cycles)}
 
 
+# Phase 9, the MNIST slice at the archived recipes' configuration
+# (``scripts/run_rcganu.sh``): ``DCGANConfig()`` at full width (batch 100,
+# z 100, gf/df 64, gfc/dfc 1024, 28x28x1, 10 classes), the projection D with
+# spectral norm and max-norm, alpha 0.3, hinge, bf16, rcgan-u (a learned C
+# and the perm classifier).  The sn kernel is the path's only kernel: one
+# group of D's four convs per D pass, four passes an iteration (the D
+# step's real and fake passes, one fake pass per G step).
+MNIST_SN_GROUPS = {"a projection D pass": [(25, 64)] + [(1600, 64)] * 3,
+                   "concat_y at layer 1": [(275, 64)] + [(1600, 64)] * 3}
+MNIST_PATH_COUNTS = {"sn": 4, "cond_bn": 0, "conv3x3": 0, "projection": 0, "dequant": 0}
+MNIST_RECIPE = ["--algorithm", "rcgan", "--alpha", "0.3", "--disc_type", "projection",
+                "--estimate_confuse", "--aux_classifier", "--noadd_noise", "--noconcat_y",
+                "--spectral_norm", "--max_norm"]
+# the app phase: 20 iterations an epoch, gen-label-acc and the learned-C
+# report at epoch 4, 50 recovery steps on the reference's batch of 500
+MNIST_APP = ["--train_size", "2000", "--epoch", "5", "--eval_train_size", "2000",
+             "--recover_epoch", "50"]
+# full width, bf16, batch 100, on the 70 000 synthetic digits resident on
+# the card: blocks of 50 iterations, the first a warm-up
+MNIST_TIMED = {"batch": 100, "block": 50, "blocks": 4}
+# Card against CPU, float32, TF32 off, under deterministic algorithms: two
+# iterations (iteration 1 starts from Adam moments that iteration 0 left),
+# each from the card's state copied to the CPU bit for bit, with the same
+# batch and z, at batch 16, over the data seeds ``seed + MNIST_CHECK["data_seeds"]``
+# (every one checked; none chosen).  ``train_readings`` says what each
+# reading is; ``stats`` reads the BN moving statistics.  MNIST_SPREAD is the
+# spread that a calibration run printed (median, max over the five data
+# seeds; H100 80GB HBM3 at 700.00 W; the readings repeat bit for bit between
+# calls under deterministic algorithms).  Both the median and the max over
+# the seeds are held to MNIST_MARGIN times their calibration value, or, where
+# that was 0, to MNIST_MARGIN parameters of the group.  At iteration 0 one
+# seed (304) sits on a near-tie: Adam's first steps (``g / (|g| + eps)``) on
+# gradients that are zero but for rounding go apart there, so its maxima of
+# the G and C moments (``mu.gen`` 0.374) bound little, and the medians carry
+# the check; iteration 1, from the card's state, is within a few float32
+# steps at every seed.
+MNIST_CHECK = {"batch": 16, "data_seeds": (300, 301, 302, 303, 304)}
+MNIST_MARGIN = 3.0
+MNIST_SPREAD = {
+    0: {"cost": (8.89e-08, 1.12e-05), "u": (2.19e-06, 1.47e-05), "stats": (2.93e-04, 7.64e-04),
+        "params_max": (0.537, 1.02),
+        "mu.disc": (1.08e-05, 3.9e-03), "nu.disc": (1.16e-05, 1.61e-03),
+        "dead.disc": (8.85e-08, 1.72e-07), "far.disc": (2.2e-05, 3.15e-05),
+        "mu.gen": (4.86e-03, 0.374), "nu.gen": (2.25e-03, 0.147),
+        "dead.gen": (3.97e-08, 4.72e-08), "far.gen": (5.11e-03, 0.391),
+        "mu.confusion": (7.18e-06, 7.24e-03), "nu.confusion": (7.42e-06, 2.31e-03),
+        "far.confusion": (0.0, 0.21)},
+    1: {"cost": (3.81e-08, 4.27e-08), "u": (7.45e-08, 8.94e-08), "stats": (1.46e-04, 1.64e-04),
+        "params_max": (0.381, 0.41),
+        "mu.disc": (6.37e-06, 9.98e-06), "nu.disc": (6.48e-06, 6.84e-06),
+        "dead.disc": (1.26e-07, 1.58e-07), "far.disc": (0.0, 0.0),
+        "mu.gen": (2.16e-06, 2.33e-06), "nu.gen": (2.05e-06, 2.42e-06),
+        "dead.gen": (2.08e-08, 2.91e-08), "far.gen": (0.0, 2.83e-07),
+        "mu.confusion": (1.86e-06, 2.54e-06), "nu.confusion": (1.18e-06, 2.3e-06),
+        "far.confusion": (0.0, 0.0)},
+}
+# one parameter's share of its group at this width (318 059 in disc, 7 065 211
+# in gen, 100 in confusion): the smallest nonzero ``far`` reading
+MNIST_ONE_PARAM = {"far.disc": 1 / 318059, "far.gen": 1 / 7065211, "far.confusion": 1 / 100}
+
+
+def mnist_train_limits(it: int) -> dict:
+    """``{reading: (median limit, max limit)}`` of iteration ``it``."""
+    return {k: tuple(MNIST_MARGIN * max(v, MNIST_ONE_PARAM.get(k, 0.0)) for v in spread)
+            for k, spread in MNIST_SPREAD[it].items()}
+
+
+MNIST_COST_KEYS = ("d_loss", "g_loss", "class_loss_real", "class_loss_fake")
+# serving: the trained generator on the card against the same checkpoint on
+# the CPU, float32, BN in inference mode, within 1e-4 of the images' scale
+MNIST_SERVE_TOL = 1e-4
+
+
+def mnist_check_feeds(seed: int, data_seed: int, b: int):
+    """Two iterations' ``(batch, z)`` of the card-vs-CPU check, numpy from
+    ``seed + data_seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + data_seed)
+    feeds = []
+    for _ in range(2):
+        batch = {"images": rng.random((b, 28, 28, 1), dtype=np.float32),
+                 "y_real": rng.integers(0, 10, b), "y_gen": rng.integers(0, 10, b),
+                 "y_fake": rng.integers(0, 10, b),
+                 "y_real_weights": rng.uniform(-0.5, 1.5, (b, 10)).astype(np.float32)}
+        feeds.append((batch, rng.uniform(-1, 1, (b, 100)).astype(np.float32)))
+    return feeds
+
+
+def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
+    """Phase 9: the MNIST slice on the card (module doc, item 9).  Returns
+    the launches of each kernel over the timed full-width iterations and the
+    app's training (``counts``) and the sn kernel's row for MNIST's group
+    (``sn_group``)."""
+    import os
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
+    from rcgan_tpu_torch.apps import mnist_app
+    from rcgan_tpu_torch.bridge import mnist_train_state_from_jax, to_jax_train_state
+    from rcgan_tpu_torch.data.mnist import load_mnist
+    from rcgan_tpu_torch.models.dcgan import DCGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm_group
+    from rcgan_tpu_torch.serving import Sampler, make_server
+    from rcgan_tpu_torch.train.checkpoint import state_payload
+    from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer, dataset_to_device
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_mnist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["RCGAN_SYNTH_CACHE"] = os.path.join(root, "synth")  # one render for the phase
+    gen = torch.Generator().manual_seed(seed + 9)
+    cfg = DCGANConfig(disc_type="projection")  # full width, the recipes' D
+    acfg = MnistAlgoConfig(algorithm="rcgan", estimate_confuse=True, perm_regularizer=True)
+    tcfg = MnistTrainConfig()
+
+    # ---- z keyed per example on the card (U[-1, 1), the MNIST prior)
+    from rcgan_tpu_torch.core import rng as trng
+
+    zu = trng.example_uniform(seed + 13, 128, 100, dev, -1.0, 1.0)
+    check(torch.equal(trng.example_uniform(seed + 13, 40, 100, dev, -1.0, 1.0, first_index=64),
+                      zu[64:104])
+          and torch.equal(zu.cpu(), trng.example_uniform(seed + 13, 128, 100, "cpu", -1.0, 1.0))
+          and float(zu.min()) >= -1.0 and float(zu.max()) < 1.0,
+          f"example_uniform on the card: rows independent of the batch, the CPU's bits, in "
+          f"[-1, 1) (mean {zu.mean().item():.4f}, variance {zu.var().item():.4f})")
+
+    # ---- the sn kernel against its plain version at MNIST's groups
+    print(f"MNIST slice on {card}", flush=True)
+    sn_rows = {}
+    for tag, shapes in MNIST_SN_GROUPS.items():
+        pairs = [((0.02 * torch.randn(m, cout, generator=gen)).to(dev),
+                  torch.randn(1, cout, generator=gen).to(dev)) for m, cout in shapes]
+        before = runtime.launch_counts()["sn"]
+        with torch.no_grad():
+            got = spectral_norm_group(pairs)
+            launched = runtime.launch_counts()["sn"] - before
+            again = spectral_norm_group(pairs)
+        torch.cuda.synchronize()
+        worst, ok, err_abs = [0.0, 0.0, 0.0], launched == 1, 0.0
+        for (w, u), g3, a3 in zip(pairs, got, again):
+            for i, (g, a, r) in enumerate(zip(g3, a3, sn_plain(w, u))):
+                scale = r.abs().max().item()
+                err = (g - r).abs().max().item()
+                ok = ok and bool(torch.isfinite(g).all()) and err <= SN_TOL * scale \
+                    and torch.equal(g, a)
+                worst[i] = max(worst[i], err / scale)
+                if i == 0:
+                    err_abs = max(err_abs, err)
+        max_err["sn"] = max(max_err["sn"], err_abs)
+        check(ok, f"sn MNIST group ({tag}: {shapes}) float32, {launched} launch, the same bits "
+                  f"on two runs: max err of scale W/sigma {worst[0]:.3e}, u' {worst[1]:.3e}, "
+                  f"sigma {worst[2]:.3e} (limit {SN_TOL})")
+
+        def group():
+            with torch.no_grad():
+                return spectral_norm_group(pairs)
+
+        def plain():
+            with torch.no_grad():
+                return [sn_plain(w, u) for w, u in pairs]
+
+        t = {}
+        for key, timer in (("graph", graph_ms), ("alone", event_ms)):
+            tk, tp, tp2, tk2 = (timer(torch, f) for f in (group, plain, plain, group))
+            t[key], t[f"plain_{key}"] = statistics.median([tk, tk2]), statistics.median([tp, tp2])
+        bound_ms, by = bound(sum(5 * m * co for m, co in shapes),
+                             sum(4 * (2 * m * co + 2 * co + 1) for m, co in shapes), PEAK_F32)
+        sn_rows[tag] = {"shapes": shapes, "max_abs_err": err_abs, "ms": t["graph"],
+                        "plain_ms": t["plain_graph"], "alone_ms": t["alone"],
+                        "plain_alone_ms": t["plain_alone"], "bound_ms": bound_ms, "bound_by": by}
+        print(f"  sn {tag} {shapes}: kernel {t['graph']:.4f} ms in CUDA graphs, "
+              f"{t['alone']:.4f} ms issued alone; plain {t['plain_graph']:.4f} ms in graphs, "
+              f"{t['plain_alone']:.4f} ms alone; bound {bound_ms * 1e3:.3f} us ({by})",
+              flush=True)
+
+    # ---- card against CPU, float32, TF32 off: two iterations from one state
+    b = MNIST_CHECK["batch"]
+    small = DCGANConfig(disc_type="projection", batch_size=b)
+    c_true = np.eye(10, dtype=np.float32)
+    spread = {0: {}, 1: {}}
+    with deterministic_algorithms(torch):
+        trainers = {side: MnistTrainer(small, acfg, tcfg, c_true, device=side)
+                    for side in (dev, "cpu")}
+        for data_seed in MNIST_CHECK["data_seeds"]:
+            ts_card = trainers[dev].init(seed + data_seed)
+            for it, (batch, z) in enumerate(mnist_check_feeds(seed, data_seed, b)):
+                ts_cpu = mnist_train_state_from_jax(to_jax_train_state(ts_card), small, acfg,
+                                                    tcfg, "cpu")
+                ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, batch, 0, z=z)
+                ts_card, m_card = trainers[dev].step(ts_card, batch, 0, z=z)
+                r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
+                                          m_cpu, m_card, tcfg.learning_rate,
+                                          {"disc": 1, "gen": 2, "confusion": 2},
+                                          cost_keys=MNIST_COST_KEYS)
+                for k, v in r.items():
+                    spread[it].setdefault(k, []).append((v, data_seed, where.get(k)))
+    for it, readings in spread.items():
+        limits = mnist_train_limits(it)
+        worst = {k: max(vs) for k, vs in readings.items()}
+        med = {k: statistics.median(v for v, _, _ in vs) for k, vs in readings.items()}
+        check(set(readings) <= set(limits) and all(
+            med[k] <= limits[k][0] and v <= limits[k][1] for k, (v, _, _) in worst.items()),
+              f"MNIST training rcgan-u + perm, batch {b}, iteration {it}, float32, card vs CPU "
+              f"from the same state over data seeds {list(MNIST_CHECK['data_seeds'])}: "
+              + ", ".join(f"{k} median {med[k]:.3g} max {v:.3g} (seed {s}"
+                          f"{', at ' + w if w else ''}; limits {limits[k][0]:.3g}, "
+                          f"{limits[k][1]:.3g})"
+                          for k, (v, s, w) in sorted(worst.items()) if k in limits)
+              + f"; readings without a limit: {sorted(set(readings) - set(limits))}")
+        print(f"  spread of iteration {it} over the {len(MNIST_CHECK['data_seeds'])} data seeds "
+              f"(min / median / max; limits {MNIST_MARGIN}x the calibration median and max):",
+              flush=True)
+        for k, vs in sorted(readings.items()):
+            vals = sorted(v for v, _, _ in vs)
+            print(f"    {k}: {vals[0]:.3g} / {statistics.median(vals):.3g} / {vals[-1]:.3g}",
+                  flush=True)
+
+    # ---- full width, bf16, batch 100, on the resident dataset: launches, times, profile
+    t = time.perf_counter()
+    data = load_mnist(os.path.join(root, "data"), 0.3, seed=547)
+    data_s = time.perf_counter() - t
+    ds = dataset_to_device(data, len(data), dev)
+    mb = sum(v.numel() * v.element_size() for v in ds.values()) / 1e6
+    print(f"  MNIST: {len(data)} synthetic digits, {mb:.1f} MB resident on the card (load "
+          f"{data_s:.2f} s)", flush=True)
+    bt, blk = MNIST_TIMED["batch"], MNIST_TIMED["block"]
+    trainer = MnistTrainer(cfg, acfg, tcfg, data.confusion, device=dev,
+                           compute_dtype=torch.bfloat16)
+    state = {"ts": trainer.init(seed), "pos": 0}
+
+    def block(k=blk):
+        n_b = len(data) // bt
+        rows = [(state["pos"] + j) % n_b for j in range(k)]
+        idx = np.stack([np.arange(r * bt, (r + 1) * bt) for r in rows])
+        state["pos"] += k
+        state["ts"], ms = trainer.step_scan(state["ts"], ds, idx, seed)
+        return ms
+
+    counts = {k: 0 for k in runtime.KERNELS}
+    times = []
+    for i in range(MNIST_TIMED["blocks"]):
+        runtime.reset_launch_counts()
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ms = block()
+        e.record()
+        e.synchronize()
+        got = runtime.launch_counts()
+        want = {k: v * blk for k, v in MNIST_PATH_COUNTS.items()}
+        for k, v in got.items():
+            counts[k] += v
+        check(got == want, f"MNIST bf16 batch {bt}, block {i} of {blk} iterations: launches "
+                           f"{got} (want {want}: 4 sn launches per iteration, nothing else)")
+        if i:
+            times.append(a.elapsed_time(e))
+    finite = all(bool(torch.isfinite(v).all()) for v in ms.values()) and all(
+        bool(torch.isfinite(p).all()) for p in state["ts"].gan.parameters())
+    check(finite, f"MNIST bf16: losses and parameters finite after {state['ts'].step} "
+                  f"iterations (d_loss {float(ms['d_loss'][-1]):.4f}, g_loss "
+                  f"{float(ms['g_loss'][-1]):.4f})")
+    it_ms = statistics.median(times) / blk
+    sn_per_iteration = counts["sn"] / (MNIST_TIMED["blocks"] * blk)  # measured, not the table
+    print(f"  MNIST training rcgan-u + perm, bf16, batch {bt}, on {card}: {it_ms:.3f} ms per "
+          f"iteration ({1e3 / it_ms:.2f} iterations/s; median of {len(times)} blocks of {blk} "
+          f"by CUDA events, warm-up block left out)", flush=True)
+    wall, busy, rows = device_profile(torch, lambda: block(10), reps=2)
+    print(f"  MNIST training profiled: {wall / 10:.3f} ms per iteration, device busy "
+          f"{busy / 10:.3f} ms ({busy / wall:.0%}); by kernel, per iteration:", flush=True)
+    for tk, n, name in rows[:12]:
+        print(f"    {tk / 10:.4f} ms x{n / 10:g} {name[:90]}", flush=True)
+    # each kernel in the first kind whose keys its name holds
+    kinds = {"sn (one launch per D pass)": ("sn_group_kernel",),
+             "cuDNN convs and transposed convs (fprop, dgrad, wgrad)": (
+                 "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm"),
+             "Adam (foreach)": ("multi_tensor_apply",),
+             "matmuls (cuBLAS)": ("gemm", "gemv", "cutlass", "xmma")}
+    left = list(rows)
+    for label, keys in kinds.items():
+        hit = [r for r in left if any(k in r[2].lower() for k in keys)]
+        left = [r for r in left if r not in hit]
+        print(f"    {label}: {sum(r[0] for r in hit) / 10:.3f} ms per iteration in "
+              f"{sum(r[1] for r in hit) / 10:g} launches", flush=True)
+    print(f"    the rest (elementwise, reductions, copies): {sum(r[0] for r in left) / 10:.3f} "
+          f"ms per iteration in {sum(r[1] for r in left) / 10:g} launches", flush=True)
+
+    # ---- the app: the rcgan-u recipe cut down, then restored to recover again
+    app_root = os.path.join(root, "app")
+    argv = MNIST_RECIPE + MNIST_APP + ["--checkpoint_dir", app_root,
+                                       "--data_dir", os.path.join(root, "data"),
+                                       "--logs_dir", os.path.join(root, "logs")]
+    iters = []
+    step = MnistTrainer.step
+
+    def counted(self, ts, batch, seed_, z=None):
+        before = runtime.launch_counts()
+        out = step(self, ts, batch, seed_, z)
+        after = runtime.launch_counts()
+        iters.append({k: after[k] - before[k] for k in after})
+        return out
+
+    stats, stats2 = {}, {}
+    with deterministic_algorithms(torch):
+        MnistTrainer.step = counted
+        try:
+            runtime.reset_launch_counts()
+            t = time.perf_counter()
+            ts, rec = mnist_app.main(argv + ["--train"], device=dev, stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            app_counts = runtime.launch_counts()
+        finally:
+            MnistTrainer.step = step
+        run_name = next(d for d in os.listdir(app_root) if d.startswith("rcgan_0.3_projection_"))
+        run = os.path.join(app_root, run_name)
+        # the run's metric history, before the restored run rewrites log.pkl
+        with open(os.path.join(run, "log.pkl"), "rb") as f:
+            hist = pickle.load(f)
+        t = time.perf_counter()
+        again, rec2 = mnist_app.main(argv + ["--checkpoint", run_name], device=dev,
+                                     stats=stats2)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t
+    for k, v in app_counts.items():
+        counts[k] += v
+    check(len(iters) == 100 and all(c == MNIST_PATH_COUNTS for c in iters),
+          f"MNIST app: {len(iters)} iterations (want 100), each with the launches "
+          f"{MNIST_PATH_COUNTS} ({sum(c == MNIST_PATH_COUNTS for c in iters)} did)")
+    names = set(os.listdir(run))
+    want = {"ckpt", "samples", "recovery.txt", "recover_wrong_images.png", "command.txt",
+            "config.json", "scripts", "log.pkl", "metrics.jsonl"}
+    acc = list(hist.get("gen_label_acc", {}).values())
+    tv = list(hist.get("c_recovery_tv_perm", {}).values())
+    with open(os.path.join(run, "recover_wrong_images.png"), "rb") as f:
+        panel = f.read()
+    check(want <= names and os.listdir(os.path.join(run, "ckpt")) == ["100"]
+          and len(acc) == 1 and 0.0 <= acc[0] <= 1.0 and len(tv) == 1 and math.isfinite(tv[0])
+          and 0.0 <= rec["accuracy"] <= 1.0 and panel[25] == 0 and png_size(panel)[1] == 15 * 28
+          and all(math.isfinite(v) for v in hist["d_loss"].values()),
+          f"MNIST app run dir: {sorted(names & want)} (want {sorted(want)}), checkpoints "
+          f"{os.listdir(os.path.join(run, 'ckpt'))}, gen-label-acc at epoch 4 {acc}, learned-C "
+          f"perm-TV {tv}, recovery accuracy {rec['accuracy']}, grey recovery panel")
+    a, b2 = state_payload(ts), state_payload(again)
+    flat = [(f"{g}/{k}", a["groups"][g][k], b2["groups"][g][k])
+            for g in a["groups"] for k in a["groups"][g]]
+    flat += [(f"state {k}", a["state"][k], b2["state"][k]) for k in a["state"]]
+    flat += [(f"{m} {g}/{k}", a["opt_states"][g][m][k], b2["opt_states"][g][m][k])
+             for g in a["opt_states"] for m in ("mu", "nu") for k in a["opt_states"][g][m]]
+    differ = [n for n, x, y in flat if not torch.equal(x, y)]
+    check(not differ and a["step"] == b2["step"] == 100 and rec2["accuracy"] == rec["accuracy"]
+          and np.array_equal(rec2["y_recover"], rec["y_recover"]),
+          f"MNIST app restored with --checkpoint and without --train: {len(flat) - len(differ)} "
+          f"of {len(flat)} tensors bit-equal to the saved state (differ: {differ[:3]}), step "
+          f"{b2['step']}, recovery accuracy {rec2['accuracy']} again (was {rec['accuracy']})")
+    tr_s, tr_n = stats["train"]
+    print(f"  MNIST app on {card}: {wall:.1f} s ({tr_n} iterations in {tr_s:.3f} s of blocks, "
+          f"{tr_n / tr_s:.2f} iterations/s, the first block's warm-up included); restored run "
+          f"{wall2:.1f} s; recovery accuracy {rec['accuracy']}, gen-label-acc {acc}", flush=True)
+    for k in ("data", "classifier", "samples", "checkpoint_save", "gen_label_acc", "recovery"):
+        sec, n = stats.get(k, (float("nan"), 0))
+        print(f"    {k}: {sec:.3f} s over {n} call(s)", flush=True)
+    for k in ("data", "classifier", "restore", "recovery"):
+        sec, n = stats2.get(k, (float("nan"), 0))
+        print(f"    restored run, {k}: {sec:.3f} s over {n} call(s)", flush=True)
+
+    # ---- serving: the app's generator behind make_server, card against CPU
+    ckpt = os.path.join(run, "ckpt")
+    sampler = Sampler.from_checkpoint("mnist", ckpt, buckets=BUCKETS, device=dev)
+    cpu = Sampler.from_checkpoint("mnist", ckpt, buckets=BUCKETS, device="cpu")
+    rng = np.random.default_rng(seed)
+    for n in (1, 100):
+        z = rng.uniform(-1, 1, (n, cfg.z_dim)).astype(np.float32)
+        labels = np.arange(n) % 10
+        on_card, on_cpu = sampler.sample_with_z(z, labels), cpu.sample_with_z(z, labels)
+        err, scale = float(np.abs(on_card - on_cpu).max()), float(np.abs(on_cpu).max())
+        check(on_card.shape == (n, 28, 28, 1) and err <= MNIST_SERVE_TOL * scale,
+              f"MNIST generator on the card vs on the CPU, {n} image(s), float32, BN in "
+              f"inference mode: max abs err {err:.3e} (limit {MNIST_SERVE_TOL} of {scale:.3f})")
+    srv = make_server(sampler, port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    runtime.reset_launch_counts()
+    try:
+        for path, n in (("/sample?labels=3&seed=1", 1), ("/sample?n=100&seed=2", 100)):
+            t = time.perf_counter()
+            with urllib.request.urlopen(base + path, timeout=300) as r:
+                code, body = r.status, r.read()
+            ms = (time.perf_counter() - t) * 1e3
+            side = int(np.ceil(np.sqrt(n)))
+            check(code == 200 and body[25] == 0 and png_size(body) == (28 * side, 28 * side),
+                  f"MNIST GET {path}: HTTP {code}, grey PNG {png_size(body)} in {ms:.1f} ms")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    check(runtime.launch_counts() == {k: 0 for k in runtime.KERNELS},
+          f"MNIST serving launches no hand-written kernel: {runtime.launch_counts()}")
+    os.environ.pop("RCGAN_SYNTH_CACHE", None)
+    shutil.rmtree(root, ignore_errors=True)
+    row = dict(sn_rows["a projection D pass"], launches_per_iteration=sn_per_iteration,
+               iteration_ms=it_ms,
+               ms_is="MNIST's group of a projection D pass ([25, 64] and three [1600, 64]) in "
+                     "one launch, device time in CUDA graphs (plain_ms: sn_plain per weight, "
+                     "likewise; alone_ms: issued alone, host included)",
+               concat_y=sn_rows["concat_y at layer 1"])
+    return {"counts": counts, "sn_group": row}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint_dir", default=None,
@@ -1923,6 +2363,9 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------- 8. the app
     app = app_slice(torch, args.seed, card)
 
+    # ----------------------------------------------------- 9. the MNIST slice
+    mnist = mnist_slice(torch, dev, args.seed, card, max_err)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -1972,7 +2415,8 @@ def main(argv=None) -> int:
     for k in runtime.KERNELS:
         (ms, plain_ms), (bound_ms, by), library_ms = rows[k]
         row = dict(name=k, **KERNEL_INFO[k],
-                   launches=counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k],
+                   launches=(counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k]
+                             + mnist["counts"][k]),
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":
@@ -1993,7 +2437,7 @@ def main(argv=None) -> int:
                        alone_ms=sn_ms["alone"], plain_alone_ms=sn_ms["plain_alone"],
                        alone_ms_is="the same two launches issued alone (host included), CUDA "
                                    "events",
-                       launches_per_d_pass=1)
+                       launches_per_d_pass=1, mnist_group=mnist["sn_group"])
         if k == "dequant":
             row.update(ms_is="one call at [64, 3072], device time in CUDA graphs (plain_ms: "
                              "dequantize_plain with row_noise, the same bits, likewise)",

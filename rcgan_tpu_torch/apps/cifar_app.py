@@ -51,6 +51,7 @@ from rcgan_tpu_torch.train.failures import (PreemptionGuard, fault_injection_ste
 from rcgan_tpu_torch.utils import run_dir as run_dir_lib
 from rcgan_tpu_torch.utils.images import save_cifar_samples, to_uint8_samples
 from rcgan_tpu_torch.utils.metrics import MetricLogger
+from rcgan_tpu_torch.utils.profiling import PhaseClock
 from rcgan_tpu_torch.utils.summary import SummaryWriter
 
 log = logging.getLogger(__name__)
@@ -182,24 +183,6 @@ def _learned_confusion(ts) -> np.ndarray:
     return torch.softmax(logits.detach().float(), dim=-1).cpu().numpy()
 
 
-class _Clock:
-    """Host seconds by name (each block ends in a host fetch or a device
-    synchronise), kept in ``stats`` when the caller passes a dict."""
-
-    def __init__(self, stats: Optional[dict], device: torch.device):
-        self.stats = stats
-        self.device = device
-
-    def add(self, name: str, seconds: float, count: int = 1):
-        if self.stats is not None:
-            s, n = self.stats.get(name, (0.0, 0))
-            self.stats[name] = (s + seconds, n + count)
-
-    def sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-
 def main(argv=None, device="cuda", stats: Optional[dict] = None):
     """Run the experiment that ``argv`` describes on ``device``; returns
     ``(train_state, final_gen_label_acc)``.  ``stats``, when given, receives
@@ -213,7 +196,7 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
                         level=logging.DEBUG if flags.log_level == "debug" else logging.INFO,
                         format="%(asctime)s %(levelname)-8s %(message)s", force=True)
     dev = resolve_device(device)
-    clock = _Clock(stats, dev)
+    clock = PhaseClock(stats, dev)
 
     # --ngpus sets the device count (gan_resnet.py:53,183-192) unless
     # --mesh_devices overrides; capped at the devices present, as JAX caps it

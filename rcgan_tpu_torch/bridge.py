@@ -8,11 +8,12 @@ form.  The port keeps the same scope names and layouts
 objects and state as buffers, so moving both trees either way is a copy by
 name: a round trip is bit-exact.
 
-A whole train state crosses too (:func:`train_state_from_jax`,
-:func:`to_jax_train_state`): the three parameter groups, the SN ``u``
-state, each group's Adam ``count``/``mu``/``nu`` and ``step``, laid out as
-the JAX ``TrainState`` with its optax states
-``(ScaleByAdamState(count, mu, nu), EmptyState())``.
+A whole train state crosses too (:func:`train_state_from_jax` for CIFAR,
+:func:`mnist_train_state_from_jax` for MNIST, :func:`to_jax_train_state`
+for both): the parameter groups, the state (the SN ``u`` vectors, and
+MNIST's BN ``moving_mean``/``moving_variance``), each group's Adam
+``count``/``mu``/``nu`` and ``step``, laid out as the JAX ``TrainState``
+with its optax states ``(ScaleByAdamState(count, mu, nu), EmptyState())``.
 
 On disk a tree is one ``.npz`` whose keys are ``"<layer>/<var>"``
 (``G.Block.1.Conv1/Filters``); ``scripts/export_generator_npz.py`` writes
@@ -28,8 +29,11 @@ import torch
 from torch import nn
 
 from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
+from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
 from rcgan_tpu_torch.core.module import param_tree, scoped_modules, state_tree
+from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
+from rcgan_tpu_torch.train import mnist_loop
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, new_train_state
 from rcgan_tpu_torch.train.state import TrainState
 
@@ -138,11 +142,28 @@ def _by_key(tree: Mapping, keys) -> list:
 def train_state_from_jax(ts_numpy, cfg: ResnetGANConfig, acfg: CifarAlgoConfig,
                          tcfg: CifarTrainConfig, device="cuda",
                          compute_dtype: torch.dtype = torch.float32) -> TrainState:
-    """The port's :class:`TrainState` from a JAX ``TrainState`` whose leaves
-    are numpy arrays (or a :class:`NumpyTrainState`): every group's
+    """The port's CIFAR :class:`TrainState` from a JAX ``TrainState`` whose
+    leaves are numpy arrays (or a :class:`NumpyTrainState`): every group's
     parameters, the SN state, each optimiser's ``count``, ``mu``, ``nu``,
     and ``step``.  The groups must be the ones ``acfg`` partitions into."""
     ts = new_train_state(cfg, acfg, tcfg, device=device, compute_dtype=compute_dtype)
+    return load_train_state(ts, ts_numpy)
+
+
+def mnist_train_state_from_jax(ts_numpy, cfg: DCGANConfig, acfg: MnistAlgoConfig,
+                               tcfg: mnist_loop.MnistTrainConfig, device="cuda",
+                               compute_dtype: torch.dtype = torch.float32) -> TrainState:
+    """The port's MNIST :class:`TrainState` from a JAX ``MnistTrainer``'s
+    ``TrainState`` as numpy (or a :class:`NumpyTrainState`): parameters,
+    state (SN ``u``, BN moving statistics), Adam moments and ``step``."""
+    ts = mnist_loop.new_train_state(cfg, acfg, tcfg, device=device,
+                                    compute_dtype=compute_dtype)
+    return load_train_state(ts, ts_numpy)
+
+
+def load_train_state(ts: TrainState, ts_numpy) -> TrainState:
+    """Copy a numpy train state into ``ts`` in place (its model, moments,
+    counts and step) and return it."""
     if set(ts_numpy.groups) != set(ts.groups) or set(ts_numpy.opt_states) != set(ts.opt_states):
         raise KeyError(f"groups differ: {sorted(ts_numpy.groups)} vs {sorted(ts.groups)}")
     params = {layer: vs for g in ts_numpy.groups.values() for layer, vs in g.items()}
@@ -154,7 +175,7 @@ def train_state_from_jax(ts_numpy, cfg: ResnetGANConfig, acfg: CifarAlgoConfig,
             for d, a in zip(dst, src):
                 if tuple(a.shape) != tuple(d.shape):
                     raise ValueError(f"{g} Adam moment of shape {a.shape}, want {tuple(d.shape)}")
-                d.copy_(torch.from_numpy(a))
+                d.copy_(torch.from_numpy(np.array(a)))
         st.count = int(np.asarray(adam.count))
     ts.step = int(np.asarray(ts_numpy.step))
     return ts

@@ -15,8 +15,10 @@ integer hash (splitmix64), so nothing waits on the device:
 ``example_normal``: a counter-based draw on the device (splitmix64 of the
 seed, the row's **global** example index and the column, then Box-Muller),
 so a row does not depend on the batch it is drawn in, and no host
-generator is involved.  The streams differ from JAX's threefry; tests hand
-both frameworks the same noise instead.
+generator is involved; :func:`example_uniform` (the MNIST stack's
+U[-1, 1) latents, JAX ``example_uniform``) is keyed the same way.  The
+streams differ from JAX's threefry; tests hand both frameworks the same
+noise instead.
 """
 
 from __future__ import annotations
@@ -115,3 +117,14 @@ def example_normal(seed: int, n: int, dim: int, device, first_index: int = 0) ->
     u1 = (hi.to(torch.float32) + 1.0) * 2.0 ** -32
     u2 = lo.to(torch.float32) * 2.0 ** -32
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def example_uniform(seed: int, n: int, dim: int, device, minval: float = 0.0,
+                    maxval: float = 1.0, first_index: int = 0) -> torch.Tensor:
+    """``[n, dim]`` float32 uniforms in ``[minval, maxval)`` on ``device``,
+    keyed per example as :func:`example_normal` (JAX ``example_uniform``):
+    the top 24 bits of each element's hash give ``u`` in [0, 1) exactly in
+    float32, and ``minval + (maxval - minval) u`` the value."""
+    bits = example_bits(seed, n, dim, device, first_index)
+    u = ((bits >> 40) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
+    return minval + (maxval - minval) * u

@@ -1,18 +1,22 @@
-"""The CIFAR eval classifier, the counterpart of
-``rcgan_tpu/evals/classifier.py`` (``cifar_resnet``, ``EvalClassifier``,
-``train_pinned``, ``generated_label_accuracy``).
+"""The eval classifiers, the counterpart of ``rcgan_tpu/evals/classifier.py``
+(``mnist_cnn``, ``cifar_resnet``, ``EvalClassifier``, ``train_pinned``,
+``generated_label_accuracy``).
 
-The reference scores generated images with a frozen ResNet-110 GraphDef
-(``cifar10/gan_resnet.py:424-455``).  The JAX package stands in a compact
-pre-activation ResNet trained once on clean labels, its held-out clean
-accuracy pinned with the weights; the port builds the same net from its
-own layers (``Conv2dLib``, ``LinearLib``, ``mean_pool``), under the same
-scope names, so a weight tree moves between the two by name: a classifier
-saved by the JAX package loads here, and the other way round.
+The reference scores generated images with frozen GraphDefs, a ResNet-110
+for CIFAR (``cifar10/gan_resnet.py:424-455``) and ``mnist_dcnn`` for MNIST
+(``mnist/utils.py:273-306``, missing from the reference repo).  The JAX
+package stands in compact nets trained once on clean labels, their held-out
+clean accuracy pinned with the weights: a pre-activation ResNet for CIFAR
+and a conv-pool x2 + 2 dense CNN for MNIST.  The port builds the same nets
+from its own layers (``Conv2dLib``, ``LinearLib``, ``mean_pool``), under
+the same scope names, so a weight tree moves between the two by name: a
+classifier saved by the JAX package loads here, and the other way round.
 
-The classifier runs float32 (its convs 3x3 at 64-256 channels reach the
-FFMA conv3x3 kernel on the card; the 3-channel stem goes to cuDNN), with
-TF32 off (``float32_policy``), while training may run bf16.
+The classifiers run float32 with TF32 off (``float32_policy``), while
+training may run bf16.  The CIFAR ResNet's 3x3 convs at 64-256 channels
+reach the FFMA conv3x3 kernel on the card (the 3-channel stem goes to
+cuDNN); the MNIST CNN's 5x5 convs go to cuDNN (``F.conv2d``), as JAX
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -78,6 +82,25 @@ class CifarResnet(nn.Module):
             h = b(h)
         h = torch.relu(h).mean(dim=(1, 2))
         return self.head(h)
+
+
+class MnistCnn(nn.Module):
+    """JAX ``mnist_cnn``: ``x [B, 28, 28, 1]`` in [0, 1] → logits ``[B, 10]``;
+    two 5x5 stride-1 convs, each followed by a ReLU and a 2x2 mean pool, then
+    two dense layers."""
+
+    def __init__(self, seed: int = 0):
+        super().__init__()
+        self.conv1 = Conv2dLib(1, 32, 5, "cls.conv1", seed=seed)
+        self.conv2 = Conv2dLib(32, 64, 5, "cls.conv2", seed=seed)
+        self.fc1 = LinearLib(7 * 7 * 64, 256, "cls.fc1", seed=seed)
+        self.fc2 = LinearLib(256, 10, "cls.fc2", seed=seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = mean_pool(torch.relu(self.conv1(x)))
+        h = mean_pool(torch.relu(self.conv2(h)))
+        h = torch.relu(self.fc1(h.reshape(h.shape[0], -1)))
+        return self.fc2(h)
 
 
 def cifar_resnet(dim: int = 64, seed: int = 0, device="cuda") -> CifarResnet:
@@ -217,6 +240,11 @@ def train_pinned(cls: EvalClassifier, path: str, x_train: np.ndarray, y_train: n
     cls.save(path, meta={"clean_accuracy": acc, "version": 2, "epochs": epochs,
                          "n_train": int(len(x_train))})
     return acc
+
+
+def mnist_classifier(device="cuda") -> EvalClassifier:
+    """The MNIST eval classifier (JAX ``mnist_classifier``)."""
+    return EvalClassifier(lambda seed: MnistCnn(seed), (28, 28, 1), device)
 
 
 def cifar_classifier(dim: int = 64, img_size: int = 32, device="cuda") -> EvalClassifier:

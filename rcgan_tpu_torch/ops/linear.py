@@ -1,5 +1,6 @@
-"""Dense layer and label embedding, ported from ``rcgan_tpu/ops/linear.py``
-(``linear_lib`` with optional spectral norm, ``embed_y``).
+"""Dense layers and label embedding, ported from ``rcgan_tpu/ops/linear.py``
+(``linear_lib`` with optional spectral norm, ``embed_y``, and the MNIST
+stack's DCGAN ``linear`` with its max-norm clip).
 
 ``W`` keeps the JAX layout ``[in, out]``.  The product is ``torch.matmul``
 in the layer's ``compute_dtype`` (``x`` and ``W`` cast at the matmul, the
@@ -62,3 +63,22 @@ class Embedding(Scoped):
 
     def forward(self, labels: torch.Tensor) -> torch.Tensor:
         return self.embedding_map[labels]
+
+
+class Linear(Scoped):
+    """DCGAN linear (JAX ``linear``): normal(``stddev``) ``Matrix [in, out]``
+    and a constant ``bias``.  ``max_norm`` registers a [-1, 1] clip of both
+    in ``constraints`` (``{var: (lo, hi)}``), which the trainer applies
+    after each update (TF's ``constraint=``,
+    :func:`rcgan_tpu_torch.train.state.apply_constraints`)."""
+
+    def __init__(self, input_dim: int, output_size: int, scope: str, stddev: float = 0.02,
+                 bias_start: float = 0.0, max_norm: bool = False, seed: int = 0):
+        super().__init__(scope, seed)
+        self.add_param("Matrix", (input_dim, output_size), inits.normal(stddev))
+        self.add_param("bias", (output_size,), inits.constant(bias_start))
+        self.constraints = {"Matrix": (-1.0, 1.0), "bias": (-1.0, 1.0)} if max_norm else {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.matmul(x.to(self.compute_dtype), self.Matrix.to(self.compute_dtype))
+        return out + self.bias.to(out.dtype)

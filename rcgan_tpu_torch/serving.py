@@ -1,5 +1,5 @@
-"""Serving: class-conditional CIFAR-10 images from a trained generator over
-HTTP, ported from ``rcgan_tpu/serving.py``.
+"""Serving: class-conditional images (CIFAR-10 and MNIST) from a trained
+generator over HTTP, ported from ``rcgan_tpu/serving.py``.
 
 What carries over unchanged in behaviour:
 
@@ -15,23 +15,29 @@ What carries over unchanged in behaviour:
 
 What differs:
 
-- weights come from ``<checkpoint_dir>/generator.npz`` (written from an
-  orbax checkpoint by ``scripts/export_generator_npz.py``) plus the run's
-  ``config.json``;
-- only ``--model cifar`` is ported; ``mnist`` and ``pggan`` raise, and
-  ``--export`` (``jax.export``) is not ported (ROADMAP.md);
+- CIFAR weights come from ``<checkpoint_dir>/generator.npz`` (written from
+  an orbax checkpoint by ``scripts/export_generator_npz.py``) plus the
+  run's ``config.json``; MNIST weights from the port's own checkpoint of
+  an ``apps/mnist_app.py`` run (``<run>/ckpt``, ``train_state.pt``), as
+  JAX's ``"mnist"`` branch restores its trainer's checkpoint;
+- the MNIST sampler draws U[-1, 1] latents and runs G with BN in inference
+  mode; its sigmoid output is already in [0, 1];
+- ``--model pggan`` raises, and ``--export`` (``jax.export``) is not ported
+  (ROADMAP.md);
 - PNGs are encoded with the standard library (``zlib`` + ``struct``,
   ``utils/images.py::encode_png``);
-- labels outside ``[0, vocab_size)`` are refused (HTTP 400) before they
+- labels outside ``[0, n_labels)`` are refused (HTTP 400) before they
   reach the device, where JAX's gather would have filled them silently.
 
-On a CUDA device the generator runs through the hand-written cond-BN and
-3x3-conv kernels.  Constructing a :class:`Sampler` applies the port's
-float32 policy (``core.module.float32_policy``: TF32 off for cuDNN
-convolutions and cuBLAS matmuls), so float32 serving is float32
-throughout, as it is in JAX.
+On a CUDA device the CIFAR generator runs through the hand-written cond-BN
+and 3x3-conv kernels; the MNIST generator's linears, BNs and 5x5
+transposed convs run on cuBLAS and cuDNN, as JAX leaves them to XLA.
+Constructing a :class:`Sampler` applies the port's float32 policy
+(``core.module.float32_policy``: TF32 off for cuDNN convolutions and
+cuBLAS matmuls), so float32 serving is float32 throughout, as it is in
+JAX.
 
-CLI:  python -m rcgan_tpu_torch.serving --model cifar --checkpoint_dir D \\
+CLI:  python -m rcgan_tpu_torch.serving --model {cifar,mnist} --checkpoint_dir D \\
         [--labels 0,1,2 --n 100 --out grid.png] [--serve --port 8321] \\
         [--register name=cifar:dir ...] [--auth_token TOK] \\
         [--coalesce_wait_ms 4] [--device cuda]
@@ -52,12 +58,37 @@ import torch
 
 from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
 from rcgan_tpu_torch.core.module import float32_policy
+from rcgan_tpu_torch.models import dcgan
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
 from rcgan_tpu_torch.utils.images import encode_png, merge
 
 DEFAULT_BUCKETS = (1, 8, 32, 100)
-_NOT_PORTED = ("only --model cifar is ported; the MNIST and PGGAN samplers are "
-               "still to port (ROADMAP.md, Queue 1)")
+_NOT_PORTED = ("--model cifar and --model mnist are ported; the PGGAN sampler is still to "
+               "port (ROADMAP.md, Queue 1)")
+
+
+def _mnist_generator(checkpoint_dir: str, run_cfg: dict, pick, device) -> "dcgan.Generator":
+    """The generator of the latest MNIST checkpoint under ``checkpoint_dir``
+    (``train/checkpoint.py`` layout), in a train state built from the run's
+    flags (JAX's ``from_checkpoint`` ``"mnist"`` branch)."""
+    from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
+
+    mkw = pick(dcgan.DCGANConfig)
+    if "concat_y_layers" in mkw:
+        mkw["concat_y_layers"] = tuple(int(x) for x in mkw["concat_y_layers"])
+    akw = pick(MnistAlgoConfig)
+    # the MNIST CLI takes perm_regularizer as --aux_classifier too
+    if run_cfg.get("aux_classifier") is not None:
+        akw.setdefault("perm_regularizer", bool(run_cfg["aux_classifier"]))
+    # the true C plays no part in sampling
+    trainer = MnistTrainer(dcgan.DCGANConfig(**mkw), MnistAlgoConfig(**akw), MnistTrainConfig(),
+                           np.eye(10, dtype=np.float32), device=device)
+    restored = Checkpointer(checkpoint_dir).restore(trainer.init())
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+    return restored.gan.G
 
 
 def _load_run_config(checkpoint_dir: str) -> dict:
@@ -76,15 +107,19 @@ def _load_run_config(checkpoint_dir: str) -> dict:
 
 class Sampler:
     """Generator-backed conditional sampler with bucketed batch shapes
-    (pad-and-slice for ragged requests)."""
+    (pad-and-slice for ragged requests).  ``generator`` is the CIFAR
+    ``Generator`` (``model`` "cifar") or the MNIST ``dcgan.Generator``
+    ("mnist")."""
 
-    def __init__(self, generator: Generator, buckets: Sequence[int] = DEFAULT_BUCKETS):
+    def __init__(self, generator, buckets: Sequence[int] = DEFAULT_BUCKETS):
         float32_policy(torch.float32)  # serving is float32 throughout
         self.generator = generator
         self.buckets = tuple(sorted(buckets))
-        self.cfg: ResnetGANConfig = generator.cfg
+        self.cfg = generator.cfg
+        self.model = "mnist" if isinstance(generator, dcgan.Generator) else "cifar"
+        self.n_labels = self.cfg.y_dim if self.model == "mnist" else self.cfg.vocab_size
         self.z_dim = self.cfg.z_dim
-        self.device = generator.device
+        self.device = next(generator.parameters()).device
         self.passes = 0  # generator passes run, one per bucketed chunk
         self._passes_lock = threading.Lock()
 
@@ -92,16 +127,24 @@ class Sampler:
     def from_checkpoint(cls, model: str, checkpoint_dir: str,
                         buckets: Sequence[int] = DEFAULT_BUCKETS, device="cuda",
                         **overrides):
-        """Load ``<checkpoint_dir>/generator.npz``.  Config resolution,
-        lowest to highest precedence: ``ResnetGANConfig`` defaults < the
-        run's archived ``config.json`` (found next to ``checkpoint_dir``) <
-        explicit ``overrides``.  ``device="cuda"`` without a card raises."""
-        if model != "cifar":
-            raise NotImplementedError(_NOT_PORTED)
+        """Config resolution, lowest to highest precedence: the config
+        dataclasses' defaults < the run's archived ``config.json`` (found
+        next to ``checkpoint_dir``) < explicit ``overrides``.  ``cifar``
+        loads ``<checkpoint_dir>/generator.npz``; ``mnist`` restores the
+        latest checkpoint of an MNIST run under ``checkpoint_dir`` and keeps
+        its generator, float32.  ``device="cuda"`` without a card raises."""
         run_cfg = dict(_load_run_config(checkpoint_dir))
         run_cfg.update(overrides)
-        fields = {f.name for f in dataclasses.fields(ResnetGANConfig)}
-        cfg = ResnetGANConfig(**{k: v for k, v in run_cfg.items() if k in fields})
+
+        def pick(dc_type):
+            fields = {f.name for f in dataclasses.fields(dc_type)}
+            return {k: v for k, v in run_cfg.items() if k in fields}
+
+        if model == "mnist":
+            return cls(_mnist_generator(checkpoint_dir, run_cfg, pick, device), buckets)
+        if model != "cifar":
+            raise NotImplementedError(_NOT_PORTED)
+        cfg = ResnetGANConfig(**pick(ResnetGANConfig))
         path = os.path.join(checkpoint_dir, "generator.npz")
         if not os.path.exists(path):
             raise FileNotFoundError(f"no generator.npz under {checkpoint_dir} (export one "
@@ -110,31 +153,39 @@ class Sampler:
 
     # ----------------------------------------------------------- internals
     def check_labels(self, labels: Sequence[int]) -> np.ndarray:
-        """Labels as int64, refused (ValueError) outside ``[0, vocab_size)``:
+        """Labels as int64, refused (ValueError) outside ``[0, n_labels)``:
         the device gathers by label without bounds checks."""
         out = np.asarray(labels)
         if out.ndim != 1 or (out.size and not np.issubdtype(out.dtype, np.integer)):
             raise ValueError("labels must be a 1-D sequence of ints")
         out = out.astype(np.int64)
-        if out.size and (out.min() < 0 or out.max() >= self.cfg.vocab_size):
-            raise ValueError(f"labels must lie in [0, {self.cfg.vocab_size})")
+        if out.size and (out.min() < 0 or out.max() >= self.n_labels):
+            raise ValueError(f"labels must lie in [0, {self.n_labels})")
         return out
 
     def draw_z(self, rng: np.random.Generator, n: int) -> np.ndarray:
-        """Latents in CIFAR's training prior N(0, 1), drawn host-side so a
-        request's z is a pure function of its own seed — the property
-        coalescing relies on."""
+        """Latents in the model's training prior (MNIST U[-1, 1], CIFAR
+        N(0, 1)), drawn host-side so a request's z is a pure function of its
+        own seed — the property coalescing relies on."""
+        if self.model == "mnist":
+            return rng.uniform(-1.0, 1.0, (n, self.z_dim)).astype(np.float32)
         return rng.standard_normal((n, self.z_dim)).astype(np.float32)
 
     def _run_batch_z(self, z, padded: np.ndarray) -> np.ndarray:
-        """One generator pass at len(padded) (a bucket size), explicit z."""
+        """One generator pass at len(padded) (a bucket size), explicit z:
+        ``[B, H, W, C]`` float32."""
         zt = torch.as_tensor(z, dtype=torch.float32).to(self.device)
         lt = torch.as_tensor(padded, dtype=torch.int64).to(self.device)
-        flat = sample(self.generator, zt, lt)
+        if self.model == "mnist":
+            y = torch.nn.functional.one_hot(lt, self.n_labels).float()
+            out = dcgan.sample(self.generator, zt, y).cpu().numpy()
+        else:
+            c = self.cfg
+            out = sample(self.generator, zt, lt).cpu().numpy().reshape(
+                -1, c.img_size, c.img_size, c.img_dim)
         with self._passes_lock:
             self.passes += 1
-        c = self.cfg
-        return flat.cpu().numpy().reshape(-1, c.img_size, c.img_size, c.img_dim)
+        return out
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -168,14 +219,20 @@ class Sampler:
 
     def sample(self, labels: Sequence[int],
                generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """Generate one image per label; returns [N, 32, 32, 3] float in
-        [-1, 1].  z is drawn per bucketed chunk from ``generator`` (a CPU
-        ``torch.Generator``; seed 0 when None).  That stream differs from
-        JAX's ``jax.random`` stream, so this path is not comparable across
-        the two frameworks; :meth:`sample_with_z` is."""
+        """Generate one image per label: ``[N, 32, 32, 3]`` in [-1, 1]
+        (CIFAR) or ``[N, 28, 28, 1]`` in [0, 1] (MNIST).  z is drawn per
+        bucketed chunk from ``generator`` (a CPU ``torch.Generator``; seed 0
+        when None), in the model's prior.  That stream differs from JAX's
+        ``jax.random`` stream, so this path is not comparable across the two
+        frameworks; :meth:`sample_with_z` is."""
         gen = torch.Generator().manual_seed(0) if generator is None else generator
-        return self._run_chunks(self.check_labels(labels), lambda i, n, bucket: torch.randn(
-            (bucket, self.z_dim), generator=gen))
+
+        def z_for(i, n, bucket):
+            if self.model == "mnist":
+                return 2.0 * torch.rand((bucket, self.z_dim), generator=gen) - 1.0
+            return torch.randn((bucket, self.z_dim), generator=gen)
+
+        return self._run_chunks(self.check_labels(labels), z_for)
 
 
 # ------------------------------------------------------ metrics middleware
@@ -346,14 +403,15 @@ class Coalescer:
 MAX_REQUEST_SAMPLES = 1024
 
 
-def to_unit_range(imgs: np.ndarray) -> np.ndarray:
-    """Generator output range → [0,1] for PNG encoding.  The CIFAR generator
-    ends in tanh ([-1,1]); clipping instead would zero the negative half."""
-    return (imgs + 1.0) / 2.0
+def to_unit_range(imgs: np.ndarray, model: str = "cifar") -> np.ndarray:
+    """Generator output range → [0,1] for PNG encoding.  MNIST's sigmoid
+    head already is; the CIFAR generator ends in tanh ([-1,1]), whose
+    negative half clipping would zero."""
+    return imgs if model == "mnist" else (imgs + 1.0) / 2.0
 
 
 def _png(img: np.ndarray) -> bytes:
-    """8-bit RGB PNG of ``img`` ``[H,W,3]`` in [0,1]."""
+    """8-bit PNG of ``img`` in [0,1]: ``[H,W,3]`` RGB or ``[H,W]`` grey."""
     return encode_png((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
 
 
@@ -444,7 +502,7 @@ def make_server(models: Union[Sampler, Dict[str, Sampler]], port: int = 8321,
                     if not 1 <= n <= MAX_REQUEST_SAMPLES:
                         return self._send(
                             400, b"n out of range (1..%d)" % MAX_REQUEST_SAMPLES)
-                    labels = list(np.arange(n) % 10)
+                    labels = list(np.arange(n) % registry[name].n_labels)
                 seed = int(q.get("seed", ["0"])[0])
             except ValueError:
                 return self._send(400, b"bad labels/seed")
@@ -460,7 +518,7 @@ def make_server(models: Union[Sampler, Dict[str, Sampler]], port: int = 8321,
                 mx.observe_error(name)
                 return self._send(500, b"sampling failed")
             mx.observe_request(name, time.perf_counter() - t0, len(labels))
-            imgs = to_unit_range(imgs)
+            imgs = to_unit_range(imgs, registry[name].model)
             return self._send(200, _to_png_grid(imgs), "image/png")
 
     class Server(ThreadingHTTPServer):
@@ -481,8 +539,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="rcgan_tpu_torch sampler")
     p.add_argument("--model", choices=["mnist", "cifar", "pggan"], required=True)
     p.add_argument("--checkpoint_dir", required=True,
-                   help="directory holding generator.npz (and config.json, here "
-                        "or up to two levels above)")
+                   help="cifar: the directory holding generator.npz; mnist: an MNIST "
+                        "run's ckpt directory (config.json here or up to two levels "
+                        "above)")
     p.add_argument("--labels", default=None, help="comma-separated class ids")
     p.add_argument("--n", type=int, default=100)
     p.add_argument("--out", default="samples.png")
@@ -527,7 +586,7 @@ def main(argv=None):
     else:
         labels = list(np.arange(args.n) % 10)
     imgs = sampler.sample(labels, torch.Generator().manual_seed(args.seed))
-    imgs = to_unit_range(imgs)
+    imgs = to_unit_range(imgs, sampler.model)
     side = int(np.floor(np.sqrt(len(imgs))))
     with open(args.out, "wb") as f:
         f.write(_png(merge(imgs[: side * side], (side, side))))

@@ -34,8 +34,8 @@ from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
                                           dequantize_chw_to_hwc_seeded)
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, init_train_state,
-                                         trainable)
+from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
+                                         init_train_state, trainable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,7 +138,7 @@ class CifarTrainer:
         params = [p for g in names for p in ts.group_params(g)]
         with trainable(ts, names):
             out = ts.gan.gen_loss(g_random, g_biased, zg, self.confusion_actual)
-            grads = _grads(out["gen_cost"], params)
+            grads = grads_of(out["gen_cost"], params)
         n = 0
         for g in names:
             ps = ts.group_params(g)
@@ -155,7 +155,7 @@ class CifarTrainer:
         params = ts.group_params("disc")
         with trainable(ts, ["disc"]):
             out = ts.gan.disc_loss(sb, z, self.confusion_actual)
-            grads = _grads(out["disc_cost"], params)
+            grads = grads_of(out["disc_cost"], params)
         self.optimizers["disc"].update_(params, grads, ts.opt_states["disc"], lr)
         return out["disc_cost"].detach()
 
@@ -282,10 +282,3 @@ class CifarTrainer:
         dtype."""
         return sample(ts.gan.G, self._to_device(z, torch.float32),
                       self._to_device(labels, torch.int64))
-
-
-def _grads(cost: torch.Tensor, params):
-    """d cost / d params, zeros for a parameter the cost does not reach (as
-    JAX's grad gives)."""
-    grads = torch.autograd.grad(cost, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]

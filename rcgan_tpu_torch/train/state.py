@@ -21,13 +21,17 @@ root, written with ``torch._foreach`` ops in optax's order.  The moments
 are float32, or stored in a narrower dtype (``moment_dtype="bfloat16"``,
 JAX's ``_scale_by_adam_lowp``): widened to float32 for the update, then
 rounded back for storage.
+
+:func:`apply_constraints` is the post-update clip of the MNIST projection
+discriminator's max-norm linears (TF's ``constraint=``), registered on the
+layers (:func:`constraints_of`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,3 +156,29 @@ def trainable(ts: TrainState, names: Sequence[str]) -> Iterator[None]:
         for ps in ts.groups.values():
             for p in ps.values():
                 p.requires_grad_(True)
+
+
+def grads_of(cost: torch.Tensor, params) -> List[torch.Tensor]:
+    """d cost / d params, zeros for a parameter the cost does not reach (as
+    JAX's grad gives)."""
+    grads = torch.autograd.grad(cost, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def constraints_of(module: nn.Module) -> Dict[str, Dict[str, Tuple[float, float]]]:
+    """``{scope: {var: (lo, hi)}}``: the clip constraints the layers under
+    ``module`` register (JAX's ``ctx.constraints`` after init)."""
+    return {scope: dict(m.constraints) for scope, m in scoped_modules(module).items()
+            if getattr(m, "constraints", None)}
+
+
+@torch.no_grad()
+def apply_constraints(group: Dict[ParamKey, Any],
+                      constraints: Dict[str, Dict[str, Tuple[float, float]]]) -> None:
+    """Clip, in place, every parameter of ``group`` (``{(scope, var):
+    tensor}``) that ``constraints`` names to its ``[lo, hi]`` (JAX
+    ``apply_constraints``)."""
+    for (scope, var), p in group.items():
+        bounds = constraints.get(scope, {}).get(var)
+        if bounds is not None:
+            p.clamp_(*bounds)

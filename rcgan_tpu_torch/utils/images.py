@@ -2,8 +2,10 @@
 (``merge``, ``save_images``, ``save_cifar_samples``, ``to_uint8_samples``;
 reference: ``mnist/utils.py:21-250``, ``cifar10/common/misc.py``).
 
-PNGs are encoded here with zlib and struct (:func:`encode_png`), with no
-image library: the serving path and the app's sample grids share it.
+PNGs are encoded here with zlib and struct (:func:`encode_png`), and
+animated grey GIFs with numpy (:func:`encode_gif`), with no image library:
+the serving path, the apps' sample grids and ``utils/visualize.py`` share
+them.
 """
 
 from __future__ import annotations
@@ -55,6 +57,52 @@ def encode_png(arr: np.ndarray) -> bytes:
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + chunk(b"IEND", b""))
+
+
+# A GIF's LZW code stream of literal codes only: with 8-bit pixels every
+# code is 9 bits wide as long as the decoder's table stays below 512
+# entries, which a clear code every GIF_RUN pixels ensures (a clear resets
+# the table; the table grows by one entry per code after the first).
+GIF_RUN = 250
+
+
+def _gif_lzw(pixels: np.ndarray) -> bytes:
+    """The image data of one frame: the LZW minimum code size (8) and the
+    code stream (clear, up to GIF_RUN literals, clear, ..., end), packed
+    LSB first into sub-blocks of at most 255 bytes."""
+    pixels = pixels.reshape(-1).astype(np.uint16)
+    n_runs = max(1, -(-len(pixels) // GIF_RUN))
+    codes = np.full(len(pixels) + n_runs + 1, 256, np.uint16)  # 256: clear
+    at = np.arange(len(pixels))
+    codes[at + at // GIF_RUN + 1] = pixels
+    codes[-1] = 257  # end of information
+    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1).astype(np.uint8)
+    data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return b"\x08" + blocks + b"\x00"
+
+
+def encode_gif(frames, duration_ms: int = 120) -> bytes:
+    """An animated GIF89a of uint8 grey frames ``[H, W]`` (or ``[H, W,
+    1]``) on a 256-level grey palette, looping forever, each frame shown
+    ``duration_ms``."""
+    frames = [np.asarray(f) for f in frames]
+    frames = [f[..., 0] if f.ndim == 3 and f.shape[-1] == 1 else f for f in frames]
+    if not frames or any(f.ndim != 2 or f.dtype != np.uint8 or f.shape != frames[0].shape
+                         for f in frames):
+        raise ValueError("encode_gif wants uint8 grey frames [H, W] of one shape")
+    h, w = frames[0].shape
+    grey = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), grey,
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"]
+    delay = int(round(duration_ms / 10))
+    for f in frames:
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0))
+        out.append(_gif_lzw(f))
+    out.append(b"\x3b")
+    return b"".join(out)
 
 
 def save_images(images: np.ndarray, size, path: str):

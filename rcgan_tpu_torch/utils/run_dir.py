@@ -1,6 +1,7 @@
 """Run-directory layout and reproducibility archiving, copied from
 ``rcgan_tpu/utils/run_dir.py``: timestamped run dirs that encode
-algorithm and alpha (``cifar10/gan_resnet.py:117``), and the package's
+algorithm and alpha (``mnist/main.py:78-84``, ``cifar10/gan_resnet.py:117``),
+and the package's
 sources plus the command line archived into the run dir
 (``cifar10/common/misc.py:18-26``)."""
 
@@ -15,6 +16,11 @@ from datetime import datetime
 
 def timestamp() -> str:
     return datetime.now().strftime("%Y%m%d-%H%M%S")
+
+
+def mnist_run_dir(checkpoint_root: str, prefix: str, algorithm: str, alpha: float,
+                  disc_type: str) -> str:
+    return os.path.join(checkpoint_root, f"{prefix}{algorithm}_{alpha}_{disc_type}_{timestamp()}")
 
 
 def cifar_run_dir(parent_dir: str, algorithm: str, alpha: float, run: str) -> str:

@@ -6,17 +6,22 @@ import numpy as np
 import pytest
 import torch
 
-from rcgan_tpu_torch import bridge
+from rcgan_tpu_torch import bridge, serving
 from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
-from rcgan_tpu_torch.apps import cifar_app
+from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig, MnistGAN
+from rcgan_tpu_torch.apps import cifar_app, mnist_app
 from rcgan_tpu_torch.data.confusion import build_confusion
 from rcgan_tpu_torch.entry import EntryForward
-from rcgan_tpu_torch.evals.classifier import cifar_classifier
+from rcgan_tpu_torch.evals.classifier import cifar_classifier, mnist_classifier
+from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
+from rcgan_tpu_torch.train import mnist_loop
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer, new_train_state
 
 CFG = ResnetGANConfig(dim_g=8, dim_d=16, embedding_dim=24)
 ACFG, TCFG = CifarAlgoConfig(), CifarTrainConfig()
+MCFG = DCGANConfig(gf_dim=8, df_dim=8, gfc_dim=32, dfc_dim=32, disc_type="projection")
+MACFG, MTCFG = MnistAlgoConfig(algorithm="rcgan"), mnist_loop.MnistTrainConfig()
 
 # each entry point called with every argument but device
 CALLS = {
@@ -30,6 +35,15 @@ CALLS = {
     "Generator": lambda: Generator(CFG),
     "cifar_classifier": lambda: cifar_classifier(dim=8),
     "cifar_app.main": lambda: cifar_app.main(["--niters", "1"]),
+    "MnistTrainer": lambda: mnist_loop.MnistTrainer(MCFG, MACFG, MTCFG, np.eye(10)),
+    "mnist new_train_state": lambda: mnist_loop.new_train_state(MCFG, MACFG, MTCFG),
+    "MnistGAN": lambda: MnistGAN(MCFG, MACFG),
+    "mnist_train_state_from_jax": lambda: bridge.mnist_train_state_from_jax(None, MCFG, MACFG,
+                                                                            MTCFG),
+    "mnist_classifier": lambda: mnist_classifier(),
+    "mnist_app.main": lambda: mnist_app.main(["--epoch", "1"]),
+    "Sampler.from_checkpoint mnist": lambda: serving.Sampler.from_checkpoint("mnist",
+                                                                              "/nonexistent"),
 }
 
 
@@ -49,3 +63,6 @@ def test_the_cpu_is_taken_only_when_asked():
     tr = CifarTrainer(CFG, ACFG, TCFG, np.eye(10, dtype=np.float32), device="cpu")
     assert {p.device.type for m in (gan, fwd, tr.init().gan) for p in m.parameters()} == {"cpu"}
     assert tr.device == torch.device("cpu")
+    mts = mnist_loop.MnistTrainer(MCFG, MACFG, MTCFG, np.eye(10), device="cpu").init()
+    assert {p.device.type for p in mts.gan.parameters()} | {
+        b.device.type for b in mts.gan.buffers()} == {"cpu"}

@@ -42,3 +42,37 @@ def make_batch(b: int, seed: int, vocab: int = 10, output_dim: int = 3072):
 
 def to_torch(tree):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
+
+
+# the MNIST DCGAN at test size: narrow widths, 28x28 images
+TINY_MNIST = dict(gf_dim=8, df_dim=8, gfc_dim=32, dfc_dim=32)
+
+
+def mnist_batch(b: int, seed: int, y_dim: int = 10):
+    """A numpy batch as ``mnist_losses`` takes it, ``z`` in U[-1, 1) and an
+    actual confusion matrix (rows sum to 1)."""
+    rs = np.random.RandomState(seed)
+    batch = {"images": rs.rand(b, 28, 28, 1).astype(np.float32),
+             "y_real": rs.randint(0, y_dim, b).astype(np.int32),
+             "y_gen": rs.randint(0, y_dim, b).astype(np.int32),
+             "y_fake": rs.randint(0, y_dim, b).astype(np.int32),
+             "y_real_weights": rs.uniform(-0.5, 1.5, (b, y_dim)).astype(np.float32)}
+    z = rs.uniform(-1, 1, (b, 100)).astype(np.float32)
+    c = rs.uniform(0.1, 1.0, (y_dim, y_dim))
+    return batch, z, (c / c.sum(1, keepdims=True)).astype(np.float32)
+
+
+def perturb_mnist(params, state, seed: int):
+    """Biases, BN gamma/beta and the moving statistics moved off their
+    constant inits (in place) so that each of them matters."""
+    rs = np.random.RandomState(seed)
+    for d in params.values():
+        for var, a in d.items():
+            if var in ("biases", "bias", "gamma", "beta"):
+                d[var] = (a + 0.3 * rs.randn(*a.shape)).astype(np.float32)
+    for d in state.values():
+        if "moving_mean" in d:
+            d["moving_mean"] = (0.3 * rs.randn(*d["moving_mean"].shape)).astype(np.float32)
+            d["moving_variance"] = rs.uniform(0.5, 2.0, d["moving_variance"].shape).astype(
+                np.float32)
+    return params, state
