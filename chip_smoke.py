@@ -7,7 +7,9 @@ Drives the port's four paths once at the flagship width
 (``rcgan_tpu_torch.entry.entry()`` and the CIFAR losses), the training
 cycle (``CifarTrainer.step``: 1 G step + 5 critic steps) and the CIFAR app
 around it (``rcgan_tpu_torch.apps.cifar_app.main``); then the MNIST stack
-at the archived recipes' width (``DCGANConfig()``):
+at the archived recipes' width (``DCGANConfig()``), the PGGAN family at its
+app's default width (``apps/pggan_app.py``: 64x64, max_stage 4, dim 128)
+and the CIFAR app's Inception-v3 scorer:
 
 1. device check (CUDA required), card name and power limit, versions;
 2. build of the hand-written kernels from the repo's sources (the six
@@ -110,7 +112,32 @@ at the archived recipes' width (``DCGANConfig()``):
    cut to 100 iterations, its run dir, every iteration's launches, then the
    run restored without ``--train`` to the same bits and the same recovery;
    an MNIST ``Sampler`` on that checkpoint behind ``make_server``, card
-   against CPU.
+   against CPU;
+10. the PGGAN slice (conv3x3, cond-BN and sn at shapes no other path
+   reaches): conv3x3 at every G and D map (8 to 64 pixels, C = O = 128,
+   batch 64), forward and input grad, on wgmma in bf16 and FFMA in float32;
+   cond-BN at every G map (4 to 64 pixels), with and without its ReLU, bf16
+   and float32; sn at the stage-4 transition's group of 16 weights, the same
+   bits twice; the 64x64 conv, cond-BN and that group timed in CUDA graphs
+   beside their bounds; one iteration of each of the three phases of
+   ``max_stage`` 2 at full width, float32, card against CPU from the same
+   state over five data seeds under deterministic algorithms, the spread
+   printed and held to ``PG_SPREAD``; full width, bf16, batch 64,
+   ``max_stage`` 4, iterations in each of the 7 phases on 2 048 images
+   resident on the card, each iteration's launches asserted exactly
+   (``pggan_counts``: 18 conv3x3 on wgmma and 4 cond-BN per stage, 3 sn),
+   ms per stage-4 iteration (stab and trans) and a profiler breakdown;
+   ``train_progressive`` at full width, ``max_stage`` 2, crashed in phase 3
+   by its data and resumed from the phase checkpoint to the uninterrupted
+   run's bits; ``pggan_app.main`` at its defaults cut to 2 iterations a
+   phase, the run's sn, cond-BN and wgmma launches (its training and its
+   evals' generator passes), its rows, grids and checkpoints, then again
+   with ``--resume`` (no step, the same rows); a PGGAN ``Sampler`` on that
+   checkpoint, card against CPU at buckets 1 and 8, and over HTTP;
+11. Inception-v3 (``evals/inception_v3.py``, cuDNN convs, no kernel of its
+   own): ``random_weights(0)`` on the card against the CPU for 4 images, its
+   time on 5 000 samples, and ``cifar_app.main`` with an
+   ``inception_v3.npz`` in its own data dir, which must score with it.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -128,7 +155,9 @@ bucket (``g_pass_f32``) and the cycle's bf16 convs together
 CUDA graphs (a float32 generator pass's seven calls at batch 100 with the
 ReLU fused; the two launches of a D pass), with the same calls issued
 alone beside them (``alone_ms``, ``plain_alone_ms``), and sn's adds
-MNIST's group (``mnist_group``); the projection's
+MNIST's group (``mnist_group``); conv3x3's, cond_bn's and sn's rows add
+``pggan``: the launches per iteration by stage and the times at PGGAN's
+shapes (conv3x3's also the stage-4 iteration's times); the projection's
 row adds its device time in CUDA graphs beside ``torch.addmm``'s;
 the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
@@ -433,6 +462,23 @@ def device_profile(torch, fn, reps: int = 10):
     return wall, sum(r[0] for r in rows), rows
 
 
+def print_breakdown(rows, kinds: dict, rest: str, per: float = 1) -> dict:
+    """Prints a profile's device time (``device_profile``'s rows) by kind,
+    per ``per`` calls: each kernel in the first kind one of whose keys
+    (``kinds``: ``{label: keys}``) its name holds, lower case, and the rest.
+    Returns ``{label: ms}``."""
+    out, left = {}, list(rows)
+    for label, keys in kinds.items():
+        hit = [r for r in left if any(k in r[2].lower() for k in keys)]
+        left = [r for r in left if r not in hit]
+        out[label] = sum(r[0] for r in hit) / per
+        print(f"    {label}: {out[label]:.3f} ms per iteration in "
+              f"{sum(r[1] for r in hit) / per:g} launches", flush=True)
+    print(f"    the rest ({rest}): {sum(r[0] for r in left) / per:.3f} ms per iteration in "
+          f"{sum(r[1] for r in left) / per:g} launches", flush=True)
+    return out
+
+
 def compare(torch, got, ref, dtype_name: str):
     """(ok, max abs err, max rel err) under TOL[dtype_name]."""
     atol, rtol = TOL[dtype_name]
@@ -499,12 +545,10 @@ def g_pass_conv_times(torch, inputs) -> dict:
                     r["ragged"] += mult * graph_ms(torch, lambda: conv3x3(x, w))
                     r["ragged_bound"] += mult * bound(*conv_work(b, *s_, 4), PEAK_F32)[0]
                     continue
-                tk = graph_ms(torch, lambda: conv3x3(x, w))
-                tc = graph_ms(torch, lambda: cudnn_conv(x, w))
-                tc2 = graph_ms(torch, lambda: cudnn_conv(x, w))
-                tk2 = graph_ms(torch, lambda: conv3x3(x, w))
-            r["kernel"] += mult * statistics.median([tk, tk2])
-            r["cudnn"] += mult * statistics.median([tc, tc2])
+                tk, tc = paired_ms(torch, graph_ms, lambda: conv3x3(x, w),
+                                   lambda: cudnn_conv(x, w))
+            r["kernel"] += mult * tk
+            r["cudnn"] += mult * tc
             r["n"] += mult
             calls += [(b, *s_)] * mult
         r["bound"], r["bound_by"] = conv_bound(calls, 4, PEAK_F32)
@@ -586,8 +630,7 @@ def projection_times(torch, args) -> dict:
     out = {}
     with torch.no_grad():
         for key, timer in (("graph", graph_ms), ("alone", event_ms)):
-            tk, ta, ta2, tk2 = (timer(torch, f) for f in (kern, addmm, addmm, kern))
-            out[key], out[f"addmm_{key}"] = statistics.median([tk, tk2]), statistics.median([ta, ta2])
+            out[key], out[f"addmm_{key}"] = paired_ms(torch, timer, kern, addmm)
     print(f"  projection [64,128]x[10,128] float32: device time in CUDA graphs {out['graph']:.4f} "
           f"ms vs torch.addmm {out['addmm_graph']:.4f} ms; issued alone (host included) "
           f"{out['alone']:.4f} ms vs torch.addmm {out['addmm_alone']:.4f} ms", flush=True)
@@ -665,6 +708,215 @@ def png_size(body: bytes):
     if len(zlib.decompress(idat)) != h * (1 + channels * w):
         raise ValueError("IDAT size does not match IHDR")
     return w, h
+
+
+def paired_ms(torch, timer, f, g):
+    """Medians of ``timer(torch, .)`` on ``f`` and on ``g``, run
+    alternating (f, g, g, f), so a drift of the card's clock falls on both."""
+    tf, tg, tg2, tf2 = (timer(torch, h) for h in (f, g, g, f))
+    return statistics.median([tf, tf2]), statistics.median([tg, tg2])
+
+
+def check_cond_bn(torch, x, labels, scale, offset, dtype_name: str, tag: str,
+                  max_err: dict) -> None:
+    """cond_bn on float32 ``x [B, S, C]`` cast to ``dtype_name``, without and
+    with its ReLU, against the plain version: one launch a call, the input's
+    dtype out, the same bits on two runs, nothing below 0 with the ReLU.
+    The float32 calls' largest error goes to ``max_err["cond_bn"]``."""
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
+
+    xd = x.to(getattr(torch, dtype_name))
+    res = []
+    with torch.no_grad():
+        for relu in (False, True):
+            before = runtime.launch_counts()["cond_bn"]
+            got = cond_batchnorm(xd, labels, scale, offset, relu=relu)
+            launched = runtime.launch_counts()["cond_bn"] - before
+            again = cond_batchnorm(xd, labels, scale, offset, relu=relu)
+            ref = cond_batchnorm_plain(xd.float(), labels, scale, offset, relu=relu)
+            torch.cuda.synchronize()
+            ok, err, rel = compare(torch, got, ref, dtype_name)
+            res.append((ok and launched == 1 and got.dtype == xd.dtype and torch.equal(got, again)
+                        and (not relu or got.min().item() >= 0.0), err, rel))
+            if dtype_name == "float32":
+                max_err["cond_bn"] = max(max_err["cond_bn"], err)
+    check(all(r[0] for r in res),
+          f"{tag} {list(x.shape)} {dtype_name}, one launch a call, the same bits on two runs: "
+          f"max abs err {res[0][1]:.3e} (rel {res[0][2]:.3e}); with ReLU {res[1][1]:.3e} (rel "
+          f"{res[1][2]:.3e})")
+
+
+def check_conv3x3(torch, x, w, dtype_name: str, tag: str, max_err: dict, cotangent=None) -> str:
+    """conv3x3 on float32 ``x [B, H, W, C]`` and ``w [3, 3, C, O]`` cast to
+    ``dtype_name``, against the plain version, each call on the route that
+    ``conv3x3_variant`` names and on no other; with ``cotangent`` (float32
+    ``[B, H, W, O]``) also the backward: the input grad through conv3x3, the
+    weight grad on cuDNN.  The forward's and the input grad's largest errors
+    go to ``max_err`` by dtype and route.  Returns the forward's route."""
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
+                                                         conv3x3_variant, ffma_geometry)
+
+    dt = getattr(torch, dtype_name)
+    c, o = w.shape[2], w.shape[3]
+    routes = [conv3x3_variant(x.shape, o, dt)]
+    xd, wd = x.detach().to(dt), w.detach().to(dt)
+    before = runtime.variant_counts("conv3x3")
+    if cotangent is None:
+        got, ref = [conv3x3(xd, wd)], [conv3x3_plain(xd.float(), wd.float())]
+    else:
+        routes.append(conv3x3_variant((*x.shape[:3], o), c, dt))
+        xd, wd = xd.requires_grad_(True), wd.requires_grad_(True)
+        y = conv3x3(xd, wd)
+        got = [y, *torch.autograd.grad(y, (xd, wd), cotangent.to(dt))]
+        xr, wr = (t.detach().float().requires_grad_(True) for t in (xd, wd))
+        y = conv3x3_plain(xr, wr)
+        ref = [y, *torch.autograd.grad(y, (xr, wr), cotangent.to(dt).float())]
+    ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
+    torch.cuda.synchronize()
+    res = [compare(torch, a, r.detach(), dtype_name) for a, r in zip(got, ref)]
+    for route, (_, err, _) in zip(routes, res):
+        if dtype_name == "bfloat16":
+            max_err["conv3x3_bf16"][route] = max(max_err["conv3x3_bf16"][route], err)
+        else:
+            key = "conv3x3_cudnn" if route == "cudnn" else "conv3x3"
+            max_err[key] = max(max_err[key], err)
+    want = {v: routes.count(v) for v in ran}
+    geo = ""
+    if routes[0] == "ffma":
+        geo = f" (bm, bn, splits) = {ffma_geometry(xd.shape, o, runtime.sm_count(xd))}"
+    check(all(ok for ok, _, _ in res) and ran == want,
+          f"{tag} [{','.join(map(str, x.shape))}]x[3,3,{c},{o}] {dtype_name} on {routes[0]}{geo} "
+          f"(ran {ran}): "
+          + ", ".join(f"{n} err {err:.3e} (rel {rel:.2e})"
+                      for n, (_, err, rel) in zip(("y", "dx", "dw (cuDNN)"), res)))
+    return routes[0]
+
+
+def check_sn_group(torch, pairs, tag: str, max_err: dict) -> float:
+    """The sn kernel on ``pairs`` (``[(w [M, O], u [1, O])]``, float32) in
+    one launch against the plain version per weight, within SN_TOL of each
+    output's scale, and the same bits on a second run (no atomics).
+    Returns the largest abs error of W/sigma, also kept in ``max_err``."""
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm_group
+
+    with torch.no_grad():
+        before = runtime.launch_counts()["sn"]
+        got = spectral_norm_group(pairs)
+        launched = runtime.launch_counts()["sn"] - before
+        again = spectral_norm_group(pairs)
+    torch.cuda.synchronize()
+    worst, ok, err_abs = [0.0, 0.0, 0.0], launched == 1, 0.0
+    for (w, u), g3, a3 in zip(pairs, got, again):
+        for i, (g, a, r) in enumerate(zip(g3, a3, sn_plain(w, u))):
+            scale = r.abs().max().item()
+            err = (g - r).abs().max().item()
+            ok = ok and bool(torch.isfinite(g).all()) and err <= SN_TOL * scale \
+                and torch.equal(g, a) and g.shape == r.shape
+            worst[i] = max(worst[i], err / scale)
+            if i == 0:
+                err_abs = max(err_abs, err)
+    max_err["sn"] = max(max_err["sn"], err_abs)
+    shapes = [tuple(w.shape) for w, _ in pairs]
+    check(ok, f"sn group of {len(shapes)} ({tag}: {sorted(set(shapes))}) float32, {launched} "
+              f"launch, the same bits on two runs: max err of scale W/sigma {worst[0]:.3e}, u' "
+              f"{worst[1]:.3e}, sigma {worst[2]:.3e} (limit {SN_TOL})")
+    return err_abs
+
+
+def sn_group_times(torch, pairs) -> dict:
+    """The sn kernel on ``pairs`` in one launch against the plain version
+    per weight, each timed two ways (``paired_ms``): device time in CUDA
+    graphs and issued alone (host included); beside the bound (5
+    operations a weight entry, each weight and u read once, W/sigma, u'
+    and sigma written once)."""
+    from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm_group
+
+    def group():
+        with torch.no_grad():
+            return spectral_norm_group(pairs)
+
+    def plain():
+        with torch.no_grad():
+            return [sn_plain(w, u) for w, u in pairs]
+
+    out = {}
+    for key, timer in (("ms", graph_ms), ("alone_ms", event_ms)):
+        out[key], out[f"plain_{key}"] = paired_ms(torch, timer, group, plain)
+    shapes = [tuple(w.shape) for w, _ in pairs]
+    out["bound_ms"], out["bound_by"] = bound(
+        sum(5 * m * co for m, co in shapes),
+        sum(4 * (2 * m * co + 2 * co + 1) for m, co in shapes), PEAK_F32)
+    return out
+
+
+def state_differences(torch, ts_a, ts_b):
+    """``(compared, differ, same)`` of two train states: the number of
+    tensors compared (every group's parameters, the state, Adam's moments),
+    the names of those that are not bit-equal, and whether the steps and
+    Adam's counts agree."""
+    from rcgan_tpu_torch.train.checkpoint import state_payload
+
+    a, b = state_payload(ts_a), state_payload(ts_b)
+    flat = [(f"{g}/{k}", a["groups"][g][k], b["groups"][g][k])
+            for g in a["groups"] for k in a["groups"][g]]
+    flat += [(f"state {k}", a["state"][k], b["state"][k]) for k in a["state"]]
+    flat += [(f"{m} {g}/{k}", a["opt_states"][g][m][k], b["opt_states"][g][m][k])
+             for g in a["opt_states"] for m in ("mu", "nu") for k in a["opt_states"][g][m]]
+    differ = [n for n, x, y in flat if not torch.equal(x, y)]
+    same = a["step"] == b["step"] and all(a["opt_states"][g]["count"] == b["opt_states"][g]["count"]
+                                          for g in a["opt_states"])
+    return len(flat), differ, same
+
+
+def sampler_slice(torch, dev, model: str, ckpt: str, z_of, compare_ns, paths: dict,
+                  tol: float, note: str) -> dict:
+    """The ``model`` sampler on the checkpoint ``ckpt``: on the card against
+    the CPU at each of ``compare_ns`` images (z from ``z_of(n)``, the labels
+    0 to 9 in turn), within ``tol`` of the images' scale; then behind
+    ``make_server``, where each of ``paths`` (``{path: images}``) must
+    answer with a PNG grid of that many images (grey where the model's
+    images are).  Returns the kernels' launches over the HTTP requests."""
+    import numpy as np
+
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.serving import Sampler, make_server
+
+    name = model.upper() if model != "pggan" else "PGGAN"
+    sampler = Sampler.from_checkpoint(model, ckpt, buckets=BUCKETS, device=dev)
+    cpu = Sampler.from_checkpoint(model, ckpt, buckets=BUCKETS, device="cpu")
+    for n in compare_ns:
+        z, labels = z_of(n), np.arange(n) % 10
+        on_card, on_cpu = sampler.sample_with_z(z, labels), cpu.sample_with_z(z, labels)
+        err, scale = float(np.abs(on_card - on_cpu).max()), float(np.abs(on_cpu).max())
+        check(on_card.shape == (n, *on_cpu.shape[1:]) and err <= tol * scale,
+              f"{name} generator on the card vs on the CPU, {n} image(s) of "
+              f"{list(on_cpu.shape[1:])}, float32, {note}: max abs err {err:.3e} (limit {tol} "
+              f"of {scale:.3f})")
+    hw, grey = on_cpu.shape[1], on_cpu.shape[3] == 1
+    srv = make_server(sampler, port=0, host="127.0.0.1")
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    runtime.reset_launch_counts()
+    try:
+        for path, n in paths.items():
+            t = time.perf_counter()
+            with urllib.request.urlopen(url + path, timeout=300) as r:
+                code, body = r.status, r.read()
+            ms = (time.perf_counter() - t) * 1e3
+            side = int(np.ceil(np.sqrt(n)))
+            check(code == 200 and (body[25] == 0) == grey
+                  and png_size(body) == (hw * side, hw * side),
+                  f"{name} GET {path}: HTTP {code}, {'grey' if grey else 'RGB'} PNG "
+                  f"{png_size(body)} in {ms:.1f} ms")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    return runtime.launch_counts()
 
 
 def discriminator_slice(torch, dev, seed: int, max_err: dict):
@@ -823,10 +1075,7 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
     print(f"D-slice times, batch {batch}: medians of CUDA events, TF32 off", flush=True)
     sn_ms = {}
     for key, timer in (("graph", graph_ms), ("alone", event_ms)):
-        tk, tp, tp2, tk2 = (timer(torch, f) for f in (sn_pass, sn_pass_plain, sn_pass_plain,
-                                                      sn_pass))
-        sn_ms[key] = statistics.median([tk, tk2])
-        sn_ms[f"plain_{key}"] = statistics.median([tp, tp2])
+        sn_ms[key], sn_ms[f"plain_{key}"] = paired_ms(torch, timer, sn_pass, sn_pass_plain)
     with torch.no_grad():
         t15 = graph_ms(torch, lambda: spectral_norm_group(groups[0]))
         t1 = graph_ms(torch, lambda: spectral_norm_group(groups[1]))
@@ -960,6 +1209,28 @@ def check_train_feeds(seed: int, data_seed: int = CHECK_TRAIN["data_seed"]) -> l
                  "u": (rng.random((nc, b, 3072)) / 128).astype(np.float32)}
         feeds.append((d, g, noise))
     return feeds
+
+
+def check_spread(readings: dict, limits: dict, margin: float, what: str) -> None:
+    """Readings of ``train_readings`` over the data seeds (``{reading:
+    [(value, seed, where)]}``): the median and the max of each held to
+    ``limits`` (``{reading: (median limit, max limit)}``), and every reading
+    must have one; then the spread printed (min / median / max)."""
+    worst = {k: max(vs) for k, vs in readings.items()}
+    med = {k: statistics.median(v for v, _, _ in vs) for k, vs in readings.items()}
+    check(bool(limits) and set(readings) <= set(limits) and all(
+        med[k] <= limits[k][0] and v <= limits[k][1] for k, (v, _, _) in worst.items()),
+          f"{what}: " + ", ".join(f"{k} median {med[k]:.3g} max {v:.3g} (seed {s}"
+                                  f"{', at ' + w if w else ''}; limits {limits[k][0]:.3g}, "
+                                  f"{limits[k][1]:.3g})"
+                                  for k, (v, s, w) in sorted(worst.items()) if k in limits)
+          + f"; readings without a limit: {sorted(set(readings) - set(limits))}")
+    print(f"  spread (min / median / max; limits {margin}x the calibration median and max):",
+          flush=True)
+    for k, vs in sorted(readings.items()):
+        vals = sorted(v for v, _, _ in vs)
+        print(f"    {k}: {vals[0]:.3g} / {statistics.median(vals):.3g} / {vals[-1]:.3g}",
+              flush=True)
 
 
 def train_readings(np_ref, np_got, m_ref, m_got, lr: float, steps: dict,
@@ -1372,7 +1643,6 @@ def app_slice(torch, seed: int, card: str) -> dict:
 
     from rcgan_tpu_torch.apps import cifar_app
     from rcgan_tpu_torch.ops.kernels import runtime
-    from rcgan_tpu_torch.train.checkpoint import state_payload
     from rcgan_tpu_torch.train.cifar_loop import CifarTrainer
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_app")
@@ -1460,21 +1730,14 @@ def app_slice(torch, seed: int, card: str) -> dict:
           f"app run dir: {sorted(names & want)} (want {sorted(want)}), checkpoints {ckpts}, "
           f"sample grid {grid}, inception (stand-in) {score:.4f} at 7, dev cost {dev_cost:.4f} "
           f"at 11, final gen-label-acc {acc:.4f}, d_cost finite")
-    a, b = state_payload(whole), state_payload(resumed)
-    flat = [(f"{g}/{k}", a["groups"][g][k], b["groups"][g][k])
-            for g in a["groups"] for k in a["groups"][g]]
-    flat += [(f"u {k}", a["state"][k], b["state"][k]) for k in a["state"]]
-    flat += [(f"{m} {g}/{k}", a["opt_states"][g][m][k], b["opt_states"][g][m][k])
-             for g in a["opt_states"] for m in ("mu", "nu") for k in a["opt_states"][g][m]]
-    differ = [n for n, x, y in flat if not torch.equal(x, y)]
-    same_counts = all(a["opt_states"][g]["count"] == b["opt_states"][g]["count"]
-                      for g in a["opt_states"]) and a["step"] == b["step"] == APP["niters"]
+    compared, differ, same = state_differences(torch, whole, resumed)
     check(killed is not None and f"at step {APP['fault_at']}" in killed
-          and left[-1] == APP["resume_from"] and not differ and same_counts
+          and left[-1] == APP["resume_from"] and not differ and same
+          and resumed.step == APP["niters"]
           and f"restored from step {APP['resume_from'] + 1}" in open(
               os.path.join(root, "killed.log")).read(),
           f"app: killed at iteration {APP['fault_at']} ({killed}), checkpoints left {left}, "
-          f"resumed from {APP['resume_from']}: {len(flat) - len(differ)} of {len(flat)} tensors, "
+          f"resumed from {APP['resume_from']}: {compared - len(differ)} of {compared} tensors, "
           f"the Adam counts and the step bit-equal to the uninterrupted run "
           f"(differ: {differ[:3]})")
 
@@ -1599,9 +1862,6 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     from rcgan_tpu_torch.data.mnist import load_mnist
     from rcgan_tpu_torch.models.dcgan import DCGANConfig
     from rcgan_tpu_torch.ops.kernels import runtime
-    from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm_group
-    from rcgan_tpu_torch.serving import Sampler, make_server
-    from rcgan_tpu_torch.train.checkpoint import state_payload
     from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer, dataset_to_device
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_mnist")
@@ -1630,48 +1890,13 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     for tag, shapes in MNIST_SN_GROUPS.items():
         pairs = [((0.02 * torch.randn(m, cout, generator=gen)).to(dev),
                   torch.randn(1, cout, generator=gen).to(dev)) for m, cout in shapes]
-        before = runtime.launch_counts()["sn"]
-        with torch.no_grad():
-            got = spectral_norm_group(pairs)
-            launched = runtime.launch_counts()["sn"] - before
-            again = spectral_norm_group(pairs)
-        torch.cuda.synchronize()
-        worst, ok, err_abs = [0.0, 0.0, 0.0], launched == 1, 0.0
-        for (w, u), g3, a3 in zip(pairs, got, again):
-            for i, (g, a, r) in enumerate(zip(g3, a3, sn_plain(w, u))):
-                scale = r.abs().max().item()
-                err = (g - r).abs().max().item()
-                ok = ok and bool(torch.isfinite(g).all()) and err <= SN_TOL * scale \
-                    and torch.equal(g, a)
-                worst[i] = max(worst[i], err / scale)
-                if i == 0:
-                    err_abs = max(err_abs, err)
-        max_err["sn"] = max(max_err["sn"], err_abs)
-        check(ok, f"sn MNIST group ({tag}: {shapes}) float32, {launched} launch, the same bits "
-                  f"on two runs: max err of scale W/sigma {worst[0]:.3e}, u' {worst[1]:.3e}, "
-                  f"sigma {worst[2]:.3e} (limit {SN_TOL})")
-
-        def group():
-            with torch.no_grad():
-                return spectral_norm_group(pairs)
-
-        def plain():
-            with torch.no_grad():
-                return [sn_plain(w, u) for w, u in pairs]
-
-        t = {}
-        for key, timer in (("graph", graph_ms), ("alone", event_ms)):
-            tk, tp, tp2, tk2 = (timer(torch, f) for f in (group, plain, plain, group))
-            t[key], t[f"plain_{key}"] = statistics.median([tk, tk2]), statistics.median([tp, tp2])
-        bound_ms, by = bound(sum(5 * m * co for m, co in shapes),
-                             sum(4 * (2 * m * co + 2 * co + 1) for m, co in shapes), PEAK_F32)
-        sn_rows[tag] = {"shapes": shapes, "max_abs_err": err_abs, "ms": t["graph"],
-                        "plain_ms": t["plain_graph"], "alone_ms": t["alone"],
-                        "plain_alone_ms": t["plain_alone"], "bound_ms": bound_ms, "bound_by": by}
-        print(f"  sn {tag} {shapes}: kernel {t['graph']:.4f} ms in CUDA graphs, "
-              f"{t['alone']:.4f} ms issued alone; plain {t['plain_graph']:.4f} ms in graphs, "
-              f"{t['plain_alone']:.4f} ms alone; bound {bound_ms * 1e3:.3f} us ({by})",
-              flush=True)
+        err_abs = check_sn_group(torch, pairs, f"MNIST {tag}", max_err)
+        t = sn_group_times(torch, pairs)
+        sn_rows[tag] = dict(shapes=shapes, max_abs_err=err_abs, **t)
+        print(f"  sn {tag} {shapes}: kernel {t['ms']:.4f} ms in CUDA graphs, "
+              f"{t['alone_ms']:.4f} ms issued alone; plain {t['plain_ms']:.4f} ms in graphs, "
+              f"{t['plain_alone_ms']:.4f} ms alone; bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']})", flush=True)
 
     # ---- card against CPU, float32, TF32 off: two iterations from one state
     b = MNIST_CHECK["batch"]
@@ -1695,25 +1920,9 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
                 for k, v in r.items():
                     spread[it].setdefault(k, []).append((v, data_seed, where.get(k)))
     for it, readings in spread.items():
-        limits = mnist_train_limits(it)
-        worst = {k: max(vs) for k, vs in readings.items()}
-        med = {k: statistics.median(v for v, _, _ in vs) for k, vs in readings.items()}
-        check(set(readings) <= set(limits) and all(
-            med[k] <= limits[k][0] and v <= limits[k][1] for k, (v, _, _) in worst.items()),
-              f"MNIST training rcgan-u + perm, batch {b}, iteration {it}, float32, card vs CPU "
-              f"from the same state over data seeds {list(MNIST_CHECK['data_seeds'])}: "
-              + ", ".join(f"{k} median {med[k]:.3g} max {v:.3g} (seed {s}"
-                          f"{', at ' + w if w else ''}; limits {limits[k][0]:.3g}, "
-                          f"{limits[k][1]:.3g})"
-                          for k, (v, s, w) in sorted(worst.items()) if k in limits)
-              + f"; readings without a limit: {sorted(set(readings) - set(limits))}")
-        print(f"  spread of iteration {it} over the {len(MNIST_CHECK['data_seeds'])} data seeds "
-              f"(min / median / max; limits {MNIST_MARGIN}x the calibration median and max):",
-              flush=True)
-        for k, vs in sorted(readings.items()):
-            vals = sorted(v for v, _, _ in vs)
-            print(f"    {k}: {vals[0]:.3g} / {statistics.median(vals):.3g} / {vals[-1]:.3g}",
-                  flush=True)
+        check_spread(readings, mnist_train_limits(it), MNIST_MARGIN,
+                     f"MNIST training rcgan-u + perm, batch {b}, iteration {it}, float32, card vs "
+                     f"CPU from the same state over data seeds {list(MNIST_CHECK['data_seeds'])}")
 
     # ---- full width, bf16, batch 100, on the resident dataset: launches, times, profile
     t = time.perf_counter()
@@ -1768,20 +1977,12 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
           f"{busy / 10:.3f} ms ({busy / wall:.0%}); by kernel, per iteration:", flush=True)
     for tk, n, name in rows[:12]:
         print(f"    {tk / 10:.4f} ms x{n / 10:g} {name[:90]}", flush=True)
-    # each kernel in the first kind whose keys its name holds
-    kinds = {"sn (one launch per D pass)": ("sn_group_kernel",),
-             "cuDNN convs and transposed convs (fprop, dgrad, wgrad)": (
-                 "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm"),
-             "Adam (foreach)": ("multi_tensor_apply",),
-             "matmuls (cuBLAS)": ("gemm", "gemv", "cutlass", "xmma")}
-    left = list(rows)
-    for label, keys in kinds.items():
-        hit = [r for r in left if any(k in r[2].lower() for k in keys)]
-        left = [r for r in left if r not in hit]
-        print(f"    {label}: {sum(r[0] for r in hit) / 10:.3f} ms per iteration in "
-              f"{sum(r[1] for r in hit) / 10:g} launches", flush=True)
-    print(f"    the rest (elementwise, reductions, copies): {sum(r[0] for r in left) / 10:.3f} "
-          f"ms per iteration in {sum(r[1] for r in left) / 10:g} launches", flush=True)
+    print_breakdown(rows, {"sn (one launch per D pass)": ("sn_group_kernel",),
+                           "cuDNN convs and transposed convs (fprop, dgrad, wgrad)": (
+                               "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm"),
+                           "Adam (foreach)": ("multi_tensor_apply",),
+                           "matmuls (cuBLAS)": ("gemm", "gemv", "cutlass", "xmma")},
+                    "elementwise, reductions, copies", per=10)
 
     # ---- the app: the rcgan-u recipe cut down, then restored to recover again
     app_root = os.path.join(root, "app")
@@ -1839,18 +2040,13 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
           f"MNIST app run dir: {sorted(names & want)} (want {sorted(want)}), checkpoints "
           f"{os.listdir(os.path.join(run, 'ckpt'))}, gen-label-acc at epoch 4 {acc}, learned-C "
           f"perm-TV {tv}, recovery accuracy {rec['accuracy']}, grey recovery panel")
-    a, b2 = state_payload(ts), state_payload(again)
-    flat = [(f"{g}/{k}", a["groups"][g][k], b2["groups"][g][k])
-            for g in a["groups"] for k in a["groups"][g]]
-    flat += [(f"state {k}", a["state"][k], b2["state"][k]) for k in a["state"]]
-    flat += [(f"{m} {g}/{k}", a["opt_states"][g][m][k], b2["opt_states"][g][m][k])
-             for g in a["opt_states"] for m in ("mu", "nu") for k in a["opt_states"][g][m]]
-    differ = [n for n, x, y in flat if not torch.equal(x, y)]
-    check(not differ and a["step"] == b2["step"] == 100 and rec2["accuracy"] == rec["accuracy"]
+    compared, differ, same = state_differences(torch, ts, again)
+    check(not differ and same and again.step == 100 and rec2["accuracy"] == rec["accuracy"]
           and np.array_equal(rec2["y_recover"], rec["y_recover"]),
-          f"MNIST app restored with --checkpoint and without --train: {len(flat) - len(differ)} "
-          f"of {len(flat)} tensors bit-equal to the saved state (differ: {differ[:3]}), step "
-          f"{b2['step']}, recovery accuracy {rec2['accuracy']} again (was {rec['accuracy']})")
+          f"MNIST app restored with --checkpoint and without --train: {compared - len(differ)} "
+          f"of {compared} tensors, the Adam counts and the step bit-equal to the saved state "
+          f"(differ: {differ[:3]}), step {again.step}, recovery accuracy {rec2['accuracy']} "
+          f"again (was {rec['accuracy']})")
     tr_s, tr_n = stats["train"]
     print(f"  MNIST app on {card}: {wall:.1f} s ({tr_n} iterations in {tr_s:.3f} s of blocks, "
           f"{tr_n / tr_s:.2f} iterations/s, the first block's warm-up included); restored run "
@@ -1863,38 +2059,13 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
         print(f"    restored run, {k}: {sec:.3f} s over {n} call(s)", flush=True)
 
     # ---- serving: the app's generator behind make_server, card against CPU
-    ckpt = os.path.join(run, "ckpt")
-    sampler = Sampler.from_checkpoint("mnist", ckpt, buckets=BUCKETS, device=dev)
-    cpu = Sampler.from_checkpoint("mnist", ckpt, buckets=BUCKETS, device="cpu")
     rng = np.random.default_rng(seed)
-    for n in (1, 100):
-        z = rng.uniform(-1, 1, (n, cfg.z_dim)).astype(np.float32)
-        labels = np.arange(n) % 10
-        on_card, on_cpu = sampler.sample_with_z(z, labels), cpu.sample_with_z(z, labels)
-        err, scale = float(np.abs(on_card - on_cpu).max()), float(np.abs(on_cpu).max())
-        check(on_card.shape == (n, 28, 28, 1) and err <= MNIST_SERVE_TOL * scale,
-              f"MNIST generator on the card vs on the CPU, {n} image(s), float32, BN in "
-              f"inference mode: max abs err {err:.3e} (limit {MNIST_SERVE_TOL} of {scale:.3f})")
-    srv = make_server(sampler, port=0, host="127.0.0.1")
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    runtime.reset_launch_counts()
-    try:
-        for path, n in (("/sample?labels=3&seed=1", 1), ("/sample?n=100&seed=2", 100)):
-            t = time.perf_counter()
-            with urllib.request.urlopen(base + path, timeout=300) as r:
-                code, body = r.status, r.read()
-            ms = (time.perf_counter() - t) * 1e3
-            side = int(np.ceil(np.sqrt(n)))
-            check(code == 200 and body[25] == 0 and png_size(body) == (28 * side, 28 * side),
-                  f"MNIST GET {path}: HTTP {code}, grey PNG {png_size(body)} in {ms:.1f} ms")
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=10)
-    check(runtime.launch_counts() == {k: 0 for k in runtime.KERNELS},
-          f"MNIST serving launches no hand-written kernel: {runtime.launch_counts()}")
+    served = sampler_slice(torch, dev, "mnist", os.path.join(run, "ckpt"),
+                           lambda n: rng.uniform(-1, 1, (n, cfg.z_dim)).astype(np.float32),
+                           (1, 100), {"/sample?labels=3&seed=1": 1, "/sample?n=100&seed=2": 100},
+                           MNIST_SERVE_TOL, "BN in inference mode")
+    check(served == {k: 0 for k in runtime.KERNELS},
+          f"MNIST serving launches no hand-written kernel: {served}")
     os.environ.pop("RCGAN_SYNTH_CACHE", None)
     shutil.rmtree(root, ignore_errors=True)
     row = dict(sn_rows["a projection D pass"], launches_per_iteration=sn_per_iteration,
@@ -1904,6 +2075,500 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
                      "likewise; alone_ms: issued alone, host included)",
                concat_y=sn_rows["concat_y at layer 1"])
     return {"counts": counts, "sn_group": row}
+
+
+# Phase 10, the PGGAN family at the JAX app's default full width
+# (``apps/pggan_app.py``: size 64, max_stage 4, dim 128, z_dim 128, batch 64,
+# bf16, hinge, Adam beta (0, 0.99), lr 2e-4, the conditional critic).  Its
+# kernels: conv3x3 (C = O = 128 on maps of 8 to 64 pixels: every map is a
+# power of two, so bf16 takes wgmma and float32 FFMA; ToRGB and FromRGB are
+# 1x1), cond-BN (G's N1 on maps of 4 to 32 pixels, N2 on 8 to 64) and sn
+# (one group per D pass).
+PG_WIDTH = dict(z_dim=128, dim=128)
+PG_BATCH = 64
+PG_CONV_MAPS = (8, 16, 32, 64)
+PG_BN_MAPS = (4, 8, 16, 32, 64)
+# the stage-4 transition's sn group, in call order: FromRGB.4, Block.4
+# (Shortcut, Conv1, Conv2), FromRGB.3, Blocks 3 to 1, Output, Embedding_y
+_PG_BLOCK = [(128, 128), (1152, 128), (1152, 128)]
+PG_SN_GROUP = [(3, 128)] + _PG_BLOCK + [(3, 128)] + _PG_BLOCK * 3 + [(128, 1), (300, 128)]
+
+
+def pggan_counts(stage: int) -> dict:
+    """Launches per PGGAN iteration at ``stage`` (either phase): the D step
+    runs G (no grad) and two D passes with their backward, the G step G and
+    one D pass with the backward through both.  Each block holds two 3x3
+    convs: 2 per block for a G forward, 2 for a D forward, 2 for each
+    backward's input grads, so 2 (G) + 8 (D step) + 8 (G step) per block;
+    two cond-BNs per block and G pass, two G passes; one sn group per D
+    pass.  The transition's extra layers are 1x1 (no conv3x3)."""
+    return {"cond_bn": 4 * stage, "conv3x3": 18 * stage, "sn": 3, "projection": 0,
+            "dequant": 0}
+
+
+def pggan_variants(stage: int) -> dict:
+    """conv3x3 by route per bf16 iteration: all on wgmma (C = O = 128, maps
+    of 8 to 64 pixels tile by 128)."""
+    return {"wgmma": 18 * stage, "ffma": 0, "cudnn": 0}
+
+
+# Card against CPU, float32, TF32 off, under deterministic algorithms, at
+# full width with the depth cut to max_stage 2: one iteration of each of the
+# three phases (alpha 0.5 in the transition), each from the card's state
+# copied to the CPU bit for bit, with the same batch and z, at batch 8, over
+# the data seeds ``seed + PG_CHECK["data_seeds"]`` (every one checked; none
+# chosen).  PG_SPREAD holds the calibration run's (median, max) of each
+# reading over the five seeds by phase (H100 80GB HBM3 at 700.00 W; the
+# first run of this check, before any limit existed); both are held to
+# PG_MARGIN times it, or, where it was 0, to PG_MARGIN parameters of the
+# group.  The maxima of mu and nu (0.037 of a tensor's max) and of far.gen
+# (0.9%) are Adam's sign-like first steps on gradients zero but for
+# rounding, as in the MNIST check; the medians carry the check there.
+# ``params_max`` is left out: with beta1 = 0 one step moves a parameter at
+# most lr * sqrt((1 - beta2^t) / (1 - beta2)) at Adam's count t (lr, 1.41 lr
+# and 1.72 lr at t = 1 to 3), so card and CPU cannot part by more than that whatever
+# the kernels do; the cost, u, statistics and moments' medians hold them.
+PG_CHECK = {"batch": 8, "max_stage": 2, "data_seeds": (400, 401, 402, 403, 404)}
+PG_MARGIN = 3.0
+PG_SPREAD = {
+    0: {"cost": (2.7e-07, 3.57e-06), "u": (8.94e-08, 8.94e-08), "stats": (8.59e-05, 4.42e-04),
+        "mu.disc": (6.87e-06, 0.0368), "nu.disc": (5.97e-06, 0.0264),
+        "dead.disc": (1.23e-07, 1.54e-07), "far.disc": (1.69e-05, 5.93e-05),
+        "mu.gen": (3.64e-06, 2.98e-04), "nu.gen": (3.54e-06, 4.35e-04),
+        "dead.gen": (2.95e-08, 3.61e-08), "far.gen": (2.92e-05, 2.79e-04)},
+    1: {"cost": (1.44e-07, 3.77e-07), "u": (7.45e-08, 1.04e-07), "stats": (5.39e-05, 6.58e-05),
+        "mu.disc": (1.48e-05, 1.66e-05), "nu.disc": (1.56e-05, 2.87e-05),
+        "dead.disc": (1.46e-07, 2.26e-07), "far.disc": (7.5e-06, 1.8e-05),
+        "mu.gen": (3.82e-03, 0.0193), "nu.gen": (7.15e-03, 0.01),
+        "dead.gen": (4.58e-08, 5.2e-08), "far.gen": (1.62e-03, 5.33e-03)},
+    2: {"cost": (2.54e-07, 5.48e-07), "u": (1.04e-07, 1.04e-07), "stats": (4.2e-05, 5.18e-05),
+        "mu.disc": (1.77e-05, 4.12e-05), "nu.disc": (7.13e-06, 1.33e-05),
+        "dead.disc": (1.25e-07, 1.67e-07), "far.disc": (0.0, 1.5e-06),
+        "mu.gen": (3.23e-03, 0.037), "nu.gen": (1.94e-03, 0.0247),
+        "dead.gen": (3.38e-08, 4.44e-08), "far.gen": (1.14e-03, 8.88e-03)},
+}
+# full width, bf16, batch 64, max_stage 4: iterations per phase (the first
+# of each a warm-up), on 2 048 random images of 64x64 resident on the card
+PG_TIMED = {"dataset": 2048, "iters": 3, "stage4_iters": 8}
+# crash and resume at full width, max_stage 2, bf16, batch 64: 2 + 2 + 2
+# iterations, checkpoints at 2 and 4, the data raises at iteration 4
+PG_RESUME = {"trans_iters": 2, "stab_iters": 2, "crash_at": 4}
+# the app at full width (its defaults), cut: 2 iterations a phase, 640
+# training images, 128 eval samples a phase
+PG_APP_ITERS, PG_APP_EVAL = 2, 128
+PG_APP = ["--trans_iters", str(PG_APP_ITERS), "--stab_iters", str(PG_APP_ITERS),
+          "--train_size", "640", "--eval_samples", str(PG_APP_EVAL)]
+# serving: the app's generator on the card against the CPU, float32, cond-BN
+# on the bucket's statistics: 8 convs and 8 cond-BNs at stage 4, within
+# SLICE_ATOL of the images' scale
+PG_SERVE_BUCKETS = (1, 8)
+
+
+# one parameter's share of its group in the check's model (898 566 in gen,
+# 667 065 in disc): the smallest nonzero ``far`` reading
+PG_ONE_PARAM = {"far.gen": 1 / 898566, "far.disc": 1 / 667065}
+
+
+def pggan_limits(phase: int) -> dict:
+    """``{reading: (median limit, max limit)}`` of the check's ``phase``."""
+    return {k: tuple(PG_MARGIN * max(v, PG_ONE_PARAM.get(k, 0.0)) for v in spread)
+            for k, spread in PG_SPREAD.get(phase, {}).items()}
+
+
+def pggan_kernels(torch, dev, gen, max_err: dict) -> dict:
+    """conv3x3, cond-BN and sn at PGGAN's shapes against their plain
+    versions (phase 3's checks); returns the times of the 64x64 conv (FFMA
+    float32, wgmma bf16), of the cond-BN at [64, 64 x 64, 128] and of the
+    stage-4 transition's sn group, in CUDA graphs beside their bounds."""
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3, conv3x3_plain
+    from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
+
+    b, c = PG_BATCH, PG_WIDTH["dim"]
+    out = {}
+    for hw in PG_CONV_MAPS:
+        x = torch.relu(torch.randn(b, hw, hw, c, generator=gen)).to(dev)
+        w = (torch.randn(3, 3, c, c, generator=gen) * (2.0 / (9 * c)) ** 0.5).to(dev)
+        g = torch.randn(b, hw, hw, c, generator=gen).to(dev)
+        for name in ("float32", "bfloat16"):
+            route = check_conv3x3(torch, x, w, name, "PGGAN conv3x3", max_err, cotangent=g)
+            if hw != 64:
+                continue
+            dt = getattr(torch, name)
+            xd, wd = x.to(dt), w.to(dt)
+            with torch.no_grad():
+                ms, lib = paired_ms(torch, graph_ms, lambda: conv3x3(xd, wd),
+                                    lambda: cudnn_conv(xd, wd))
+                plain = graph_ms(torch, lambda: conv3x3_plain(xd, wd), calls=2, reps=3)
+            bms, by = bound(*conv_work(b, hw, c, c, dt.itemsize),
+                            PEAK_F32 if name == "float32" else PEAK_BF16)
+            out[f"conv_{route}"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                                    "bound_ms": bms, "bound_by": by}
+            print(f"  PGGAN conv3x3 [{b},64,64,{c}] {name} on {route}, device time in CUDA "
+                  f"graphs: {ms:.4f} ms, cuDNN {lib:.4f} ms, plain {plain:.4f} ms; bound "
+                  f"{bms:.4f} ms ({by}): kernel {bms / ms:.1%} of it", flush=True)
+    for hw in PG_BN_MAPS:
+        x = (torch.randn(b, hw * hw, c, generator=gen) * 2.0 + 0.5).to(dev)
+        labels = torch.randint(0, 10, (b,), generator=gen).to(dev)
+        tables = [(1.0 + 0.1 * torch.randn(10, c, generator=gen)).to(dev),
+                  (0.1 * torch.randn(10, c, generator=gen)).to(dev)]
+        for name in ("float32", "bfloat16"):
+            check_cond_bn(torch, x, labels, *tables, name, "PGGAN cond_bn", max_err)
+            if hw != 64:
+                continue
+            a = (x.to(getattr(torch, name)), labels, *tables)
+            with torch.no_grad():
+                ms, plain = paired_ms(torch, graph_ms, lambda: cond_batchnorm(*a, relu=True),
+                                      lambda: cond_batchnorm_plain(*a, relu=True))
+            n = b * hw * hw * c
+            bms, by = bound(7 * n, a[0].element_size() * 2 * n + 8 * b + 4 * 2 * 10 * c,
+                            PEAK_F32)
+            out[f"cond_bn_{name}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                                      "bound_by": by}
+            print(f"  PGGAN cond_bn [{b},64x64,{c}] {name}, ReLU fused, device time in CUDA "
+                  f"graphs: {ms:.4f} ms, plain {plain:.4f} ms; bound {bms:.4f} ms ({by}): kernel "
+                  f"{bms / ms:.1%} of it", flush=True)
+    pairs = [((0.05 * torch.randn(m, co, generator=gen)).to(dev),
+              torch.randn(1, co, generator=gen).to(dev)) for m, co in PG_SN_GROUP]
+    err_abs = check_sn_group(torch, pairs, "PGGAN stage-4 transition", max_err)
+    out["sn"] = dict(sn_group_times(torch, pairs), max_abs_err=err_abs)
+    t = out["sn"]
+    print(f"  sn PGGAN stage-4 transition group: {t['ms']:.4f} ms in CUDA graphs, "
+          f"{t['alone_ms']:.4f} ms issued alone; plain {t['plain_ms']:.4f} ms in graphs; bound "
+          f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})", flush=True)
+    return out
+
+
+def pggan_check_feeds(seed: int, data_seed: int, b: int):
+    """The three phases' ``(images, z)`` of the card-vs-CPU check, numpy from
+    ``seed + data_seed``: 16x16 images in [-1, 1] (max_stage 2's full
+    resolution), labels, z."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + data_seed)
+    return [({"x": rng.uniform(-1, 1, (b, 16, 16, 3)).astype(np.float32),
+              "labels": rng.integers(0, 10, b)},
+             rng.standard_normal((b, PG_WIDTH["z_dim"])).astype(np.float32))
+            for _ in range(3)]
+
+
+def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
+    """Phase 10: the PGGAN family on the card (module doc, item 10).
+    Returns the launches of each kernel over the counted full-width
+    iterations and the app's run (``counts``), conv3x3's by variant
+    (``variants``), the kernels' times at PGGAN's shapes (``kernels``) and
+    the stage-4 iteration's times (``iteration``)."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from rcgan_tpu_torch.apps import pggan_app
+    from rcgan_tpu_torch.bridge import pggan_train_state_from_jax, to_jax_train_state
+    from rcgan_tpu_torch.core import rng as trng
+    from rcgan_tpu_torch.models.pggan import PGGANConfig
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_pggan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["RCGAN_SYNTH_CACHE"] = os.path.join(root, "synth")
+    gen = torch.Generator().manual_seed(seed + 10)
+    print(f"PGGAN slice on {card}", flush=True)
+    kern = pggan_kernels(torch, dev, gen, max_err)
+    base = ResnetGANConfig(dim_g=PG_WIDTH["dim"], dim_d=PG_WIDTH["dim"],
+                           z_dim=PG_WIDTH["z_dim"])
+    tcfg = PGGANTrainConfig()
+
+    # ---- card against CPU, float32, TF32 off: one iteration of each phase
+    b = PG_CHECK["batch"]
+    small = PGGANConfig(max_stage=PG_CHECK["max_stage"], **PG_WIDTH)
+    phases = [(1, False, 1.0), (2, True, 0.5), (2, False, 1.0)]
+    spread = {i: {} for i in range(len(phases))}
+    with deterministic_algorithms(torch):
+        trainers = {side: PGGANTrainer(small, base, tcfg, device=side) for side in (dev, "cpu")}
+        for data_seed in PG_CHECK["data_seeds"]:
+            ts_card = trainers[dev].init(seed + data_seed)
+            if data_seed == PG_CHECK["data_seeds"][0]:
+                sizes = {g: sum(p.numel() for p in ps.values()) for g, ps in ts_card.groups.items()}
+                print(f"  PGGAN check model (dim {small.dim}, max_stage {small.max_stage}): "
+                      f"parameters by group {sizes}", flush=True)
+            for i, ((stage, trans, alpha), (images, z)) in enumerate(
+                    zip(phases, pggan_check_feeds(seed, data_seed, b))):
+                ts_cpu = pggan_train_state_from_jax(to_jax_train_state(ts_card), small, base,
+                                                    tcfg, "cpu")
+                ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, images, 0, alpha, stage, trans, z=z)
+                ts_card, m_card = trainers[dev].step(ts_card, images, 0, alpha, stage, trans, z=z)
+                r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
+                                          m_cpu, m_card, tcfg.lr, {"gen": 1, "disc": 1},
+                                          cost_keys=("d_cost", "g_cost"))
+                r.pop("params_max")  # bounded by Adam itself (PG_CHECK's note)
+                for k, v in r.items():
+                    spread[i].setdefault(k, []).append((v, data_seed, where.get(k)))
+    for i, readings in spread.items():
+        check_spread(readings, pggan_limits(i), PG_MARGIN,
+                     f"PGGAN training, full width, max_stage 2, batch {b}, phase {phases[i][:2]}, "
+                     f"float32, card vs CPU from the same state over data seeds "
+                     f"{list(PG_CHECK['data_seeds'])}")
+
+    # ---- full width, bf16, batch 64, max_stage 4, every phase: launches, times, profile
+    cfg = PGGANConfig(max_stage=4, **PG_WIDTH)
+    full = cfg.resolution(cfg.max_stage)
+    n = PG_TIMED["dataset"]
+    x_dev = (torch.rand(n, full, full, 3, generator=gen) * 2 - 1).to(dev)
+    y_dev = torch.randint(0, 10, (n,), generator=gen).to(dev)
+    print(f"  PGGAN: {n} random {full}x{full} images, "
+          f"{x_dev.numel() * 4 / 1e6:.1f} MB resident on the card", flush=True)
+    trainer = PGGANTrainer(cfg, base, tcfg, device=dev, compute_dtype=torch.bfloat16)
+    state = {"ts": trainer.init(seed), "it": 0}
+    drs = np.random.RandomState(seed)
+
+    def iteration(stage, trans, alpha):
+        idx = torch.from_numpy(drs.randint(0, n, PG_BATCH)).to(dev)
+        state["ts"], m = trainer.step(state["ts"], {"x": x_dev[idx], "labels": y_dev[idx]},
+                                      trng.fold_in(seed, state["it"]), alpha, stage, trans)
+        state["it"] += 1
+        return m
+
+    counts = {k: 0 for k in runtime.KERNELS}
+    variants = dict.fromkeys(runtime.VARIANTS["conv3x3"], 0)
+    times = {}
+    ok_counts, seen = True, []
+    for stage, trans, _ in trainer.phases():
+        k = PG_TIMED["stage4_iters"] if stage == 4 else PG_TIMED["iters"]
+        ts_ms = []
+        for i in range(k):
+            alpha = (i + 1) / k if trans else 1.0
+            runtime.reset_launch_counts()
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            m = iteration(stage, trans, alpha)
+            e.record()
+            e.synchronize()
+            got, got_v = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+            for kk, v in got.items():
+                counts[kk] += v
+            for kk, v in got_v.items():
+                variants[kk] += v
+            ok_counts = ok_counts and got == pggan_counts(stage) and got_v == pggan_variants(stage)
+            seen.append((stage, trans, got, got_v))
+            if i:
+                ts_ms.append(a.elapsed_time(e))
+        times[(stage, trans)] = statistics.median(ts_ms)
+    check(ok_counts, f"PGGAN bf16 batch {PG_BATCH}, max_stage 4, {len(seen)} iterations over "
+                     f"the 7 phases: launches per iteration as pggan_counts and pggan_variants "
+                     f"say (stage 4: {pggan_counts(4)}, {pggan_variants(4)}; last seen "
+                     f"{seen[-1][2]}, {seen[-1][3]}; wrong: "
+                     f"{[s[:2] for s in seen if s[2] != pggan_counts(s[0])][:3]})")
+    finite = all(math.isfinite(float(v)) for v in m.values()) and all(
+        bool(torch.isfinite(p).all()) for p in state["ts"].gan.parameters())
+    check(finite, f"PGGAN bf16: costs and parameters finite after {state['it']} iterations "
+                  f"(d_cost {float(m['d_cost']):.4f}, g_cost {float(m['g_cost']):.4f})")
+    for (stage, trans), ms in times.items():
+        print(f"  PGGAN bf16 batch {PG_BATCH}, stage {stage} ({cfg.resolution(stage)}x"
+              f"{cfg.resolution(stage)}) {'trans' if trans else 'stab'}: {ms:.3f} ms per "
+              f"iteration (median by CUDA events, warm-up left out)", flush=True)
+    prof_ms, busy, rows = device_profile(torch, lambda: iteration(4, False, 1.0), reps=3)
+    print(f"  PGGAN stage-4 stab iteration profiled: {prof_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / prof_ms:.0%}); by kernel:", flush=True)
+    for t, kk, name in rows[:12]:
+        print(f"    {t:.4f} ms x{kk} {name[:90]}", flush=True)
+    breakdown = print_breakdown(rows, {"conv3x3 (wgmma, forward + input grad)": ("conv3x3",),
+                                       "cuDNN weight grads (*wgrad*)": ("wgrad",),
+                                       "cond-BN forward (ReLU fused)": ("cond_bn_kernel",),
+                                       "sn (one launch per D pass)": ("sn_group_kernel",),
+                                       "Adam (foreach)": ("multi_tensor_apply",)},
+                                "1x1 convs, BN, pixel norm, pools, elementwise, copies")
+
+    # ---- crash in phase 3 and resume from the phase checkpoint: bit for bit
+    rcfg = PGGANConfig(max_stage=2, **PG_WIDTH)
+    rt = PGGANTrainConfig(trans_iters=PG_RESUME["trans_iters"],
+                          stab_iters=PG_RESUME["stab_iters"])
+    xr = x_dev[:, ::4, ::4, :].contiguous()  # 16x16, max_stage 2's full resolution
+
+    def data_fn(it):
+        idx = torch.from_numpy(np.random.RandomState(100 + it).randint(0, n, PG_BATCH)).to(dev)
+        return {"x": xr[idx], "labels": y_dev[idx]}
+
+    def crashing(it):
+        if it >= PG_RESUME["crash_at"]:
+            raise RuntimeError(f"injected fault at iteration {it}")
+        return data_fn(it)
+
+    ck = Checkpointer(os.path.join(root, "resume_ck"))
+    with deterministic_algorithms(torch):
+        tr_a = PGGANTrainer(rcfg, base, rt, device=dev, compute_dtype=torch.bfloat16)
+        whole = tr_a.train_progressive(tr_a.init(seed), data_fn, seed + 1)
+        tr_b = PGGANTrainer(rcfg, base, rt, device=dev, compute_dtype=torch.bfloat16)
+        try:
+            tr_b.train_progressive(tr_b.init(seed), crashing, seed + 1, ckpt=ck)
+            crashed = None
+        except RuntimeError as e:
+            crashed = str(e)
+        left_ck = ck.steps()
+        tr_c = PGGANTrainer(rcfg, base, rt, device=dev, compute_dtype=torch.bfloat16)
+        resumed = ck.restore(tr_c.init(seed + 99))
+        from_step = resumed.step
+        resumed = tr_c.train_progressive(resumed, data_fn, seed + 1, ckpt=ck)
+    compared, differ, same = state_differences(torch, whole, resumed)
+    check(crashed is not None and left_ck == [2, 4] and from_step == 4 and not differ and same
+          and resumed.step == 6,
+          f"PGGAN train_progressive, full width, max_stage 2, bf16: crashed ({crashed}), "
+          f"checkpoints {left_ck}, resumed from {from_step}: {compared - len(differ)} of "
+          f"{compared} tensors, the counts and the step bit-equal to the uninterrupted run "
+          f"(differ: {differ[:3]})")
+    shutil.rmtree(os.path.join(root, "resume_ck"), ignore_errors=True)
+
+    # ---- the app at full width, then again with --resume
+    run = os.path.join(root, "app", "run")
+    argv = ["--run_dir", run, "--seed", str(seed)] + PG_APP
+    stats, stats2 = {}, {}
+    runtime.reset_launch_counts()
+    t = time.perf_counter()
+    app_ts, rows = pggan_app.main(argv, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    app_counts, app_variants = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+    for k, v in app_counts.items():
+        counts[k] += v
+    for k, v in app_variants.items():
+        variants[k] += v
+    t = time.perf_counter()
+    app_ts2, rows2 = pggan_app.main(argv, device=dev, stats=stats2)
+    wall2 = time.perf_counter() - t
+    phases_app = [(s, t_) for s, t_, _ in trainer.phases()]
+    grids = {}
+    for s, t_ in phases_app:
+        name = f"samples_stage{s}_{'trans' if t_ else 'stab'}.png"
+        with open(os.path.join(run, name), "rb") as f:
+            grids[name] = png_size(f.read())
+    # the run's sn, cond-BN and wgmma launches: PG_APP_ITERS iterations a
+    # phase (pggan_counts), and per phase the eval's generator passes at the
+    # stage (bf16: 2 cond-BNs and 2 convs per block); the eval classifier's
+    # float32 convs take the FFMA and cuDNN routes, which are not counted
+    passes = -(-PG_APP_EVAL // PG_BATCH) + 1  # the eval's batches and the grid of 100
+    want = {"sn": 0, "cond_bn": 0, "wgmma": 0}
+    for s, _ in phases_app:
+        want["sn"] += PG_APP_ITERS * pggan_counts(s)["sn"]
+        want["cond_bn"] += PG_APP_ITERS * pggan_counts(s)["cond_bn"] + passes * 2 * s
+        want["wgmma"] += PG_APP_ITERS * pggan_variants(s)["wgmma"] + passes * 2 * s
+    got = {"sn": app_counts["sn"], "cond_bn": app_counts["cond_bn"],
+           "wgmma": app_variants["wgmma"]}
+    check(got == want and stats["train"][1] == PG_APP_ITERS * len(phases_app)
+          and [(r["stage"], r["trans"], r["iter"]) for r in rows]
+          == [(s, t_, PG_APP_ITERS * (i + 1)) for i, (s, t_) in enumerate(phases_app)]
+          and all(0.0 <= r["gen_label_acc"] <= 1.0 for r in rows)
+          and all(g == (10 * cfg.resolution(int(nm[13])),) * 2 for nm, g in grids.items())
+          and Checkpointer(os.path.join(run, "ckpt")).steps() == [6, 8, 10, 12, 14]
+          and os.path.exists(os.path.join(root, "app", "eval_classifier_64_s"
+                                          f"{seed}_n640.pkl")),
+          f"PGGAN app at full width (size 64, max_stage 4, dim 128, bf16, batch 64): "
+          f"{stats['train'][1]} iterations, launches {got} (want {want}), rows "
+          f"{[(r['stage'], r['trans'], r['iter'], round(r['gen_label_acc'], 3)) for r in rows]}, "
+          f"grids {sorted(set(grids.values()))}, checkpoints "
+          f"{Checkpointer(os.path.join(run, 'ckpt')).steps()}")
+    compared, differ, same = state_differences(torch, app_ts, app_ts2)
+    check(app_ts2.step == 14 and rows2 == rows and not differ and same
+          and stats2.get("restore", (0, 0))[1] == 1 and stats2.get("train", (0, 0))[1] == 0,
+          f"PGGAN app again with --resume: step {app_ts2.step}, no iteration, the rows and "
+          f"{compared - len(differ)} of {compared} tensors as the first run left them")
+    tr_s, tr_n = stats["train"]
+    print(f"  PGGAN app on {card}: {wall:.1f} s ({tr_n} iterations in {tr_s:.3f} s, evals and "
+          f"saves left out); resumed run {wall2:.1f} s", flush=True)
+    for k in ("data", "classifier", "eval", "checkpoint_save"):
+        sec, cnt = stats.get(k, (float("nan"), 0))
+        print(f"    {k}: {sec:.3f} s over {cnt} call(s)", flush=True)
+    sec, cnt = stats2.get("restore", (float("nan"), 0))
+    print(f"    resumed run, restore: {sec:.3f} s ({cnt} call)", flush=True)
+
+    # ---- the sampler on the app's checkpoint, card against CPU, then over HTTP
+    rng = np.random.default_rng(seed)
+    served = sampler_slice(torch, dev, "pggan", os.path.join(run, "ckpt"),
+                           lambda n: rng.standard_normal((n, PG_WIDTH["z_dim"])).astype(np.float32),
+                           PG_SERVE_BUCKETS, {"/sample?labels=3&seed=1": 1, "/sample?n=8&seed=2": 8},
+                           SLICE_ATOL, "cond-BN on the bucket's statistics")
+    check(served["cond_bn"] == 2 * 8 and served["conv3x3"] == 2 * 8 and served["sn"] == 0,
+          f"PGGAN serving, two passes at stage 4: launches {served} (want 8 cond_bn and 8 "
+          f"FFMA conv3x3 a pass, no sn)")
+    os.environ.pop("RCGAN_SYNTH_CACHE", None)
+    shutil.rmtree(root, ignore_errors=True)
+    per_iteration = {st: dict(c_) for st, _, c_, _ in seen}
+    return {"counts": counts, "variants": variants, "kernels": kern,
+            "per_iteration": per_iteration,
+            "iteration": {"stab_ms": times[(4, False)], "trans_ms": times[(4, True)],
+                          "busy_ms": busy, "profiled_ms": prof_ms,
+                          "breakdown": breakdown}}
+
+
+# Phase 11, the Inception-v3 scorer of the CIFAR app: ``random_weights(0)``
+# on the card against the CPU, float32 with TF32 off on both (94 convs on
+# cuDNN and the CPU's), within IV3_TOL of the logits' scale; its time on
+# 5 000 samples in batches of 500; and the app scoring with it.
+IV3_TOL = 1e-3
+
+
+def inception_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 11 (module doc, item 11).  Returns the scorer's times."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from rcgan_tpu_torch.apps import cifar_app
+    from rcgan_tpu_torch.evals import inception_v3
+
+    params = inception_v3.random_weights(0)
+    on_card = inception_v3.make_logits_fn(params, device=dev)
+    on_cpu = inception_v3.make_logits_fn(params, device="cpu")
+    imgs = np.random.default_rng(seed).uniform(-1, 1, (4, 3072)).astype(np.float32)
+    got, ref = on_card(imgs).cpu().numpy(), on_cpu(imgs).numpy()
+    err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    check(got.shape == (4, 1000) and err <= IV3_TOL * scale,
+          f"Inception-v3 (random_weights(0)) on the card vs the CPU, 4 CIFAR images at 299, "
+          f"float32, TF32 off: max abs err {err:.3e} (limit {IV3_TOL} of {scale:.3f})")
+    batch = torch.from_numpy(np.random.default_rng(seed + 1).uniform(
+        -1, 1, (500, 3072)).astype(np.float32)).to(dev)
+    on_card(batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(10):
+        on_card(batch)
+    e.record()
+    e.synchronize()
+    wall = time.perf_counter() - t
+    print(f"  Inception-v3 on {card}: 5 000 samples in batches of 500, {a.elapsed_time(e):.1f} "
+          f"ms by CUDA events ({wall:.2f} s host clock)", flush=True)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_iv3")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "data"))
+    np.savez(os.path.join(root, "data", "inception_v3.npz"), **params)
+    os.environ["RCGAN_SYNTH_CACHE"] = "0"
+    log_file = os.path.join(root, "app.log")
+    stats = {}
+    t = time.perf_counter()
+    cifar_app.main(["--algorithm", "rcgan", "--alpha", "0.6", "--parent_dir", root,
+                    "--expt_dir", "iv3", "--log_file", log_file, "--niters", "2",
+                    "--inception_freq", "2", "--sample_freq", "1000000",
+                    "--generated_label_accuracy_freq", "1000000", "--mesh_devices", "1",
+                    "--nomulti_gpu_multi_batch", "--synthetic_train_size", "640",
+                    "--eval_train_size", "640", "--seed", str(seed),
+                    "--data_dir", os.path.join(root, "data")], device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t
+    text = open(log_file).read()
+    sec, cnt = stats.get("inception", (float("nan"), 0))
+    check("inception scorer: Inception-v3 from" in text and cnt == 1
+          and "finished inception score computation" in text,
+          f"CIFAR app with inception_v3.npz in its data dir: the Inception-v3 route, one score "
+          f"on 50 000 samples in {sec:.2f} s (the run {app_s:.1f} s)")
+    os.environ.pop("RCGAN_SYNTH_CACHE", None)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"ms_5000": a.elapsed_time(e), "app_inception_s": sec}
 
 
 def main(argv=None) -> int:
@@ -1930,7 +2595,6 @@ def main(argv=None) -> int:
     from rcgan_tpu_torch.ops.kernels.norm_kernel import cond_batchnorm, cond_batchnorm_plain
     from rcgan_tpu_torch.ops.kernels.projection_kernel import (all_label_projection_logits,
                                                                projection_plain)
-    from rcgan_tpu_torch.ops.kernels.sn_kernel import sn_plain, spectral_norm_group
     from rcgan_tpu_torch.serving import Sampler, _to_png_grid, make_server, to_unit_range
 
     # ---------------------------------------------------------------- 1. device
@@ -2014,30 +2678,15 @@ def main(argv=None) -> int:
             args_f32 = [t.to(dev) for t in (x, labels, scale, offset)]
             if b in KERNEL_BATCHES:
                 inputs[("cond_bn", b, s, c)] = args_f32
-            for dt in (torch.float32, torch.bfloat16):
-                xd = args_f32[0].to(dt)
-                name = str(dt).split(".")[1]
-                res = []
-                for relu in (False, True):
-                    got = cond_batchnorm(xd, *args_f32[1:], relu=relu)
-                    again = cond_batchnorm(xd, *args_f32[1:], relu=relu)
-                    ref = cond_batchnorm_plain(xd.float(), *args_f32[1:], relu=relu)
-                    torch.cuda.synchronize()
-                    ok, err, rel = compare(torch, got, ref, name)
-                    res.append((ok and torch.equal(got, again)
-                                and (not relu or got.min().item() >= 0.0), err, rel))
-                    if dt == torch.float32:
-                        max_err["cond_bn"] = max(max_err["cond_bn"], err)
-                check(all(r[0] for r in res),
-                      f"cond_bn [{b},{s},{c}] {name}, the same bits on two runs: max abs err "
-                      f"{res[0][1]:.3e} (rel {res[0][2]:.3e}); with ReLU {res[1][1]:.3e} "
-                      f"(rel {res[1][2]:.3e})")
+            for name in ("float32", "bfloat16"):
+                check_cond_bn(torch, *args_f32, name, "cond_bn", max_err)
     # conv3x3 at the generator's shapes and at the discriminator's, each call
     # on the route conv3x3_variant names; float32 at bucket 1 includes
     # split-K geometries of the FFMA kernel (on this card's SM count)
     sms = runtime.sm_count(torch.empty(1, device=dev))
     split_calls = []
     max_err["conv3x3_cudnn"] = 0.0
+    max_err["conv3x3_bf16"] = {v: 0.0 for v in runtime.VARIANTS["conv3x3"]}
     for tag, batches, shapes in (("conv3x3", KERNEL_BATCHES, CONV_SHAPES),
                                  ("conv3x3_d", D_BATCHES, D_CONV_SHAPES)):
         for b in batches:
@@ -2047,54 +2696,26 @@ def main(argv=None) -> int:
                 args_f32 = [x.to(dev), w.to(dev)]
                 if tag == "conv3x3" or b in D_TIMED_BATCHES:
                     inputs[(tag, b, hw, c, o)] = args_f32
-                for dt in (torch.float32, torch.bfloat16):
-                    xd, wd = (t.to(dt) for t in args_f32)
-                    route = conv3x3_variant(xd.shape, o, dt)
-                    before = runtime.variant_counts("conv3x3")
-                    got = conv3x3(xd, wd)
-                    ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
-                    ref = conv3x3_plain(xd.float(), wd.float())
-                    torch.cuda.synchronize()
-                    name = str(dt).split(".")[1]
-                    ok, err, rel = compare(torch, got, ref, name)
-                    geo = ""
-                    if route == "ffma":
-                        geo = " (bm, bn, splits) = {}".format(ffma_geometry(xd.shape, o, sms))
-                        if dt == torch.float32:
-                            max_err["conv3x3"] = max(max_err["conv3x3"], err)
-                            if b == 1 and ffma_geometry(xd.shape, o, sms)[2] > 1:
-                                split_calls.append((hw, c, o))
-                    if route == "cudnn":
-                        max_err["conv3x3_cudnn"] = max(max_err["conv3x3_cudnn"], err)
-                    check(ok and ran == {v: int(v == route) for v in ran},
-                          f"{tag} [{b},{hw},{hw},{c}]x[3,3,{c},{o}] {name} on {route}{geo} "
-                          f"(ran {ran}): max abs err {err:.3e}, max rel err {rel:.3e}")
+                for name in ("float32", "bfloat16"):
+                    route = check_conv3x3(torch, *args_f32, name, tag, max_err)
+                    if route == "ffma" and name == "float32" and b == 1 \
+                            and ffma_geometry(args_f32[0].shape, o, sms)[2] > 1:
+                        split_calls.append((hw, c, o))
     check(len(split_calls) > 0, f"float32 at bucket 1: {len(split_calls)} conv(s) launched the "
                                 f"FFMA kernel split over K, {sorted(set(split_calls))}")
     # conv3x3 in bf16 at every shape of the training cycle, with forward and
     # input-grad filters: each call takes the route conv3x3_variant names
     # (wgmma unless C or O is 3, then cuDNN) and matches the plain version;
     # the largest error is kept per route
-    max_err["conv3x3_bf16"] = {v: 0.0 for v in runtime.VARIANTS["conv3x3"]}
     for tag, shapes in (("G", CONV_SHAPES), ("D", D_CONV_SHAPES)):
         for b in TRAIN_BATCHES:
             for hw, c, o in sorted(set(shapes)):
                 for kind, (ci, co) in (("forward", (c, o)), ("input grad", (o, c))):
                     x = torch.randn(b, hw, hw, ci, generator=gen_cpu)
-                    x = (torch.relu(x) if kind == "forward" else x).to(dev, torch.bfloat16)
+                    x = (torch.relu(x) if kind == "forward" else x).to(dev)
                     w = (torch.randn(3, 3, ci, co, generator=gen_cpu) * (2.0 / (9 * ci)) ** 0.5)
-                    w = w.to(dev, torch.bfloat16)
-                    want = conv3x3_variant(x.shape, co, torch.bfloat16)
-                    before = runtime.variant_counts("conv3x3")
-                    got = conv3x3(x, w)
-                    ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
-                    ref = conv3x3_plain(x.float(), w.float())
-                    torch.cuda.synchronize()
-                    ok, err, rel = compare(torch, got, ref, "bfloat16")
-                    max_err["conv3x3_bf16"][want] = max(max_err["conv3x3_bf16"][want], err)
-                    check(ok and ran == {v: int(v == want) for v in ran},
-                          f"conv3x3 {tag} {kind} [{b},{hw},{hw},{ci}]x[3,3,{ci},{co}] bfloat16 on "
-                          f"{want} (launched {ran}): max abs err {err:.3e}, max rel err {rel:.3e}")
+                    check_conv3x3(torch, x, w.to(dev), "bfloat16", f"conv3x3 {tag} {kind}",
+                                  max_err)
     # a bf16 call with more tiles of M = B*H*W than a grid's y dimension
     # holds (65535): 8200 images of 32x32, 64 -> 64 channels, 65 600 tiles of
     # 128 pixels.  A conv is per image, so the output's first and last eight
@@ -2120,26 +2741,9 @@ def main(argv=None) -> int:
     # spectral norm, each group in one launch, against the plain version per
     # weight; a second run must give the same bits (no atomics)
     for tag, shapes in SN_GROUPS.items():
-        pairs = [((torch.randn(m, cout, generator=gen_cpu) / m ** 0.5).to(dev),
-                  torch.randn(1, cout, generator=gen_cpu).to(dev)) for m, cout in shapes]
-        before = runtime.launch_counts()["sn"]
-        got = spectral_norm_group(pairs)
-        launched = runtime.launch_counts()["sn"] - before
-        again = spectral_norm_group(pairs)
-        torch.cuda.synchronize()
-        worst, ok = [0.0, 0.0, 0.0], launched == 1
-        for (w, u), g3, a3 in zip(pairs, got, again):
-            for i, (g, a, r) in enumerate(zip(g3, a3, sn_plain(w, u))):
-                scale = r.abs().max().item()
-                err = (g - r).abs().max().item()
-                ok = ok and bool(torch.isfinite(g).all()) and err <= SN_TOL * scale \
-                    and torch.equal(g, a) and g.shape == r.shape
-                worst[i] = max(worst[i], err / scale)
-                if i == 0:
-                    max_err["sn"] = max(max_err["sn"], err)
-        check(ok, f"sn group of {len(shapes)} ({tag}: {sorted(set(shapes))}) float32, "
-                  f"{launched} launch, the same bits on two runs: max err of scale W/sigma "
-                  f"{worst[0]:.3e}, u' {worst[1]:.3e}, sigma {worst[2]:.3e} (limit {SN_TOL})")
+        check_sn_group(torch, [((torch.randn(m, cout, generator=gen_cpu) / m ** 0.5).to(dev),
+                                torch.randn(1, cout, generator=gen_cpu).to(dev))
+                               for m, cout in shapes], tag, max_err)
     for b in PROJ_BATCHES:
         feat = torch.randn(b, 128, generator=gen_cpu).to(dev)
         emb = torch.randn(10, 128, generator=gen_cpu).to(dev)
@@ -2366,6 +2970,12 @@ def main(argv=None) -> int:
     # ----------------------------------------------------- 9. the MNIST slice
     mnist = mnist_slice(torch, dev, args.seed, card, max_err)
 
+    # ---------------------------------------------------- 10. the PGGAN slice
+    pggan = pggan_slice(torch, dev, args.seed, card, max_err)
+
+    # -------------------------------------------------- 11. Inception-v3 scorer
+    iv3 = inception_slice(torch, dev, args.seed, card)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -2416,7 +3026,7 @@ def main(argv=None) -> int:
         (ms, plain_ms), (bound_ms, by), library_ms = rows[k]
         row = dict(name=k, **KERNEL_INFO[k],
                    launches=(counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k]
-                             + mnist["counts"][k]),
+                             + mnist["counts"][k] + pggan["counts"][k]),
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":
@@ -2455,7 +3065,8 @@ def main(argv=None) -> int:
                        host_us=proj["host_us"])
         if k == "conv3x3":
             row["variants"] = {v: serve_variants[v] + d_variants[v] + t_res["variants"][v]
-                               + app["variants"][v] for v in runtime.VARIANTS[k]}
+                               + app["variants"][v] + pggan["variants"][v]
+                               for v in runtime.VARIANTS[k]}
             row["ms_is"] = (f"the FFMA kernel on one float32 generator pass at batch 100 "
                             f"({len(ffma_shapes)} convs; G's 256 -> 3 conv is on cuDNN), eager, "
                             f"CUDA events")
@@ -2499,7 +3110,28 @@ def main(argv=None) -> int:
                        cycle_bf16_bound_by="operations" if 2 * cycle_ops >= cycle_bound
                        else "bytes",
                        cycle_bf16_library_ms=conv["fwd"]["cudnn"] + conv["dx"]["cudnn"])
+        if k in ("conv3x3", "cond_bn", "sn"):
+            pk = pggan["kernels"]
+            row["pggan"] = {"launches_per_iteration": {
+                str(st): c_[k] for st, c_ in pggan["per_iteration"].items()}}
+            if k == "conv3x3":
+                row["pggan"].update(ffma_f32_64x64=pk["conv_ffma"], wgmma_bf16_64x64=pk["conv_wgmma"],
+                                    ms_is="one conv [64, 64, 64, 128] x [3, 3, 128, 128], device "
+                                        "time in CUDA graphs; library: cuDNN")
+            if k == "cond_bn":
+                row["pggan"].update(f32_64x64=pk["cond_bn_float32"],
+                                    bf16_64x64=pk["cond_bn_bfloat16"],
+                                    ms_is="one call at [64, 64 x 64, 128] with the ReLU, device "
+                                        "time in CUDA graphs")
+            if k == "sn":
+                row["pggan"].update(stage4_trans_group=pk["sn"],
+                                    ms_is="the stage-4 transition's group of 16 weights in one "
+                                        "launch, device time in CUDA graphs")
+            if k == "conv3x3":
+                row["pggan"]["iteration"] = pggan["iteration"]
         kernels.append(row)
+    print(f"Inception-v3 (no kernel: cuDNN convs): 5 000 samples {iv3['ms_5000']:.1f} ms; the "
+          f"app's score on 50 000 samples {iv3['app_inception_s']:.2f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

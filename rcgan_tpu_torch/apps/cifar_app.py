@@ -11,9 +11,11 @@ the final, optionally permutation-corrected, label accuracy.
 Flags, cadences and file layout are the JAX app's.  What differs:
 
 - The app runs on the card; ``main(argv, device="cpu")`` runs it on the CPU
-  (the tests do).  One device only: a flag that asks for more raises, as
-  does an Inception-v3 weight file in ``--data_dir`` (the real Inception-v3
-  is not ported); see ROADMAP.md.
+  (the tests do).  One device only: a flag that asks for more raises (see
+  ROADMAP.md).
+- The inception score is JAX's choice of scorer: Inception-v3
+  (``evals/inception_v3.py``) where ``<data_dir>/inception_v3.npz`` (or
+  ``.pkl``) exists, validated on load, else the compact stand-in.
 - Every random draw of training is keyed by the iteration: cycle ``i``
   takes the seed ``fold_in(train_seed, i)`` whether it runs in a block or
   alone (JAX splits a key per block), and the dev cost at iteration ``i``
@@ -41,6 +43,7 @@ from rcgan_tpu_torch.data.confusion import one_coin_matrix
 from rcgan_tpu_torch.data.pipeline import Prefetcher
 from rcgan_tpu_torch.evals.classifier import (cifar_classifier, generated_label_accuracy,
                                               train_pinned)
+from rcgan_tpu_torch.evals import inception_v3
 from rcgan_tpu_torch.evals.inception import inception_score
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
@@ -222,15 +225,6 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
     log.info("alpha = %s; run dir %s; device %s; batch %d; iters %d", flags.alpha, run_path,
              dev, batch_size, iters)
 
-    # the real Inception-v3 scorer would be found here; it is not ported, and
-    # scoring with the stand-in instead would silently change the scale
-    for name in ("inception_v3.npz", "inception_v3.pkl"):
-        if os.path.exists(os.path.join(flags.data_dir, name)):
-            raise NotImplementedError(
-                f"{os.path.join(flags.data_dir, name)}: the Inception-v3 scorer is not ported "
-                f"({ROADMAP}, the real Inception-v3); remove the file to score with the "
-                f"compact stand-in")
-
     t = time.perf_counter()
     train_split, dev_split = cifar_data.load(
         flags.data_dir, flags.alpha, allow_synthetic=flags.allow_synthetic,
@@ -264,7 +258,21 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
     eval_cls = get_eval_classifier(train_split, dev_split, flags.parent_dir,
                                    flags.eval_train_size, dev)
     clock.add("classifier", time.perf_counter() - t)
-    log.info("inception scorer: compact stand-in (the Inception-v3 scorer is not ported)")
+
+    # the inception scorer: Inception-v3 (the paper's 11.31-anchor scale)
+    # where its weights lie at <data_dir>/inception_v3.npz, else the compact
+    # stand-in classifier (self-consistent, not on the paper's scale)
+    iv3_path = inception_v3.find_weights(flags.data_dir)
+    if iv3_path is not None:
+        iv3_params = inception_v3.load_weights(iv3_path)
+        inception_v3.validate_weights(iv3_params)
+        inception_logits_fn = inception_v3.make_logits_fn(iv3_params, device=dev)
+        log.info("inception scorer: Inception-v3 from %s (paper-scale; real-CIFAR anchor "
+                 "~11.31, inception_score_.py:82)", iv3_path)
+    else:
+        inception_logits_fn = eval_cls.logits
+        log.info("inception scorer: compact stand-in (drop inception_v3.npz into %s for "
+                 "paper-scale scores)", flags.data_dir)
 
     if flags.device_data:
         d_iter = infinite_index_batches(train_split, batch_size, tcfg.n_critic)
@@ -335,7 +343,7 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
             t = time.perf_counter()
             score, std = inception_score(
                 sample_fn=lambda seed, b: _sample_images_for_cls(trainer, ts, cfg, seed, b),
-                logits_fn=eval_cls.logits, n=50000, batch=500)
+                logits_fn=inception_logits_fn, n=50000, batch=500)
             clock.add("inception", time.perf_counter() - t)
             best["inception"] = max(best["inception"], score)
             metrics.plot("inception_50k", score)

@@ -9,9 +9,11 @@ objects and state as buffers, so moving both trees either way is a copy by
 name: a round trip is bit-exact.
 
 A whole train state crosses too (:func:`train_state_from_jax` for CIFAR,
-:func:`mnist_train_state_from_jax` for MNIST, :func:`to_jax_train_state`
-for both): the parameter groups, the state (the SN ``u`` vectors, and
-MNIST's BN ``moving_mean``/``moving_variance``), each group's Adam
+:func:`mnist_train_state_from_jax` for MNIST,
+:func:`pggan_train_state_from_jax` for PGGAN, :func:`to_jax_train_state`
+for all three): the parameter groups, the state (the SN ``u`` vectors, and
+the BN ``moving_mean``/``moving_variance`` of MNIST and of the PGGAN critic,
+with its ``biased_mean``/``local_step``), each group's Adam
 ``count``/``mu``/``nu`` and ``step``, laid out as the JAX ``TrainState``
 with its optax states ``(ScaleByAdamState(count, mu, nu), EmptyState())``.
 
@@ -32,8 +34,9 @@ from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
 from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
 from rcgan_tpu_torch.core.module import param_tree, scoped_modules, state_tree
 from rcgan_tpu_torch.models.dcgan import DCGANConfig
+from rcgan_tpu_torch.models.pggan import PGGANConfig
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
-from rcgan_tpu_torch.train import mnist_loop
+from rcgan_tpu_torch.train import mnist_loop, pggan_loop
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, new_train_state
 from rcgan_tpu_torch.train.state import TrainState
 
@@ -158,6 +161,17 @@ def mnist_train_state_from_jax(ts_numpy, cfg: DCGANConfig, acfg: MnistAlgoConfig
     state (SN ``u``, BN moving statistics), Adam moments and ``step``."""
     ts = mnist_loop.new_train_state(cfg, acfg, tcfg, device=device,
                                     compute_dtype=compute_dtype)
+    return load_train_state(ts, ts_numpy)
+
+
+def pggan_train_state_from_jax(ts_numpy, cfg: PGGANConfig, base: ResnetGANConfig,
+                               tcfg: pggan_loop.PGGANTrainConfig, device="cuda",
+                               compute_dtype: torch.dtype = torch.float32) -> TrainState:
+    """The port's PGGAN :class:`TrainState` from a JAX ``PGGANTrainer``'s
+    ``TrainState`` as numpy (or a :class:`NumpyTrainState`): every stage's
+    parameters, the state (SN ``u``, the critic's BN statistics), Adam
+    moments and ``step``."""
+    ts = pggan_loop.PGGANTrainer(cfg, base, tcfg, device, compute_dtype).init()
     return load_train_state(ts, ts_numpy)
 
 

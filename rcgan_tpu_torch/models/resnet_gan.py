@@ -16,10 +16,11 @@ load by name (``rcgan_tpu_torch/bridge.py``).  Every layer casts to its
 ``compute_dtype`` at a conv or matmul (``set_compute_dtype``); parameters
 and SN state stay float32.
 
-Not ported yet (ROADMAP.md, Queue 1): the ``layer_norm`` (``normalization_d``)
-and unconditional zero-debiased ``batch_norm`` branches of ``normalize``,
-both off in ``ResnetGANConfig()``.  Asking for either raises
-``NotImplementedError``.
+``normalize``'s routes: cond-BN, or the zero-debiased ``batch_norm`` where
+a ``G.`` scope sees no labels (an unconditional generator, and the PGGAN
+critic, whose ``PG.D.*`` scopes hold ``G.``).  Not ported yet (ROADMAP.md,
+Queue 1): the ``layer_norm`` branch (``normalization_d``), off in
+``ResnetGANConfig()``; asking for it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from rcgan_tpu_torch.ops.conv import Conv2dLib, mean_pool, upsample_depth_to_spa
 from rcgan_tpu_torch.ops.kernels.projection_kernel import all_label_projection_logits
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.ops.linear import Embedding, LinearLib
-from rcgan_tpu_torch.ops.norm import CondBatchNorm
+from rcgan_tpu_torch.ops.norm import BatchNorm, CondBatchNorm
 from rcgan_tpu_torch.ops.sn import clear_prepared, prepare_spectral_norms, sn_layers
 
 _NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1"
@@ -73,21 +74,38 @@ def nonlinearity(x: torch.Tensor, kind: str = "relu", leakiness: float = 0.2) ->
 
 class Normalize(nn.Module):
     """The layer that JAX's ``normalize(ctx, cfg, name, x, labels)`` routes
-    scope ``name`` to: conditional BN for a conditional generator, identity
-    where normalization is off (the discriminator in ``ResnetGANConfig()``)."""
+    scope ``name`` to.  JAX decides at call time, by whether labels reach
+    it; the port decides at construction, so the caller says whether the
+    layer will be called with labels (``labeled``):
 
-    def __init__(self, cfg: ResnetGANConfig, name: str, channels: int, seed: int = 0):
+    - a ``G.`` scope with ``normalization_g``: conditional BN (``cbn``)
+      where labels reach it (``labeled``, a conditional config, and not an
+      acgan ``D.`` scope), else the zero-debiased :class:`BatchNorm`
+      (``bn``), which runs in train mode while the module is in training
+      mode (JAX's ``ctx.train``);
+    - identity where normalization is off (the CIFAR discriminator in
+      ``ResnetGANConfig()``)."""
+
+    def __init__(self, cfg: ResnetGANConfig, name: str, channels: int, seed: int = 0,
+                 labeled: bool = True):
         super().__init__()
         self.cbn: Optional[CondBatchNorm] = None
+        self.bn: Optional[BatchNorm] = None
         if "D." in name and cfg.normalization_d:
             raise NotImplementedError(f"layer_norm for {name}: {_NOT_PORTED}")
         if "G." in name and cfg.normalization_g:
-            if not cfg.conditional:
-                raise NotImplementedError(f"unconditional batch_norm for {name}: {_NOT_PORTED}")
-            self.cbn = CondBatchNorm(cfg.vocab_size, channels, name, seed)
+            labeled = labeled and cfg.conditional and not (cfg.acgan and "D." in name)
+            if labeled:
+                self.cbn = CondBatchNorm(cfg.vocab_size, channels, name, seed)
+            else:
+                self.bn = BatchNorm(channels, name, zero_debias=True, seed=seed)
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
-        return x if self.cbn is None else self.cbn(x, labels)
+        if self.cbn is not None:
+            return self.cbn(x, labels)
+        if self.bn is not None:
+            return self.bn(x, self.training)
+        return x
 
     def activated(self, x: torch.Tensor, labels: Optional[torch.Tensor],
                   kind: str) -> torch.Tensor:
@@ -112,11 +130,12 @@ def mean_pool_conv(conv: Conv2dLib, x: torch.Tensor) -> torch.Tensor:
 
 class ResidualBlock(nn.Module):
     """(norm → relu → conv) x2 + shortcut, with "up", "down" or no
-    resampling (JAX ``residual_block``)."""
+    resampling (JAX ``residual_block``).  ``labeled``: whether the block is
+    called with labels, which picks its normalization (:class:`Normalize`)."""
 
     def __init__(self, cfg: ResnetGANConfig, input_dim: int, output_dim: int,
                  filter_size: int, name: str, resample: Optional[str] = None,
-                 seed: int = 0, spectral_normed: bool = False):
+                 seed: int = 0, spectral_normed: bool = False, labeled: bool = True):
         super().__init__()
         if resample not in ("up", "down", None):
             raise ValueError(f"invalid resample {resample!r}")
@@ -129,9 +148,9 @@ class ResidualBlock(nn.Module):
         if not (output_dim == input_dim and resample is None):
             self.shortcut = Conv2dLib(input_dim, output_dim, 1, name + ".Shortcut",
                                       he_init=False, **sn)
-        self.n1 = Normalize(cfg, name + ".N1", input_dim, seed)
+        self.n1 = Normalize(cfg, name + ".N1", input_dim, seed, labeled)
         self.conv1 = Conv2dLib(input_dim, mid, filter_size, name + ".Conv1", **sn)
-        self.n2 = Normalize(cfg, name + ".N2", mid, seed)
+        self.n2 = Normalize(cfg, name + ".N2", mid, seed, labeled)
         self.conv2 = Conv2dLib(mid, output_dim, filter_size, name + ".Conv2", **sn)
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Batch-norms, ported from ``rcgan_tpu/ops/norm.py``: the conditional
-batch-norm of the CIFAR generator (``cond_batchnorm``) and the MNIST
-stack's ``batch_norm`` with moving statistics (:class:`BatchNorm`).
+"""Normalizations, ported from ``rcgan_tpu/ops/norm.py``: the conditional
+batch-norm of the CIFAR and PGGAN generators (``cond_batchnorm``), the
+``batch_norm`` with moving statistics (:class:`BatchNorm`) of the MNIST
+stack and of the PGGAN critic, and PGGAN's ``pixel_norm``.
 
 ``cond_batchnorm``:
 
@@ -33,6 +34,14 @@ def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Ten
     out = norm_kernel.cond_batchnorm(x.reshape(b, h * w, c), labels, scale_table,
                                      offset_table, epsilon, relu)
     return out.reshape(b, h, w, c)
+
+
+def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """PGGAN's pixelwise feature normalization over the channels of NHWC
+    ``x``, computed in float32 and cast back to ``x.dtype``."""
+    x32 = x.float()
+    alpha = torch.rsqrt(torch.mean(x32 * x32, dim=3, keepdim=True) + eps)
+    return (x32 * alpha).to(x.dtype)
 
 
 class CondBatchNorm(Scoped):

@@ -1,5 +1,5 @@
-"""Serving: class-conditional images (CIFAR-10 and MNIST) from a trained
-generator over HTTP, ported from ``rcgan_tpu/serving.py``.
+"""Serving: class-conditional images (CIFAR-10, MNIST and PGGAN) from a
+trained generator over HTTP, ported from ``rcgan_tpu/serving.py``.
 
 What carries over unchanged in behaviour:
 
@@ -17,27 +17,30 @@ What differs:
 
 - CIFAR weights come from ``<checkpoint_dir>/generator.npz`` (written from
   an orbax checkpoint by ``scripts/export_generator_npz.py``) plus the
-  run's ``config.json``; MNIST weights from the port's own checkpoint of
-  an ``apps/mnist_app.py`` run (``<run>/ckpt``, ``train_state.pt``), as
-  JAX's ``"mnist"`` branch restores its trainer's checkpoint;
+  run's ``config.json``; MNIST and PGGAN weights from the port's own
+  checkpoint of an ``apps/mnist_app.py`` or ``apps/pggan_app.py`` run
+  (``<run>/ckpt``, ``train_state.pt``), as JAX's ``"mnist"`` and
+  ``"pggan"`` branches restore their trainer's checkpoint;
 - the MNIST sampler draws U[-1, 1] latents and runs G with BN in inference
   mode; its sigmoid output is already in [0, 1];
-- ``--model pggan`` raises, and ``--export`` (``jax.export``) is not ported
-  (ROADMAP.md);
+- the PGGAN sampler runs G at the schedule's last stage
+  (``4 * 2**max_stage`` pixels, NHWC), cond-BN on the bucket's batch
+  statistics, as the CIFAR sampler;
+- ``--export`` (``jax.export``) is not ported (ROADMAP.md);
 - PNGs are encoded with the standard library (``zlib`` + ``struct``,
   ``utils/images.py::encode_png``);
 - labels outside ``[0, n_labels)`` are refused (HTTP 400) before they
   reach the device, where JAX's gather would have filled them silently.
 
-On a CUDA device the CIFAR generator runs through the hand-written cond-BN
-and 3x3-conv kernels; the MNIST generator's linears, BNs and 5x5
+On a CUDA device the CIFAR and PGGAN generators run through the
+hand-written cond-BN and 3x3-conv kernels; the MNIST generator's linears, BNs and 5x5
 transposed convs run on cuBLAS and cuDNN, as JAX leaves them to XLA.
 Constructing a :class:`Sampler` applies the port's float32 policy
 (``core.module.float32_policy``: TF32 off for cuDNN convolutions and
 cuBLAS matmuls), so float32 serving is float32 throughout, as it is in
 JAX.
 
-CLI:  python -m rcgan_tpu_torch.serving --model {cifar,mnist} --checkpoint_dir D \\
+CLI:  python -m rcgan_tpu_torch.serving --model {cifar,mnist,pggan} --checkpoint_dir D \\
         [--labels 0,1,2 --n 100 --out grid.png] [--serve --port 8321] \\
         [--register name=cifar:dir ...] [--auth_token TOK] \\
         [--coalesce_wait_ms 4] [--device cuda]
@@ -58,13 +61,11 @@ import torch
 
 from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
 from rcgan_tpu_torch.core.module import float32_policy
-from rcgan_tpu_torch.models import dcgan
+from rcgan_tpu_torch.models import dcgan, pggan
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
 from rcgan_tpu_torch.utils.images import encode_png, merge
 
 DEFAULT_BUCKETS = (1, 8, 32, 100)
-_NOT_PORTED = ("--model cifar and --model mnist are ported; the PGGAN sampler is still to "
-               "port (ROADMAP.md, Queue 1)")
 
 
 def _mnist_generator(checkpoint_dir: str, run_cfg: dict, pick, device) -> "dcgan.Generator":
@@ -91,6 +92,22 @@ def _mnist_generator(checkpoint_dir: str, run_cfg: dict, pick, device) -> "dcgan
     return restored.gan.G
 
 
+def _pggan_generator(checkpoint_dir: str, pick, device) -> "pggan.Generator":
+    """The generator of the latest PGGAN checkpoint under ``checkpoint_dir``
+    (``apps/pggan_app.py``'s phase checkpoints), in a train state built from
+    the run's ``PGGANConfig`` fields, float32 (JAX's ``"pggan"`` branch)."""
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
+
+    cfg = pggan.PGGANConfig(**pick(pggan.PGGANConfig))
+    base = ResnetGANConfig(dim_g=cfg.dim, dim_d=cfg.dim, z_dim=cfg.z_dim)
+    trainer = PGGANTrainer(cfg, base, PGGANTrainConfig(), device=device)
+    restored = Checkpointer(checkpoint_dir).restore(trainer.init())
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+    return restored.gan.G
+
+
 def _load_run_config(checkpoint_dir: str) -> dict:
     """The apps archive every flag as ``config.json`` in the run dir; the
     checkpoint lives one level below (``<run>/ckpt`` or ``<run>/checkpoint``).
@@ -108,16 +125,20 @@ def _load_run_config(checkpoint_dir: str) -> dict:
 class Sampler:
     """Generator-backed conditional sampler with bucketed batch shapes
     (pad-and-slice for ragged requests).  ``generator`` is the CIFAR
-    ``Generator`` (``model`` "cifar") or the MNIST ``dcgan.Generator``
-    ("mnist")."""
+    ``Generator`` (``model`` "cifar"), the MNIST ``dcgan.Generator``
+    ("mnist") or the PGGAN ``pggan.Generator`` ("pggan")."""
 
     def __init__(self, generator, buckets: Sequence[int] = DEFAULT_BUCKETS):
         float32_policy(torch.float32)  # serving is float32 throughout
         self.generator = generator
         self.buckets = tuple(sorted(buckets))
         self.cfg = generator.cfg
-        self.model = "mnist" if isinstance(generator, dcgan.Generator) else "cifar"
-        self.n_labels = self.cfg.y_dim if self.model == "mnist" else self.cfg.vocab_size
+        if isinstance(generator, dcgan.Generator):
+            self.model, self.n_labels = "mnist", self.cfg.y_dim
+        elif isinstance(generator, pggan.Generator):
+            self.model, self.n_labels = "pggan", generator.base.vocab_size
+        else:
+            self.model, self.n_labels = "cifar", self.cfg.vocab_size
         self.z_dim = self.cfg.z_dim
         self.device = next(generator.parameters()).device
         self.passes = 0  # generator passes run, one per bucketed chunk
@@ -130,9 +151,10 @@ class Sampler:
         """Config resolution, lowest to highest precedence: the config
         dataclasses' defaults < the run's archived ``config.json`` (found
         next to ``checkpoint_dir``) < explicit ``overrides``.  ``cifar``
-        loads ``<checkpoint_dir>/generator.npz``; ``mnist`` restores the
-        latest checkpoint of an MNIST run under ``checkpoint_dir`` and keeps
-        its generator, float32.  ``device="cuda"`` without a card raises."""
+        loads ``<checkpoint_dir>/generator.npz``; ``mnist`` and ``pggan``
+        restore the latest checkpoint of such a run under
+        ``checkpoint_dir`` and keep its generator, float32.
+        ``device="cuda"`` without a card raises."""
         run_cfg = dict(_load_run_config(checkpoint_dir))
         run_cfg.update(overrides)
 
@@ -142,8 +164,10 @@ class Sampler:
 
         if model == "mnist":
             return cls(_mnist_generator(checkpoint_dir, run_cfg, pick, device), buckets)
+        if model == "pggan":
+            return cls(_pggan_generator(checkpoint_dir, pick, device), buckets)
         if model != "cifar":
-            raise NotImplementedError(_NOT_PORTED)
+            raise ValueError(f"unknown model {model!r}")
         cfg = ResnetGANConfig(**pick(ResnetGANConfig))
         path = os.path.join(checkpoint_dir, "generator.npz")
         if not os.path.exists(path):
@@ -179,6 +203,8 @@ class Sampler:
         if self.model == "mnist":
             y = torch.nn.functional.one_hot(lt, self.n_labels).float()
             out = dcgan.sample(self.generator, zt, y).cpu().numpy()
+        elif self.model == "pggan":  # NHWC at the schedule's last stage
+            out = pggan.sample(self.generator, zt, lt).cpu().numpy()
         else:
             c = self.cfg
             out = sample(self.generator, zt, lt).cpu().numpy().reshape(
@@ -220,7 +246,8 @@ class Sampler:
     def sample(self, labels: Sequence[int],
                generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Generate one image per label: ``[N, 32, 32, 3]`` in [-1, 1]
-        (CIFAR) or ``[N, 28, 28, 1]`` in [0, 1] (MNIST).  z is drawn per
+        (CIFAR), ``[N, R, R, 3]`` in [-1, 1] at ``R = 4 * 2**max_stage``
+        (PGGAN) or ``[N, 28, 28, 1]`` in [0, 1] (MNIST).  z is drawn per
         bucketed chunk from ``generator`` (a CPU ``torch.Generator``; seed 0
         when None), in the model's prior.  That stream differs from JAX's
         ``jax.random`` stream, so this path is not comparable across the two
@@ -405,8 +432,8 @@ MAX_REQUEST_SAMPLES = 1024
 
 def to_unit_range(imgs: np.ndarray, model: str = "cifar") -> np.ndarray:
     """Generator output range → [0,1] for PNG encoding.  MNIST's sigmoid
-    head already is; the CIFAR generator ends in tanh ([-1,1]), whose
-    negative half clipping would zero."""
+    head already is; the CIFAR and PGGAN generators end in tanh ([-1,1]),
+    whose negative half clipping would zero."""
     return imgs if model == "mnist" else (imgs + 1.0) / 2.0
 
 
@@ -539,7 +566,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="rcgan_tpu_torch sampler")
     p.add_argument("--model", choices=["mnist", "cifar", "pggan"], required=True)
     p.add_argument("--checkpoint_dir", required=True,
-                   help="cifar: the directory holding generator.npz; mnist: an MNIST "
+                   help="cifar: the directory holding generator.npz; mnist, pggan: the "
                         "run's ckpt directory (config.json here or up to two levels "
                         "above)")
     p.add_argument("--labels", default=None, help="comma-separated class ids")

@@ -131,15 +131,16 @@ def test_resume_after_an_injected_fault_equals_the_uninterrupted_run(tmp_path, m
 
 
 def test_app_refuses_what_is_not_ported(tmp_path):
-    """Two devices, and Inception-v3 weights in the data dir, raise with a
-    pointer to ROADMAP.md instead of running with less."""
+    """Two devices raise with a pointer to ROADMAP.md instead of running
+    with less.  Inception-v3 weights in the data dir are taken now, and a
+    file that is not a whole Inception-v3 is refused on load, as in JAX."""
     base = ["--algorithm", "rcgan", "--parent_dir", str(tmp_path), "--expt_dir", "x",
             "--log_file", str(tmp_path / "l.txt"), "--niters", "1"] + _data(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cifar_app.main(base + ["--mesh_devices", "2"], device="cpu")
     (tmp_path / "data").mkdir()
     np.savez(tmp_path / "data" / "inception_v3.npz", w=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="inception_v3 weights missing"):
         cifar_app.main(base + ["--mesh_devices", "1"], device="cpu")
 
 

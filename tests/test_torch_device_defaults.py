@@ -9,19 +9,24 @@ import torch
 from rcgan_tpu_torch import bridge, serving
 from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
 from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig, MnistGAN
-from rcgan_tpu_torch.apps import cifar_app, mnist_app
+from rcgan_tpu_torch.apps import cifar_app, mnist_app, pggan_app
 from rcgan_tpu_torch.data.confusion import build_confusion
 from rcgan_tpu_torch.entry import EntryForward
+from rcgan_tpu_torch.evals import calibrate_inception, inception_v3
 from rcgan_tpu_torch.evals.classifier import cifar_classifier, mnist_classifier
 from rcgan_tpu_torch.models.dcgan import DCGANConfig
+from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
 from rcgan_tpu_torch.train import mnist_loop
+from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer, new_train_state
 
 CFG = ResnetGANConfig(dim_g=8, dim_d=16, embedding_dim=24)
 ACFG, TCFG = CifarAlgoConfig(), CifarTrainConfig()
 MCFG = DCGANConfig(gf_dim=8, df_dim=8, gfc_dim=32, dfc_dim=32, disc_type="projection")
 MACFG, MTCFG = MnistAlgoConfig(algorithm="rcgan"), mnist_loop.MnistTrainConfig()
+PCFG, PBASE = PGGANConfig(z_dim=8, dim=8, max_stage=2), ResnetGANConfig(dim_g=8, dim_d=8)
+PTCFG = PGGANTrainConfig()
 
 # each entry point called with every argument but device
 CALLS = {
@@ -44,6 +49,17 @@ CALLS = {
     "mnist_app.main": lambda: mnist_app.main(["--epoch", "1"]),
     "Sampler.from_checkpoint mnist": lambda: serving.Sampler.from_checkpoint("mnist",
                                                                               "/nonexistent"),
+    "PGGANTrainer": lambda: PGGANTrainer(PCFG, PBASE, PTCFG),
+    "PGGAN": lambda: PGGAN(PCFG, PBASE),
+    "pggan_train_state_from_jax": lambda: bridge.pggan_train_state_from_jax(None, PCFG, PBASE,
+                                                                            PTCFG),
+    "pggan_app.main": lambda: pggan_app.main(["--run_dir", "/nonexistent/pg", "--size", "16",
+                                              "--max_stage", "2"]),
+    "Sampler.from_checkpoint pggan": lambda: serving.Sampler.from_checkpoint("pggan",
+                                                                              "/nonexistent"),
+    "inception_v3.make_logits_fn": lambda: inception_v3.make_logits_fn({}),
+    "calibrate_inception.main": lambda: calibrate_inception.main(["--data_dir",
+                                                                  "/nonexistent"]),
 }
 
 
@@ -66,3 +82,6 @@ def test_the_cpu_is_taken_only_when_asked():
     mts = mnist_loop.MnistTrainer(MCFG, MACFG, MTCFG, np.eye(10), device="cpu").init()
     assert {p.device.type for p in mts.gan.parameters()} | {
         b.device.type for b in mts.gan.buffers()} == {"cpu"}
+    pts = PGGANTrainer(PCFG, PBASE, PTCFG, device="cpu").init()
+    assert {p.device.type for p in pts.gan.parameters()} | {
+        b.device.type for b in pts.gan.buffers()} == {"cpu"}
