@@ -137,7 +137,32 @@ and the CIFAR app's Inception-v3 scorer:
 11. Inception-v3 (``evals/inception_v3.py``, cuDNN convs, no kernel of its
    own): ``random_weights(0)`` on the card against the CPU for 4 images, its
    time on 5 000 samples, and ``cifar_app.main`` with an
-   ``inception_v3.npz`` in its own data dir, which must score with it.
+   ``inception_v3.npz`` in its own data dir, which must score with it;
+12. data parallelism (``rcgan_tpu_torch/parallel/mesh.py``, no kernel of
+   its own: the collectives are NCCL's or gloo's), in ranks that
+   ``parallel.launch`` spawns: NCCL at world size 1 at ``bench.py``'s
+   configuration (rcgan and rcgan-u, bf16, batch 64), two cycles through
+   the group bit-equal to two without it under deterministic algorithms,
+   each cycle's launches (``cycle_counts``) and its bytes all-reduced
+   (every step's gradients and the state, exactly), ms per cycle and
+   NCCL's share of a profiled cycle's device time (in this process); two
+   gloo ranks sharing
+   cuda:0 (NCCL refuses two ranks on one card), full width, float32, batch
+   16 a rank: rcgan and rcgan-u two cycles, both ranks' whole states
+   bit-equal, each rank's launches a cycle, finite costs, ms per cycle and
+   the time inside the collectives; with ``normalization_g=False`` the
+   two-rank run against the one-rank run on the same global batches, each
+   cycle from one state under deterministic algorithms: the costs under
+   JAX's tolerance, cycle 2's state under JAX's tolerances, cycle 1's (Adam
+   from zero moments) under ``TRAIN_TOL[1]``; the same for ``MnistTrainer``
+   at ``DCGANConfig()``
+   (bit-equal ranks, 4 sn launches an iteration, ``prob_real`` gathered);
+   ``cifar_app.main`` in two gloo ranks on cuda:0 (rcgan-u with the perm
+   classifier, ``--multi_gpu_multi_batch``: batch 64, 4 iterations, every
+   eval once), one run dir, its checkpoints, bit-equal ranks, each cycle's
+   launches; a CIFAR ``Sampler`` on that checkpoint, card against CPU and
+   over HTTP.  Two ranks on one card check correctness; their times say
+   nothing of scaling.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -2571,6 +2596,545 @@ def inception_slice(torch, dev, seed: int, card: str) -> dict:
     return {"ms_5000": a.elapsed_time(e), "app_inception_s": sec}
 
 
+# Phase 12, data parallelism (``rcgan_tpu_torch/parallel/mesh.py``): the
+# group's code path in spawned ranks.  NCCL refuses two ranks on one card
+# ("duplicate GPU"), so on a one-card machine the two-rank runs are gloo
+# ranks that share cuda:0: they check correctness, and their times say
+# nothing of scaling.  NCCL runs at world size 1.
+DP = {"nccl_batch": 64, "nccl_dataset": 4096, "gloo_batch": 16, "mnist_batch": 100,
+      "timed": 3}
+DP_APP = ["--algorithm", "rcgan-u", "--alpha", "0.6", "--perm_classifier", "--confuse_init",
+          "--perm_gen_label_acc", "--mesh_devices", "2", "--multi_gpu_multi_batch",
+          "--batch_size", "32", "--synthetic_train_size", "640", "--eval_train_size", "2000",
+          "--niters", "8", "--ckpt_early_every", "1", "--sample_freq", "2",
+          "--generated_label_accuracy_freq", "4", "--inception_freq", "4", "--run", "dp"]
+DP_TIMEOUT = 600.0
+
+
+def state_digest(torch, ts) -> str:
+    """sha256 over every tensor of a train state (parameters, state, Adam
+    moments) in name order, with the counts and the step: equal digests,
+    equal bits."""
+    import hashlib
+
+    from rcgan_tpu_torch.train.checkpoint import state_payload
+
+    p = state_payload(ts)
+    h = hashlib.sha256(repr((p["step"], {g: s["count"] for g, s in p["opt_states"].items()}))
+                       .encode())
+    trees = [p["groups"][g] for g in sorted(p["groups"])] + [p["state"]] + [
+        p["opt_states"][g][m] for g in sorted(p["opt_states"]) for m in ("mu", "nu")]
+    for tree in trees:
+        for k in sorted(tree):
+            h.update(k.encode())
+            h.update(tree[k].contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_expected_bytes(ts, n_critic: int, g_step: bool) -> int:
+    """Bytes one cycle all-reduces: each step's gradients and the state
+    (float32), the G step's over G (and C), every critic step's over D,
+    and the cycle's three costs."""
+    from rcgan_tpu_torch.train.state import state_buffers
+
+    def size(ts_):
+        return sum(b.numel() * b.element_size() for b in state_buffers(ts_.gan))
+
+    numel = {g: sum(p.numel() * p.element_size() for p in ts.group_params(g))
+             for g in ts.groups}
+    g_bytes = sum(v for g, v in numel.items() if g != "disc") + size(ts)
+    return g_step * g_bytes + n_critic * (numel["disc"] + size(ts)) + 3 * 4
+
+
+def dp_cifar_feeds(seed: int, b: int, n_critic: int, gen_mult: int, cycles: int):
+    """Host batches and generator labels of ``cycles`` cycles at the global
+    batch ``b``, numpy, from ``seed``."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(cycles):
+        d = {"images": rs.randint(0, 256, (n_critic, b, 3072)).astype(np.uint8),
+             "labels": rs.randint(0, 10, (n_critic, b)),
+             "labels_random": rs.randint(0, 10, (n_critic, b)),
+             "labels_biased": rs.randint(0, 10, (n_critic, b)),
+             "labels_inv_weights": rs.uniform(-0.5, 1.5, (n_critic, b, 10)).astype(np.float32)}
+        out.append((d, {"random": rs.randint(0, 10, gen_mult * b),
+                        "biased": rs.randint(0, 10, gen_mult * b)}))
+    return out
+
+
+def dp_nccl_run(group, seed: int):
+    """Phase 12, NCCL at world size 1: ``bench.py``'s
+    configuration (full width, bf16, batch 64, n_critic 5) for rcgan and
+    rcgan-u; two cycles through the group and two without, from one seed
+    on one resident dataset under deterministic algorithms; each grouped
+    cycle's launches and bytes; ms per cycle, and a profile's share of
+    device time in NCCL's kernels."""
+    import numpy as np
+    import torch
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.core import rng as trng
+    from rcgan_tpu_torch.data.cifar10 import device_dataset_of
+    from rcgan_tpu_torch.data.confusion import build_confusion, corrupt_dataset_numpy
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    dev = group.device
+    c_mat, c_inv = build_confusion(0.6)
+    n, b = DP["nccl_dataset"], DP["nccl_batch"]
+    rs = np.random.RandomState(seed)
+    y_real, y_gen, y_fake, inv_w = corrupt_dataset_numpy(rs, rs.randint(0, 10, n), c_mat, c_inv)
+    ds = device_dataset_of({"images": rs.randint(0, 256, (n, 3072)).astype(np.uint8),
+                            "labels": y_real, "labels_random": y_gen, "labels_biased": y_fake,
+                            "labels_inv_weights": inv_w}, dev)
+    tcfg = CifarTrainConfig()
+    out = {"backend": group.backend, "world": group.world_size}
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        cfg = ResnetGANConfig(algorithm=alg)
+        grouped = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, group=group)
+        alone = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds)
+        # two checked cycles, then the timed ones (one warm-up), two profiled
+        feeds = [(rs.randint(0, n, (tcfg.n_critic, b)), rs.randint(0, n, tcfg.gen_bs_multiple * b))
+                 for _ in range(DP["timed"] + 5)]
+        ts_g, ts_1, counts, nbytes = grouped.init(seed), alone.init(seed), [], []
+        with deterministic_algorithms(torch):
+            for it in range(2):
+                idx, gi = feeds[it]
+                gl = {"random": y_gen[gi], "biased": y_fake[gi]}
+                runtime.reset_launch_counts()
+                group.reset_counts()
+                ts_g, m_g = grouped.step(ts_g, {"index": idx}, gl, it, trng.fold_in(seed, it))
+                torch.cuda.synchronize()
+                counts.append(runtime.launch_counts())
+                nbytes.append((group.bytes_reduced, dp_expected_bytes(ts_g, tcfg.n_critic, it > 0)))
+                ts_1, m_1 = alone.step(ts_1, {"index": idx}, gl, it, trng.fold_in(seed, it))
+            compared, differ, same = state_differences(torch, ts_g, ts_1)
+            costs_equal = all(torch.equal(m_g[k], m_1[k]) for k in m_g)
+        state = {"ts": ts_g, "it": 2}
+
+        def cycle():
+            idx, gi = feeds[state["it"]]
+            state["ts"], m = grouped.step(state["ts"], {"index": idx},
+                                          {"random": y_gen[gi], "biased": y_fake[gi]},
+                                          state["it"], trng.fold_in(seed, state["it"]))
+            state["it"] += 1
+            return m
+
+        ms = event_ms(torch, cycle, reps=DP["timed"], warmup=1)
+        wall = busy = nccl = float("nan")
+        if alg == "rcgan":  # a profile of one cycle (rcgan-u's collectives are the same)
+            wall, busy, rows = device_profile(torch, cycle, reps=1)
+            nccl = sum(r[0] for r in rows if "nccl" in r[2].lower())
+        out[alg] = {"counts": counts, "bytes": nbytes, "compared": compared, "differ": differ,
+                    "same": same, "costs_equal": costs_equal, "ms": ms, "busy": busy,
+                    "wall": wall, "nccl_ms": nccl}
+    return out
+
+
+def dp_gloo_rank(group, seed: int):
+    """Phase 12, two gloo ranks sharing the card, in a spawned rank: full
+    width, float32, batch ``DP["gloo_batch"]`` a rank, two cycles of rcgan
+    and rcgan-u (each cycle's launches, bytes and costs, the final state's
+    digest), rcgan with ``normalization_g=False`` (rank 0 returns its
+    states for the one-rank comparison), ms per cycle with the time spent
+    inside the collectives, and two ``MnistTrainer`` iterations at
+    ``DCGANConfig()``."""
+    import time as time_
+
+    import numpy as np
+    import torch
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
+    from rcgan_tpu_torch.bridge import to_jax_train_state
+    from rcgan_tpu_torch.data.confusion import build_confusion
+    from rcgan_tpu_torch.models.dcgan import DCGANConfig
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+    from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
+
+    dev = group.device
+    c_mat, _ = build_confusion(0.6)
+    tcfg = CifarTrainConfig()
+    b = DP["gloo_batch"] * group.world_size
+    # two checked cycles, then the timed ones, two profiled, one synchronised
+    feeds = dp_cifar_feeds(seed, b, tcfg.n_critic, tcfg.gen_bs_multiple, DP["timed"] + 6)
+    out = {}
+    for alg, perm, norm_g in (("rcgan", False, True), ("rcgan-u", True, True),
+                              ("rcgan", False, False)):
+        acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        tr = CifarTrainer(ResnetGANConfig(algorithm=alg, normalization_g=norm_g), acfg, tcfg,
+                          c_mat, dev, torch.float32, group=group)
+        ts = tr.init(seed)
+        states = [] if not norm_g and group.is_main else None
+        counts, nbytes, costs = [], [], []
+        # the layout check's run repeats bit for bit under deterministic algorithms
+        with deterministic_algorithms(torch) if not norm_g else contextlib.nullcontext():
+            for it in range(2):
+                d, g = feeds[it]
+                runtime.reset_launch_counts()
+                group.reset_counts()
+                ts, m = tr.step(ts, d, g, it + 1, seed + it)
+                torch.cuda.synchronize()
+                counts.append(runtime.launch_counts())
+                nbytes.append((group.bytes_reduced, dp_expected_bytes(ts, tcfg.n_critic, True)))
+                costs.append({k: float(v) for k, v in m.items()})
+                if states is not None:
+                    states.append(to_jax_train_state(ts))
+        key = f"{alg}{'' if norm_g else ' normalization_g=False'}"
+        out[key] = {"counts": counts, "bytes": nbytes, "costs": costs,
+                    "digest": state_digest(torch, ts), "states": states}
+        if alg == "rcgan" and norm_g:  # times: per cycle, and inside the collectives
+            state = {"ts": ts, "it": 2}
+
+            def cycle():
+                d, g = feeds[state["it"]]
+                state["ts"], m = tr.step(state["ts"], d, g, state["it"] + 1, seed + state["it"])
+                state["it"] += 1
+                return m
+
+            ms = event_ms(torch, cycle, reps=DP["timed"], warmup=1)
+            group.barrier()  # both ranks start the synchronised cycle together
+            spent = [0.0]
+            mean_ = group.mean_
+
+            def timed_mean(tensors):
+                torch.cuda.synchronize()
+                t = time_.perf_counter()
+                mean_(tensors)
+                spent[0] += time_.perf_counter() - t
+
+            group.mean_ = timed_mean
+            t = time_.perf_counter()
+            cycle()
+            torch.cuda.synchronize()
+            wall = (time_.perf_counter() - t) * 1e3
+            group.mean_ = mean_
+            out["timing"] = {"ms": ms, "synced_ms": wall, "collective_ms": spent[0] * 1e3}
+            if group.is_main:  # the profiler in one rank; the other runs the same cycles
+                prof = device_profile(torch, cycle, reps=1)
+            else:
+                cycle(), cycle()
+                prof = None
+            if prof is not None:
+                out["timing"].update(profiled_ms=prof[0], busy_ms=prof[1], memcpy_ms=sum(
+                    r[0] for r in prof[2] if "memcpy" in r[2].lower()))
+
+    # MNIST at DCGANConfig(): the projection D with sn and max-norm, rcgan-u
+    mb = DP["mnist_batch"]
+    cfg = DCGANConfig(batch_size=mb, disc_type="projection", spectral_norm=True, max_norm=True)
+    acfg = MnistAlgoConfig(algorithm="rcgan", estimate_confuse=True, perm_regularizer=True,
+                           loss_fn="hinge")
+    mtr = MnistTrainer(cfg, acfg, MnistTrainConfig(), build_confusion(0.3)[0], group=group,
+                       device=dev)
+    mts = mtr.init(seed)
+    rs = np.random.RandomState(seed + 1)
+    counts, losses = [], []
+    for it in range(2):
+        batch = {"images": rs.rand(mb, 28, 28, 1).astype(np.float32),
+                 "y_real": rs.randint(0, 10, mb), "y_gen": rs.randint(0, 10, mb),
+                 "y_fake": rs.randint(0, 10, mb),
+                 "y_real_weights": rs.uniform(-0.5, 1.5, (mb, 10)).astype(np.float32)}
+        runtime.reset_launch_counts()
+        mts, m = mtr.step(mts, batch, seed + it)
+        torch.cuda.synchronize()
+        counts.append(runtime.launch_counts())
+        losses.append({k: float(m[k]) for k in ("d_loss", "g_loss")})
+        losses[-1]["prob_real_rows"] = int(m["prob_real"].shape[0])
+    out["mnist"] = {"counts": counts, "losses": losses, "digest": state_digest(torch, mts)}
+    return out
+
+
+def dp_app_rank(group, argv):
+    """Phase 12, ``cifar_app.main`` in a spawned rank of two gloo ranks on
+    cuda:0: each cycle's launches, the final state's digest, the accuracy
+    (rank 0) and the app's stats."""
+    import torch
+
+    from rcgan_tpu_torch.apps import cifar_app
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainer
+
+    cycles = []
+    step = CifarTrainer.step
+
+    def counted(self, ts, d_batches, g_labels, iteration, seed_, noise=None):
+        before = runtime.launch_counts()
+        out = step(self, ts, d_batches, g_labels, iteration, seed_, noise)
+        after = runtime.launch_counts()
+        cycles.append((iteration, {k: after[k] - before[k] for k in after}))
+        return out
+
+    CifarTrainer.step = counted
+    stats = {}
+    runtime.reset_launch_counts()
+    ts, acc = cifar_app.main(argv, device=str(group.device), stats=stats)
+    torch.cuda.synchronize()
+    return {"cycles": cycles, "counts": runtime.launch_counts(),
+            "digest": state_digest(torch, ts), "acc": acc, "stats": stats}
+
+
+def dp_close(ref, got, init, lr: float) -> dict:
+    """Readings of a data-parallel state ``got`` against ``ref`` after the
+    same updates from ``init`` (bridge layouts, numpy), by the rule of
+    ``tests/test_torch_parallel_cifar.py``: the share of the live tensors'
+    elements whose delta lies outside JAX's tolerance (``rtol 1e-4, atol
+    2e-3`` of the tensor's update scale; limit 1e-3), the largest
+    difference in units of lr per update (limit 2), the moments' worst
+    error in units of the tensor's largest (limit 2e-3) and SN ``u``'s."""
+    import numpy as np
+
+    off = live = 0
+    worst_lr = worst_mom = worst_u = 0.0
+    for g, ps in ref.groups.items():
+        adam = ref.opt_states[g][0]
+        count = max(int(np.asarray(adam.count)), 1)
+        group_max = max(np.abs(a).max() for d in adam.mu.values() for a in d.values())
+        for la, vs in ps.items():
+            for v, want in vs.items():
+                mine, p0 = got.groups[g][la][v], init.groups[g][la][v]
+                worst_lr = max(worst_lr, float(np.abs(mine - want).max()) / (lr * count))
+                if np.abs(adam.mu[la][v]).max() <= 1e-4 * group_max:
+                    continue
+                d = want - p0
+                s = max(float(np.abs(d).max()), 1e-8)
+                bad = np.abs((mine - p0) / s - d / s) > 2e-3 + 1e-4 * np.abs(d / s)
+                off, live = off + int(bad.sum()), live + bad.size
+                for mom in ("mu", "nu"):
+                    w = getattr(adam, mom)[la][v]
+                    m = getattr(got.opt_states[g][0], mom)[la][v]
+                    sc = max(float(np.abs(w).max()), 1e-30)
+                    worst_mom = max(worst_mom, float(np.max(np.abs(m - w) - 1e-4 * np.abs(w)))
+                                    / sc)
+    for la, vs in ref.state.items():
+        worst_u = max(worst_u, float(np.max(np.abs(got.state[la]["u"] - vs["u"])
+                                            - 1e-4 * np.abs(vs["u"]))))
+    return {"off_share": off / max(live, 1), "lr_units": worst_lr, "moments": worst_mom,
+            "u": worst_u}
+
+
+def parallel_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 12: data parallelism (module doc, item 12).  Returns the
+    launches of each kernel over the ranks' counted runs (``counts``)."""
+    import os
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.bridge import to_jax_train_state, train_state_from_jax
+    from rcgan_tpu_torch.data.confusion import build_confusion
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.parallel import launch
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    totals = {k: 0 for k in runtime.KERNELS}
+
+    def add(c):
+        for k, v in c.items():
+            totals[k] += v
+
+    # ---- NCCL at world size 1, in this process: the group's path gives the
+    # bits of the path without it
+    import datetime
+
+    import torch.distributed as dist
+
+    from rcgan_tpu_torch.parallel.mesh import DataGroup, free_port
+
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    try:
+        nc = dp_nccl_run(DataGroup(rank=0, world_size=1, device=torch.device("cuda", 0),
+                                   backend="nccl"), seed)
+    finally:
+        dist.destroy_process_group()
+    print(f"  NCCL world 1: {time.perf_counter() - t:.1f} s", flush=True)
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        r = nc[alg]
+        want = [cycle_counts(alg, perm, 5, it > 0) for it in range(2)]
+        for c in r["counts"]:
+            add(c)
+        check(nc["backend"] == "nccl" and r["counts"] == want and not r["differ"] and r["same"]
+              and r["costs_equal"] and all(got == exp for got, exp in r["bytes"]),
+              f"data parallel, NCCL world 1, {alg} bf16 batch {DP['nccl_batch']}: two cycles "
+              f"through the group bit-equal to two without ({r['compared'] - len(r['differ'])} "
+              f"of {r['compared']} tensors, costs equal {r['costs_equal']}; differ "
+              f"{r['differ'][:3]}), launches {r['counts'][-1]} (want {want[-1]}), bytes "
+              f"all-reduced {r['bytes']} (got, want)")
+        prof = "" if math.isnan(r["busy"]) else (
+            f"; profiled cycle {r['wall']:.3f} ms, device busy {r['busy']:.3f} ms, of it NCCL's "
+            f"kernels {r['nccl_ms']:.3f} ms ({r['nccl_ms'] / r['busy']:.2%})")
+        print(f"  data parallel NCCL world 1, {alg}, bf16, batch {DP['nccl_batch']}, on {card}: "
+              f"{r['ms']:.3f} ms per cycle (CUDA events, median of {DP['timed']}); "
+              f"{r['bytes'][-1][0] / 1e6:.3f} MB all-reduced per cycle{prof}", flush=True)
+
+    # ---- two gloo ranks sharing the card: one model, launches per rank, layout
+    t = time.perf_counter()
+    ranks = launch(dp_gloo_rank, 2, backend="gloo", devices=["cuda:0", "cuda:0"],
+                   args=(seed,), timeout=DP_TIMEOUT)
+    print(f"  two gloo ranks on cuda:0: {time.perf_counter() - t:.1f} s for the spawned ranks",
+          flush=True)
+    for key, alg, perm in (("rcgan", "rcgan", False), ("rcgan-u", "rcgan-u", True),
+                           ("rcgan normalization_g=False", "rcgan", False)):
+        want = [dict(cycle_counts(alg, perm, 5, True),
+                     **({"cond_bn": 0} if "normalization_g" in key else {}))] * 2
+        per = [r[key] for r in ranks]
+        for r in per:
+            for c in r["counts"]:
+                add(c)
+        check(per[0]["digest"] == per[1]["digest"]
+              and all(r["counts"] == want for r in per)
+              and all(got == exp for r in per for got, exp in r["bytes"])
+              and all(math.isfinite(v) for r in per for c in r["costs"] for v in c.values())
+              and per[0]["costs"] == per[1]["costs"],
+              f"data parallel, two gloo ranks on one card, {key}, float32, batch "
+              f"{DP['gloo_batch']} a rank, two cycles: whole states bit-equal "
+              f"({per[0]['digest'][:12]} / {per[1]['digest'][:12]}), each rank's launches a "
+              f"cycle {per[0]['counts'][-1]} and {per[1]['counts'][-1]} (want {want[-1]}), bytes "
+              f"{per[0]['bytes']} (got, want), costs {per[0]['costs'][-1]}")
+    for r, rk in enumerate(ranks):
+        tm = rk["timing"]
+        print(f"  data parallel, two gloo ranks sharing {card} (correctness only: says nothing "
+              f"of scaling), rcgan float32 batch {DP['gloo_batch']} a rank, rank {r}: "
+              f"{tm['ms']:.3f} ms per cycle (CUDA events, median of {DP['timed']}); a cycle "
+              f"with the card synchronised around each collective {tm['synced_ms']:.3f} ms, of "
+              f"it {tm['collective_ms']:.3f} ms inside the collectives "
+              f"({tm['collective_ms'] / tm['synced_ms']:.1%}; gloo stages each buffer through "
+              f"the host); {rk['rcgan']['bytes'][-1][0] / 1e6:.3f} MB all-reduced per cycle",
+              flush=True)
+        if "busy_ms" in tm:
+            print(f"    rank {r} profiled cycle {tm['profiled_ms']:.3f} ms, device busy "
+                  f"{tm['busy_ms']:.3f} ms, of it the collectives' host staging copies "
+                  f"(memcpy) {tm['memcpy_ms']:.3f} ms ({tm['memcpy_ms'] / tm['busy_ms']:.2%})",
+                  flush=True)
+
+    # the same global batches on one rank, normalization_g=False (per-rank
+    # batch moments are the layout's one difference), both sides under
+    # deterministic algorithms; each cycle from one state (the two ranks'
+    # state before it), as phase 7's card-vs-CPU check takes its cycles, so
+    # that no earlier cycle's rounding is carried in.  The costs are held
+    # to JAX's tolerance in both cycles.  Cycle 2 (Adam past its first
+    # steps) is held to JAX's tolerances on the state too.  Cycle 1 starts
+    # Adam from zero moments, where an update is about sign(g) * lr: a
+    # float32 gradient at rounding level flips sign between the two sum
+    # orders and moves a weight by 2 lr, and the next critic steps carry it
+    # into the moments and SN's u (on an H100: mu 2.3e-3 of a tensor's max,
+    # u 2.4e-5, against JAX's 2e-3 and 1e-5); cycle 1's state is held to
+    # TRAIN_TOL[1], the limits of phase 7's float32 cycle from fresh Adam
+    c_mat, _ = build_confusion(0.6)
+    tcfg = CifarTrainConfig()
+    cfg, acfg = ResnetGANConfig(algorithm="rcgan", normalization_g=False), \
+        CifarAlgoConfig(algorithm="rcgan")
+    tr = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.float32)
+    feeds = dp_cifar_feeds(seed, 2 * DP["gloo_batch"], tcfg.n_critic, tcfg.gen_bs_multiple, 2)
+    two = ranks[0]["rcgan normalization_g=False"]
+    start = to_jax_train_state(tr.init(seed))
+    for it, (d, g) in enumerate(feeds):
+        with deterministic_algorithms(torch):
+            ts = train_state_from_jax(start, cfg, acfg, tcfg, dev)
+            ts, m = tr.step(ts, d, g, it + 1, seed + it)
+        one_np = to_jax_train_state(ts)
+        r = dp_close(one_np, two["states"][it], start, tcfg.lr)
+        tr_r, where = train_readings(one_np, two["states"][it], m, two["costs"][it], tcfg.lr,
+                                     {"gen": 1, "disc": tcfg.n_critic})
+        cost_ok = all(abs(two["costs"][it][k] - float(m[k])) <= 1e-5 + 1e-4 * abs(float(m[k]))
+                      for k in ("d_cost", "d_cost_mean", "g_cost"))
+        jax_ok = (r["off_share"] <= 1e-3 and r["lr_units"] <= 2.0 and r["moments"] <= 2e-3
+                  and r["u"] <= 1e-5)
+        lim = TRAIN_TOL[1]
+        train_ok = all(v <= lim[k] for k, v in tr_r.items() if k != "cost")
+        check(cost_ok and (jax_ok if it else train_ok),
+              f"data parallel, layout: two gloo ranks against one rank, rcgan "
+              f"normalization_g=False, float32, global batch {2 * DP['gloo_batch']}, cycle "
+              f"{it + 1} from one state, its state held to "
+              f"{'JAX' if it else 'TRAIN_TOL[1]'}: costs {two['costs'][it]['d_cost']:.6f}/"
+              f"{float(m['d_cost']):.6f} (d), {two['costs'][it]['g_cost']:.6f}/"
+              f"{float(m['g_cost']):.6f} (g); deltas outside JAX's tolerance "
+              f"{r['off_share']:.2e} of the live elements (limit 1e-3), largest "
+              f"{r['lr_units']:.3f} lr per update (limit 2), moments {r['moments']:.2e} (limit "
+              f"2e-3), u {r['u']:.2e} (limit 1e-5); phase 7's readings: " + ", ".join(
+                  f"{k} {v:.3g} (limit {lim.get(k)}){' at ' + where[k] if k in where else ''}"
+                  for k, v in tr_r.items()))
+        start = two["states"][it]
+
+    mn = [r["mnist"] for r in ranks]
+    want = [MNIST_PATH_COUNTS] * 2
+    for r in mn:
+        for c in r["counts"]:
+            add(c)
+    check(mn[0]["digest"] == mn[1]["digest"] and all(r["counts"] == want for r in mn)
+          and mn[0]["losses"] == mn[1]["losses"]
+          and all(math.isfinite(v) for r in mn for x in r["losses"] for v in x.values())
+          and mn[0]["losses"][-1]["prob_real_rows"] == DP["mnist_batch"],
+          f"data parallel, two gloo ranks on one card, MnistTrainer at DCGANConfig(), float32, "
+          f"batch {DP['mnist_batch'] // 2} a rank, two iterations: whole states bit-equal, "
+          f"launches an iteration {mn[0]['counts'][-1]} and {mn[1]['counts'][-1]} (want "
+          f"{MNIST_PATH_COUNTS}), losses {mn[0]['losses'][-1]}, prob_real gathered to "
+          f"{mn[0]['losses'][-1]['prob_real_rows']} rows")
+
+    # ---- the app in two gloo ranks on the card, then the sampler on its checkpoint
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.environ["RCGAN_SYNTH_CACHE"] = "0"
+    argv = DP_APP + ["--seed", str(seed), "--parent_dir", root, "--data_dir",
+                     os.path.join(root, "data"), "--log_file", os.path.join(root, "dp.log")]
+    t = time.perf_counter()
+    app = launch(dp_app_rank, 2, backend="gloo", devices=["cuda:0", "cuda:0"], args=(argv,),
+                 timeout=DP_TIMEOUT)
+    wall = time.perf_counter() - t
+    runs = [d for d in os.listdir(root) if d.startswith("rcgan-u_alpha0.6_run-dp_")]
+    run = os.path.join(root, runs[0]) if len(runs) == 1 else None
+    ckpts = sorted(int(n) for n in os.listdir(os.path.join(run, "checkpoint"))
+                   if n.isdigit()) if run else []
+    text = open(os.path.join(root, "dp.log")).read()
+    hist = {}
+    if run:
+        with open(os.path.join(run, "log.pkl"), "rb") as f:
+            hist = pickle.load(f)
+    iters = 4  # --niters 8 halved over two ranks; batch 32 doubled to 64
+    for r in app:
+        add(r["counts"])
+    check(len(runs) == 1 and ckpts == list(range(iters))
+          and {"samples_1.png", "samples_3.png", "log.pkl"} <= set(os.listdir(run))
+          and "2 device(s); batch 64; iters 4" in text and "final generated label accuracy" in text
+          and {"inception_50k", "dev_cost", "gen_label_acc"} <= set(hist)
+          and app[0]["digest"] == app[1]["digest"] and app[1]["acc"] is None
+          and 0.0 <= app[0]["acc"] <= 1.0
+          and all([it for it, _ in r["cycles"]] == list(range(iters)) for r in app)
+          and all(c == cycle_counts("rcgan-u", True, 5, it > 0) for r in app
+                  for it, c in r["cycles"]),
+          f"data parallel app, cifar_app.main in two gloo ranks on cuda:0 (rcgan-u, perm): "
+          f"run dirs {runs}, checkpoints {ckpts}, both ranks' final states bit-equal "
+          f"{app[0]['digest'] == app[1]['digest']}, accuracy {app[0]['acc']} (rank 1: "
+          f"{app[1]['acc']}), each cycle's launches per rank as cycle_counts, inception, dev "
+          f"cost, samples and gen-label-acc landed")
+    tr_s, tr_n = app[0]["stats"].get("train", (float("nan"), 0))
+    print(f"  data parallel app on two gloo ranks sharing {card}: {wall:.1f} s with the spawn; "
+          f"{tr_n} cycles in {tr_s:.3f} s on rank 0 (global batch 64)", flush=True)
+    rng = np.random.default_rng(seed)
+    served = sampler_slice(torch, dev, "cifar", os.path.join(run, "checkpoint"),
+                           lambda n: rng.standard_normal((n, 128)).astype(np.float32),
+                           (1, 100), {"/sample?labels=3&seed=1": 1, "/sample?n=100&seed=2": 100},
+                           SLICE_ATOL, "the data-parallel app's checkpoint")
+    check(served["cond_bn"] == 2 * 7 and served["conv3x3"] == 2 * 6 and served["sn"] == 0,
+          f"CIFAR serving of the app's checkpoint, two passes: launches {served} (want 7 cond_bn "
+          f"and 6 FFMA conv3x3 a pass)")
+    add(served)
+    shutil.rmtree(root, ignore_errors=True)
+    os.environ.pop("RCGAN_SYNTH_CACHE", None)
+    return {"counts": totals}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint_dir", default=None,
@@ -2976,6 +3540,9 @@ def main(argv=None) -> int:
     # -------------------------------------------------- 11. Inception-v3 scorer
     iv3 = inception_slice(torch, dev, args.seed, card)
 
+    # -------------------------------------------------- 12. data parallelism
+    dp = parallel_slice(torch, dev, args.seed, card)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -3026,7 +3593,7 @@ def main(argv=None) -> int:
         (ms, plain_ms), (bound_ms, by), library_ms = rows[k]
         row = dict(name=k, **KERNEL_INFO[k],
                    launches=(counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k]
-                             + mnist["counts"][k] + pggan["counts"][k]),
+                             + mnist["counts"][k] + pggan["counts"][k] + dp["counts"][k]),
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":

@@ -11,8 +11,17 @@ the final, optionally permutation-corrected, label accuracy.
 Flags, cadences and file layout are the JAX app's.  What differs:
 
 - The app runs on the card; ``main(argv, device="cpu")`` runs it on the CPU
-  (the tests do).  One device only: a flag that asks for more raises (see
-  ROADMAP.md).
+  (the tests do).
+- Data parallelism: ``--ngpus``/``--mesh_devices`` choose the device count
+  as JAX's do; above one, the app runs one process per rank
+  (:mod:`rcgan_tpu_torch.parallel.mesh`): under ``torchrun
+  --nproc_per_node N`` it joins the launcher's group, whose size must be
+  the device count; alone it spawns its ranks itself (NCCL on ``cuda:0``
+  to ``cuda:N-1``, which must exist; gloo ranks on the CPU with
+  ``device="cpu"``).  Every rank trains on its rows of each global batch;
+  rank 0 alone writes the run dir, the log, ``log.pkl``, the samples, the
+  evals and the checkpoints.  Blocks (``--scan_block``) run on one device
+  only, as JAX's.
 - The inception score is JAX's choice of scorer: Inception-v3
   (``evals/inception_v3.py``) where ``<data_dir>/inception_v3.npz`` (or
   ``.pkl``) exists, validated on load, else the compact stand-in.
@@ -27,8 +36,10 @@ Flags, cadences and file layout are the JAX app's.  What differs:
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import sys
 import time
 from typing import Optional
 
@@ -47,7 +58,8 @@ from rcgan_tpu_torch.evals import inception_v3
 from rcgan_tpu_torch.evals.inception import inception_score
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.checkpoint import Checkpointer
+from rcgan_tpu_torch.parallel.mesh import join_app_group, spawn_app
+from rcgan_tpu_torch.train.checkpoint import Checkpointer, load_payload
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
 from rcgan_tpu_torch.train.failures import (PreemptionGuard, fault_injection_step,
                                             maybe_inject_fault)
@@ -58,8 +70,6 @@ from rcgan_tpu_torch.utils.profiling import PhaseClock
 from rcgan_tpu_torch.utils.summary import SummaryWriter
 
 log = logging.getLogger(__name__)
-
-ROADMAP = "see ROADMAP.md, Queue 1"
 
 
 def build_configs(flags, n_devices: int):
@@ -186,44 +196,86 @@ def _learned_confusion(ts) -> np.ndarray:
     return torch.softmax(logits.detach().float(), dim=-1).cpu().numpy()
 
 
+def _scorers(flags, train_split, dev_split, dev, clock):
+    """``(eval classifier, inception logits function)``: the pinned eval
+    classifier, and the inception scorer, Inception-v3 (the paper's
+    11.31-anchor scale) where its weights lie at
+    ``<data_dir>/inception_v3.npz``, else the compact stand-in classifier
+    (self-consistent, not on the paper's scale)."""
+    t = time.perf_counter()
+    eval_cls = get_eval_classifier(train_split, dev_split, flags.parent_dir,
+                                   flags.eval_train_size, dev)
+    clock.add("classifier", time.perf_counter() - t)
+    iv3_path = inception_v3.find_weights(flags.data_dir)
+    if iv3_path is None:
+        log.info("inception scorer: compact stand-in (drop inception_v3.npz into %s for "
+                 "paper-scale scores)", flags.data_dir)
+        return eval_cls, eval_cls.logits
+    iv3_params = inception_v3.load_weights(iv3_path)
+    inception_v3.validate_weights(iv3_params)
+    log.info("inception scorer: Inception-v3 from %s (paper-scale; real-CIFAR anchor ~11.31, "
+             "inception_score_.py:82)", iv3_path)
+    return eval_cls, inception_v3.make_logits_fn(iv3_params, device=dev)
+
+
 def main(argv=None, device="cuda", stats: Optional[dict] = None):
     """Run the experiment that ``argv`` describes on ``device``; returns
     ``(train_state, final_gen_label_acc)``.  ``stats``, when given, receives
     host seconds and counts by phase (``"train"``: seconds and cycles;
     ``"inception"``, ``"dev_cost"``, ``"samples"``, ``"gen_label_acc"``,
-    ``"checkpoint_save"``, ``"restore"``, ``"classifier"``, ``"data"``)."""
+    ``"checkpoint_save"``, ``"restore"``, ``"classifier"``, ``"data"``).
+    On more than one device (module doc) every rank returns its train
+    state, rank 0 the accuracy and the others None; a process that spawned
+    the ranks returns rank 0's state, on ``device``, and accuracy."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     flags = flagslib.parse(flagslib.cifar_flags(), argv)
-    # force=True: a logger configured earlier (a test runner, an import)
-    # would otherwise turn this into a no-op and lose the log file
-    logging.basicConfig(filename=flags.log_file,
-                        level=logging.DEBUG if flags.log_level == "debug" else logging.INFO,
-                        format="%(asctime)s %(levelname)-8s %(message)s", force=True)
     dev = resolve_device(device)
-    clock = PhaseClock(stats, dev)
 
     # --ngpus sets the device count (gan_resnet.py:53,183-192) unless
     # --mesh_devices overrides; capped at the devices present, as JAX caps it
     available = torch.cuda.device_count() if dev.type == "cuda" else 1
     n_devices = flags.mesh_devices or min(flags.ngpus, available)
-    if not flags.mesh_devices and flags.ngpus > available:
+    capped = not flags.mesh_devices and flags.ngpus > available
+    group = join_app_group(n_devices, device)
+    cfg, acfg, tcfg, batch_size, iters = build_configs(flags, n_devices)
+    dtype = torch.bfloat16 if flags.compute_dtype == "bfloat16" else torch.float32
+    c_alpha = one_coin_matrix(flags.alpha, 10)
+    if group is None and n_devices > 1:  # the ranks, spawned here
+        payload, acc, rank0_stats = spawn_app(main, argv, n_devices, dev, stats is not None)
+        if stats is not None:
+            stats.update(rank0_stats)
+        ts = CifarTrainer(cfg, acfg, tcfg, c_alpha, device=dev, compute_dtype=dtype).init()
+        load_payload(ts, payload)
+        return ts, acc
+    if group is not None:
+        dev = group.device
+    main_rank = group is None or group.is_main
+    # force=True: a logger configured earlier (a test runner, an import)
+    # would otherwise turn this into a no-op and lose the log file; rank 0
+    # alone writes it
+    logging.basicConfig(filename=flags.log_file if main_rank else None,
+                        level=(logging.DEBUG if flags.log_level == "debug" else logging.INFO)
+                        if main_rank else logging.WARNING,
+                        format="%(asctime)s %(levelname)-8s %(message)s", force=True)
+    clock = PhaseClock(stats, dev)
+    if capped:
         log.warning("--ngpus %d exceeds available devices (%d); using %d", flags.ngpus,
                     available, n_devices)
-    if n_devices > 1:
-        raise NotImplementedError(f"training on {n_devices} devices is not ported: the port "
-                                  f"trains on one device ({ROADMAP}, parallel training)")
-    cfg, acfg, tcfg, batch_size, iters = build_configs(flags, n_devices)
 
-    c_alpha = one_coin_matrix(flags.alpha, 10)
-    if flags.expt_dir is not None:
-        run_path = os.path.join(flags.parent_dir, flags.expt_dir)
-    else:
-        run_path = run_dir_lib.cifar_run_dir(flags.parent_dir, flags.algorithm, flags.alpha,
-                                             flags.run)
-    os.makedirs(run_path, exist_ok=True)
-    run_dir_lib.record_setting(run_path, vars(flags))
+    run_path = None
+    if main_rank:
+        if flags.expt_dir is not None:
+            run_path = os.path.join(flags.parent_dir, flags.expt_dir)
+        else:
+            run_path = run_dir_lib.cifar_run_dir(flags.parent_dir, flags.algorithm,
+                                                 flags.alpha, flags.run)
+        os.makedirs(run_path, exist_ok=True)
+        run_dir_lib.record_setting(run_path, vars(flags))
+    if group is not None:
+        run_path = group.broadcast_object(run_path)
     ckpt_dir = os.path.join(run_path, "checkpoint")
-    log.info("alpha = %s; run dir %s; device %s; batch %d; iters %d", flags.alpha, run_path,
-             dev, batch_size, iters)
+    log.info("alpha = %s; run dir %s; device %s; %d device(s); batch %d; iters %d",
+             flags.alpha, run_path, dev, n_devices, batch_size, iters)
 
     t = time.perf_counter()
     train_split, dev_split = cifar_data.load(
@@ -233,16 +285,15 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
         noise_seed=flags.seed)  # replication knob; 0 = the archived stream
     clock.add("data", time.perf_counter() - t)
 
-    dtype = torch.bfloat16 if flags.compute_dtype == "bfloat16" else torch.float32
     device_dataset = dev_device_dataset = None
     if flags.device_data:
         device_dataset = cifar_data.device_dataset_of(train_split.arrays(), dev)
         dev_device_dataset = cifar_data.device_dataset_of(dev_split.arrays(), dev)
     trainer = CifarTrainer(cfg, acfg, tcfg, c_alpha, device=dev, compute_dtype=dtype,
-                           device_dataset=device_dataset)
+                           device_dataset=device_dataset, group=group)
     ts = trainer.init(flags.seed)
 
-    ckpt = Checkpointer(ckpt_dir)
+    ckpt = Checkpointer(ckpt_dir, group=group)
     if flags.restore:
         t = time.perf_counter()
         restored = ckpt.restore(ts)
@@ -253,26 +304,11 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
             ts = restored
 
     metrics = MetricLogger()
-    tb = SummaryWriter(ckpt_dir)  # the reference writes summaries to CHECKPOINT_DIR
-    t = time.perf_counter()
-    eval_cls = get_eval_classifier(train_split, dev_split, flags.parent_dir,
-                                   flags.eval_train_size, dev)
-    clock.add("classifier", time.perf_counter() - t)
-
-    # the inception scorer: Inception-v3 (the paper's 11.31-anchor scale)
-    # where its weights lie at <data_dir>/inception_v3.npz, else the compact
-    # stand-in classifier (self-consistent, not on the paper's scale)
-    iv3_path = inception_v3.find_weights(flags.data_dir)
-    if iv3_path is not None:
-        iv3_params = inception_v3.load_weights(iv3_path)
-        inception_v3.validate_weights(iv3_params)
-        inception_logits_fn = inception_v3.make_logits_fn(iv3_params, device=dev)
-        log.info("inception scorer: Inception-v3 from %s (paper-scale; real-CIFAR anchor "
-                 "~11.31, inception_score_.py:82)", iv3_path)
-    else:
-        inception_logits_fn = eval_cls.logits
-        log.info("inception scorer: compact stand-in (drop inception_v3.npz into %s for "
-                 "paper-scale scores)", flags.data_dir)
+    # the reference writes summaries to CHECKPOINT_DIR
+    tb = SummaryWriter(ckpt_dir if main_rank else None)
+    eval_cls = inception_logits_fn = None
+    if main_rank:  # the evals run on rank 0
+        eval_cls, inception_logits_fn = _scorers(flags, train_split, dev_split, dev, clock)
 
     if flags.device_data:
         d_iter = infinite_index_batches(train_split, batch_size, tcfg.n_critic)
@@ -304,7 +340,8 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
 
         ts, _ = trainer.step(ts, next(d_iter), next(g_iter), ts.step,
                              trng.fold_in(train_seed, ts.step))
-        with trace(os.path.join(run_path, "profile")):
+        # every rank steps (the collectives), rank 0 traces
+        with trace(os.path.join(run_path, "profile")) if main_rank else contextlib.nullcontext():
             for _ in range(flags.profile_steps):
                 ts, m = trainer.step(ts, next(d_iter), next(g_iter), ts.step,
                                      trng.fold_in(train_seed, ts.step))
@@ -319,10 +356,28 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
 
     def cadence_events(iteration, m):
         """Everything the reference's loop does at an iteration after its
-        step (``gan_resnet.py:949-1007``): tb scalars, inception score, dev
-        cost and sample grid, gen-label accuracy, flush and checkpoint.
-        Called every iteration by the per-cycle path and at block ends by
-        the block path, whose blocks end on every cadence iteration."""
+        step (``gan_resnet.py:949-1007``): the evals (on rank 0), then the
+        flush (rank 0) and the checkpoint (every rank calls it, rank 0
+        writes).  Called every iteration by the per-cycle path and at block
+        ends by the block path, whose blocks end on every cadence
+        iteration."""
+        if main_rank:
+            evals(iteration, m)
+        if (iteration < 500) or (iteration % 1000 == 999):
+            # the reference's cadence (gan_resnet.py:1007): flush and save
+            # every early iteration, early saves throttled by
+            # --ckpt_early_every; curves rendered periodically
+            if main_rank:
+                metrics.dir_flush(run_path,
+                                  render=(iteration % 100 == 99 or iteration == iters - 1))
+            if iteration >= 500 or iteration % max(1, flags.ckpt_early_every) == 0:
+                t = time.perf_counter()
+                ckpt.save(iteration, ts)
+                clock.add("checkpoint_save", time.perf_counter() - t)
+
+    def evals(iteration, m):
+        """tb scalars, inception score, dev cost and sample grid,
+        gen-label accuracy."""
         if iteration % 100 == 0:
             tb.scalar("D_wgan_cost", m["d_cost"], iteration)
             tb.scalar("G_wgan_cost", m["g_cost"], iteration)
@@ -410,16 +465,6 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
                          "identity" if rep["perm_is_identity"] else rep["perm"].tolist())
             clock.add("gen_label_acc", time.perf_counter() - t)
 
-        if (iteration < 500) or (iteration % 1000 == 999):
-            # the reference's cadence (gan_resnet.py:1007): flush and save
-            # every early iteration, early saves throttled by
-            # --ckpt_early_every; curves rendered periodically
-            metrics.dir_flush(run_path, render=(iteration % 100 == 99 or iteration == iters - 1))
-            if iteration >= 500 or iteration % max(1, flags.ckpt_early_every) == 0:
-                t = time.perf_counter()
-                ckpt.save(iteration, ts)
-                clock.add("checkpoint_save", time.perf_counter() - t)
-
     def next_cadence_stop(i):
         """The smallest iteration >= i at which cadence_events must see the
         live train state: the %100 logs, the eval cadences, the optional
@@ -437,11 +482,15 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
         stops.append(iters - 1)
         return min(s for s in stops if s >= i)
 
-    use_scan = flags.device_data and flags.scan_block and flags.scan_block > 1
+    use_scan = (flags.device_data and group is None and flags.scan_block
+                and flags.scan_block > 1)
     iteration = start_iter
     try:
         while iteration < iters:
-            if guard.should_stop():
+            # ranks stop together: a signal one rank saw is shared every 50
+            # cycles (a host sync)
+            if guard.should_stop() if group is None else (
+                    iteration % 50 == 0 and group.any(guard.should_stop())):
                 log.warning("preemption requested: checkpointing at iter %d and exiting",
                             iteration)
                 ckpt.save(iteration, ts)
@@ -498,6 +547,10 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
         guard.uninstall()
         raise
 
+    if not main_rank:
+        ckpt.close()  # every rank waits for rank 0's last write
+        guard.uninstall()
+        return ts, None
     # final gen-label accuracy, optionally permutation-corrected
     # (gan_resnet.py:1021-1035); with the correction both numbers are logged
     samples, labels = make_samples(1000)

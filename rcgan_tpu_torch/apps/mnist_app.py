@@ -14,8 +14,15 @@ final label recovery with ``recovery.txt`` and
 Flags, cadences and file layout are the JAX app's.  What differs:
 
 - The app runs on the card; ``main(argv, device="cpu")`` runs it on the CPU
-  (the tests do).  One device only: ``--mesh_devices`` above 1 raises (see
-  ROADMAP.md, parallel training).
+  (the tests do).
+- ``--mesh_devices N`` (0: every card present) trains data-parallel as
+  JAX's mesh does, one process per rank (:mod:`rcgan_tpu_torch.parallel.mesh`),
+  each on its rows of every batch of ``--batch_size``: under ``torchrun
+  --nproc_per_node N`` the app joins the launcher's group; alone it spawns
+  its ranks (NCCL on ``cuda:0`` to ``cuda:N-1``, gloo ranks on the CPU with
+  ``device="cpu"``).  Rank 0 alone writes the run dir, the samples, the
+  log, the checkpoints and the recovery; the ranks step iteration by
+  iteration (no blocks), as JAX's mesh path.
 - With ``--device_data`` (the default) the epoch runs in blocks of 50
   iterations over the dataset resident on the device
   (``MnistTrainer.step_scan``); iteration ``i`` takes the seed
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import logging
 import os
+import sys
 import time
 from typing import Optional
 
@@ -47,7 +55,8 @@ from rcgan_tpu_torch.evals.recover import (RecoverConfig, recover_labels,
                                            render_wrong_image_diagnostics)
 from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.checkpoint import Checkpointer
+from rcgan_tpu_torch.parallel.mesh import join_app_group, spawn_app
+from rcgan_tpu_torch.train.checkpoint import Checkpointer, load_payload
 from rcgan_tpu_torch.train.failures import PreemptionGuard
 from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer, dataset_to_device
 from rcgan_tpu_torch.train.state import trainable
@@ -112,7 +121,9 @@ def _learned_confusion(ts) -> np.ndarray:
 
 def train(flags, trainer: MnistTrainer, ts, data: mnist_data.MnistData, ckpt: Checkpointer,
           sample_dir: str, eval_cls, metrics: MetricLogger, clock: PhaseClock):
-    tb = SummaryWriter(flags.logs_dir)
+    group = trainer.group
+    main_rank = group is None or group.is_main
+    tb = SummaryWriter(flags.logs_dir if main_rank else None)
     dev = trainer.device
     bs = flags.batch_size
     n = min(len(data), int(flags.train_size) if np.isfinite(flags.train_size) else len(data))
@@ -132,7 +143,8 @@ def train(flags, trainer: MnistTrainer, ts, data: mnist_data.MnistData, ckpt: Ch
     start = time.time()
     try:
         for epoch in range(flags.epoch):
-            if guard.should_stop():
+            # with a group, the ranks stop together
+            if guard.should_stop() if group is None else group.any(guard.should_stop()):
                 log.warning("preemption requested: checkpointing at epoch %d and exiting", epoch)
                 ckpt.save(counter, ts)
                 break
@@ -164,18 +176,19 @@ def train(flags, trainer: MnistTrainer, ts, data: mnist_data.MnistData, ckpt: Ch
                 tb.histogram("d_", m_at["prob_fake"], counter)
 
             def sample_and_ckpt(counter, idx):
-                t = time.perf_counter()
-                samples = trainer.sample(ts, sample_z, sample_y).cpu().numpy()
-                save_images(samples, image_manifold_size(samples.shape[0]),
-                            os.path.join(sample_dir, f"train_{epoch:02d}_{idx:04d}.png"))
-                tb.image("G", merge(samples, image_manifold_size(samples.shape[0]))[..., None],
-                         counter)
-                clock.add("samples", time.perf_counter() - t)
+                if main_rank:
+                    t = time.perf_counter()
+                    samples = trainer.sample(ts, sample_z, sample_y).cpu().numpy()
+                    save_images(samples, image_manifold_size(samples.shape[0]),
+                                os.path.join(sample_dir, f"train_{epoch:02d}_{idx:04d}.png"))
+                    tb.image("G", merge(samples, image_manifold_size(samples.shape[0]))[..., None],
+                             counter)
+                    clock.add("samples", time.perf_counter() - t)
                 t = time.perf_counter()
                 ckpt.save(counter, ts)
                 clock.add("checkpoint_save", time.perf_counter() - t)
 
-            if flags.device_data:
+            if flags.device_data and group is None:
                 # the whole split resident on the device; blocks of 50
                 # iterations gathered there; only the labels change across
                 # epochs, and only under --add_noise
@@ -237,7 +250,8 @@ def train(flags, trainer: MnistTrainer, ts, data: mnist_data.MnistData, ckpt: Ch
                     if counter % SAMPLE_EVERY == 1:
                         sample_and_ckpt(counter, idx)
 
-            if (epoch + 1) % 5 == 0:  # gen-label-acc every 5 epochs (model.py:473-491)
+            if main_rank and (epoch + 1) % 5 == 0:  # gen-label-acc every 5 epochs
+                # (model.py:473-491)
                 t = time.perf_counter()
                 # every sample batch issued on the device, one classification
                 samps = [trainer.sample(ts, np.random.RandomState(1000 + i).uniform(
@@ -267,10 +281,13 @@ def train(flags, trainer: MnistTrainer, ts, data: mnist_data.MnistData, ckpt: Ch
 
 def main(argv=None, device="cuda", stats: Optional[dict] = None):
     """Run the experiment that ``argv`` describes on ``device``; returns
-    ``(train_state, recovery_metrics)``.  ``stats``, when given, receives
+    ``(train_state, recovery_metrics)`` (on more than one device, rank 0's
+    metrics, None on the other ranks; a process that spawned the ranks
+    returns rank 0's state, on ``device``, and metrics).  ``stats``, when given, receives
     host seconds and counts by phase (``"train"``: seconds and iterations;
     ``"data"``, ``"classifier"``, ``"restore"``, ``"samples"``,
     ``"checkpoint_save"``, ``"gen_label_acc"``, ``"recovery"``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     flags = flagslib.parse(flagslib.mnist_flags(), argv)
     flags.input_height = flags.output_height = 28
     flags.input_width = flags.input_width or 28
@@ -286,22 +303,37 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
     dev = resolve_device(device)
     available = torch.cuda.device_count() if dev.type == "cuda" else 1
     n_devices = flags.mesh_devices or available
-    if n_devices > 1:
-        raise NotImplementedError(f"training on {n_devices} devices is not ported: the port "
-                                  "trains on one device (see ROADMAP.md, Queue 1, parallel "
-                                  "training)")
+    group = join_app_group(n_devices, device)
+    cfg, acfg, tcfg = build_configs(flags)
+    dtype = torch.bfloat16 if flags.compute_dtype == "bfloat16" else torch.float32
+    if group is None and n_devices > 1:  # the ranks, spawned here
+        payload, rec_metrics, rank0_stats = spawn_app(main, argv, n_devices, dev,
+                                                      stats is not None)
+        if stats is not None:
+            stats.update(rank0_stats)
+        ts = MnistTrainer(cfg, acfg, tcfg, one_coin_matrix(flags.alpha, 10), device=dev,
+                          compute_dtype=dtype).init(flags.seed)
+        load_payload(ts, payload)
+        return ts, rec_metrics
+    if group is not None:
+        dev = group.device
+    main_rank = group is None or group.is_main
     clock = PhaseClock(stats, dev)
 
-    prefix = "" if flags.dir_prefix is None else flags.dir_prefix + "_"
-    if flags.checkpoint is None:
-        run_path = run_dir_lib.mnist_run_dir(flags.checkpoint_dir, prefix, flags.algorithm,
-                                             flags.alpha, flags.disc_type)
-    else:
-        run_path = os.path.join(flags.checkpoint_dir, flags.checkpoint)
+    run_path = None
+    if main_rank:
+        prefix = "" if flags.dir_prefix is None else flags.dir_prefix + "_"
+        if flags.checkpoint is None:
+            run_path = run_dir_lib.mnist_run_dir(flags.checkpoint_dir, prefix, flags.algorithm,
+                                                 flags.alpha, flags.disc_type)
+        else:
+            run_path = os.path.join(flags.checkpoint_dir, flags.checkpoint)
+        os.makedirs(os.path.join(run_path, "samples"), exist_ok=True)
+        run_dir_lib.record_setting(run_path, vars(flags), script_file=flags.script_file)
+    if group is not None:
+        run_path = group.broadcast_object(run_path)
     sample_dir = os.path.join(run_path, "samples")
-    os.makedirs(sample_dir, exist_ok=True)
-    run_dir_lib.record_setting(run_path, vars(flags), script_file=flags.script_file)
-    logging.basicConfig(level=logging.INFO, force=True)
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING, force=True)
     if flags.logs_at_ckpt:
         flags.logs_dir = run_path
     log.info("run dir: %s; device %s", run_path, dev)
@@ -313,17 +345,19 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
     clock.add("data", time.perf_counter() - t)
     log.info("C=\n%s\nC_inv=\n%s", data.confusion, data.confusion_inv)
 
-    cfg, acfg, tcfg = build_configs(flags)
-    dtype = torch.bfloat16 if flags.compute_dtype == "bfloat16" else torch.float32
-    trainer = MnistTrainer(cfg, acfg, tcfg, data.confusion, device=dev, compute_dtype=dtype)
+    trainer = MnistTrainer(cfg, acfg, tcfg, data.confusion, device=dev, compute_dtype=dtype,
+                           group=group)
     ts = trainer.init(flags.seed)
-    show_all_variables(param_tree(ts.gan))  # the parameter census (mnist/utils.py:21-23)
+    if main_rank:
+        show_all_variables(param_tree(ts.gan))  # the parameter census (mnist/utils.py:21-23)
 
-    ckpt = Checkpointer(os.path.join(run_path, "ckpt"))
+    ckpt = Checkpointer(os.path.join(run_path, "ckpt"), group=group)
     metrics = MetricLogger()
-    t = time.perf_counter()
-    eval_cls = get_eval_classifier(data, flags.checkpoint_dir, flags.eval_train_size, dev)
-    clock.add("classifier", time.perf_counter() - t)
+    eval_cls = None
+    if main_rank:  # the evals run on rank 0
+        t = time.perf_counter()
+        eval_cls = get_eval_classifier(data, flags.checkpoint_dir, flags.eval_train_size, dev)
+        clock.add("classifier", time.perf_counter() - t)
 
     try:
         t = time.perf_counter()
@@ -340,6 +374,8 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
             ts = restored
     finally:
         ckpt.close()
+    if not main_rank:
+        return ts, None
     metrics.dir_flush(run_path)
 
     def sample_np(z, y):

@@ -65,14 +65,17 @@ class CycleSeeds:
     dequant: np.ndarray     # [n_critic, B] int32 per-row dequantisation seeds
 
 
-def cycle_seeds(seed: int, n_critic: int, batch: int) -> CycleSeeds:
+def cycle_seeds(seed: int, n_critic: int, batch: int, start: int = 0) -> CycleSeeds:
     """Every seed of one cycle from the cycle's ``seed``, laid out as JAX's
     ``_cycle`` splits its key: ``fold_in(seed, 1)`` for the G step and
-    ``fold_in(seed, 2)`` split over the critic steps."""
+    ``fold_in(seed, 2)`` split over the critic steps.  The dequantisation
+    seeds are those of the global rows ``[start, start + batch)``: a
+    data-parallel rank's rows."""
     d_key = fold_in(seed, 2)
     keys = [fold_in(d_key, k) for k in range(n_critic)]
     return CycleSeeds(g_z=fold_in(seed, 1), d_z=[fold_in(k, 0) for k in keys],
-                      dequant=np.stack([example_seeds(fold_in(k, 1), batch) for k in keys]))
+                      dequant=np.stack([example_seeds(fold_in(k, 1), batch, start)
+                                        for k in keys]))
 
 
 def _mix_device(x: torch.Tensor) -> torch.Tensor:

@@ -55,11 +55,14 @@ class CifarSplit:
     def __len__(self):
         return len(self.images)
 
-    def epoch(self, batch_size: int) -> Iterator[tuple]:
+    def epoch(self, batch_size: int, shard: Tuple[int, int] = (0, 1)) -> Iterator[tuple]:
         """The reference's ``get_epoch``: contiguous batches in order, the
-        last partial one dropped."""
+        last partial one dropped.  ``shard=(i, n)`` yields the ``i``-th of
+        ``n`` contiguous shards of every batch (a rank's rows), as JAX's."""
+        i, n = shard
+        per = batch_size // n
         for b in range(len(self.images) // batch_size):
-            sl = slice(b * batch_size, (b + 1) * batch_size)
+            sl = slice(b * batch_size + i * per, b * batch_size + (i + 1) * per)
             yield (self.images[sl], self.labels[sl], self.labels_random[sl],
                    self.labels_biased[sl], self.labels_inv_weights[sl])
 

@@ -15,12 +15,15 @@ What carries over unchanged in behaviour:
 
 What differs:
 
-- CIFAR weights come from ``<checkpoint_dir>/generator.npz`` (written from
-  an orbax checkpoint by ``scripts/export_generator_npz.py``) plus the
-  run's ``config.json``; MNIST and PGGAN weights from the port's own
-  checkpoint of an ``apps/mnist_app.py`` or ``apps/pggan_app.py`` run
-  (``<run>/ckpt``, ``train_state.pt``), as JAX's ``"mnist"`` and
-  ``"pggan"`` branches restore their trainer's checkpoint;
+- weights come from the port's own checkpoints, as JAX's sampler restores
+  its trainers' (``<run>/checkpoint`` of an ``apps/cifar_app.py`` run,
+  ``<run>/ckpt`` of an ``apps/mnist_app.py`` or ``apps/pggan_app.py`` run;
+  ``train_state.pt``), into a train state built from the run's
+  ``config.json`` and ``--algorithm``: an rcgan-u CIFAR run carries the
+  ``confusion`` group, and ``perm_classifier`` the perm classifier.  A JAX
+  CIFAR run is served from ``<dir>/generator.npz`` (written from its orbax
+  checkpoint by ``scripts/export_generator_npz.py``, where JAX runs), the
+  route taken where ``<dir>`` holds that file;
 - the MNIST sampler draws U[-1, 1] latents and runs G with BN in inference
   mode; its sigmoid output is already in [0, 1];
 - the PGGAN sampler runs G at the schedule's last stage
@@ -41,7 +44,7 @@ cuBLAS matmuls), so float32 serving is float32 throughout, as it is in
 JAX.
 
 CLI:  python -m rcgan_tpu_torch.serving --model {cifar,mnist,pggan} --checkpoint_dir D \\
-        [--labels 0,1,2 --n 100 --out grid.png] [--serve --port 8321] \\
+        [--algorithm A] [--labels 0,1,2 --n 100 --out grid.png] [--serve --port 8321] \\
         [--register name=cifar:dir ...] [--auth_token TOK] \\
         [--coalesce_wait_ms 4] [--device cuda]
 """
@@ -68,12 +71,47 @@ from rcgan_tpu_torch.utils.images import encode_png, merge
 DEFAULT_BUCKETS = (1, 8, 32, 100)
 
 
+def _restore_latest(trainer, checkpoint_dir: str):
+    """The latest checkpoint under ``checkpoint_dir`` restored into a fresh
+    train state of ``trainer``; ``FileNotFoundError`` when there is none."""
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+
+    ts = trainer.init()
+    restored = Checkpointer(checkpoint_dir).restore(ts) if os.path.isdir(checkpoint_dir) \
+        else None
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+    return restored
+
+
+def _cifar_generator(checkpoint_dir: str, run_cfg: dict, pick, device) -> Generator:
+    """The generator of the latest checkpoint of a CIFAR app run under
+    ``checkpoint_dir`` (``<run>/checkpoint``), float32, in a train state
+    built as JAX's ``"cifar"`` branch builds its template: the algorithm
+    (the run's, or the override) decides the ``confusion`` group,
+    ``perm_classifier`` the perm classifier, ``opt_moment_dtype`` the Adam
+    moments' dtype."""
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.data.confusion import one_coin_matrix
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    mkw = pick(ResnetGANConfig)
+    mkw.setdefault("algorithm", "rcgan")
+    cfg = ResnetGANConfig(**mkw)
+    akw = pick(CifarAlgoConfig)
+    akw["algorithm"] = cfg.algorithm
+    tcfg = CifarTrainConfig(moment_dtype=run_cfg.get("opt_moment_dtype"))
+    # the true C plays no part in sampling
+    trainer = CifarTrainer(cfg, CifarAlgoConfig(**akw), tcfg, one_coin_matrix(0.6, 10),
+                           device=device)
+    return _restore_latest(trainer, checkpoint_dir).gan.G
+
+
 def _mnist_generator(checkpoint_dir: str, run_cfg: dict, pick, device) -> "dcgan.Generator":
     """The generator of the latest MNIST checkpoint under ``checkpoint_dir``
     (``train/checkpoint.py`` layout), in a train state built from the run's
     flags (JAX's ``from_checkpoint`` ``"mnist"`` branch)."""
     from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
-    from rcgan_tpu_torch.train.checkpoint import Checkpointer
     from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
 
     mkw = pick(dcgan.DCGANConfig)
@@ -86,26 +124,19 @@ def _mnist_generator(checkpoint_dir: str, run_cfg: dict, pick, device) -> "dcgan
     # the true C plays no part in sampling
     trainer = MnistTrainer(dcgan.DCGANConfig(**mkw), MnistAlgoConfig(**akw), MnistTrainConfig(),
                            np.eye(10, dtype=np.float32), device=device)
-    restored = Checkpointer(checkpoint_dir).restore(trainer.init())
-    if restored is None:
-        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
-    return restored.gan.G
+    return _restore_latest(trainer, checkpoint_dir).gan.G
 
 
 def _pggan_generator(checkpoint_dir: str, pick, device) -> "pggan.Generator":
     """The generator of the latest PGGAN checkpoint under ``checkpoint_dir``
     (``apps/pggan_app.py``'s phase checkpoints), in a train state built from
     the run's ``PGGANConfig`` fields, float32 (JAX's ``"pggan"`` branch)."""
-    from rcgan_tpu_torch.train.checkpoint import Checkpointer
     from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
 
     cfg = pggan.PGGANConfig(**pick(pggan.PGGANConfig))
     base = ResnetGANConfig(dim_g=cfg.dim, dim_d=cfg.dim, z_dim=cfg.z_dim)
     trainer = PGGANTrainer(cfg, base, PGGANTrainConfig(), device=device)
-    restored = Checkpointer(checkpoint_dir).restore(trainer.init())
-    if restored is None:
-        raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
-    return restored.gan.G
+    return _restore_latest(trainer, checkpoint_dir).gan.G
 
 
 def _load_run_config(checkpoint_dir: str) -> dict:
@@ -150,11 +181,13 @@ class Sampler:
                         **overrides):
         """Config resolution, lowest to highest precedence: the config
         dataclasses' defaults < the run's archived ``config.json`` (found
-        next to ``checkpoint_dir``) < explicit ``overrides``.  ``cifar``
-        loads ``<checkpoint_dir>/generator.npz``; ``mnist`` and ``pggan``
-        restore the latest checkpoint of such a run under
-        ``checkpoint_dir`` and keep its generator, float32.
-        ``device="cuda"`` without a card raises."""
+        next to ``checkpoint_dir``) < explicit ``overrides`` (such as
+        ``algorithm=``).  Each model restores the latest checkpoint of its
+        app's run under ``checkpoint_dir`` and keeps its generator,
+        float32; ``cifar`` loads ``<checkpoint_dir>/generator.npz`` (a JAX
+        run's, exported) instead where that file exists.  No checkpoint
+        raises ``FileNotFoundError``; ``device="cuda"`` without a card
+        raises."""
         run_cfg = dict(_load_run_config(checkpoint_dir))
         run_cfg.update(overrides)
 
@@ -168,12 +201,16 @@ class Sampler:
             return cls(_pggan_generator(checkpoint_dir, pick, device), buckets)
         if model != "cifar":
             raise ValueError(f"unknown model {model!r}")
-        cfg = ResnetGANConfig(**pick(ResnetGANConfig))
         path = os.path.join(checkpoint_dir, "generator.npz")
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"no generator.npz under {checkpoint_dir} (export one "
-                                    "with scripts/export_generator_npz.py)")
-        return cls(generator_from_jax(load_npz(path), cfg, device), buckets)
+        if os.path.exists(path):  # a JAX run's generator
+            cfg = ResnetGANConfig(**pick(ResnetGANConfig))
+            return cls(generator_from_jax(load_npz(path), cfg, device), buckets)
+        try:
+            return cls(_cifar_generator(checkpoint_dir, run_cfg, pick, device), buckets)
+        except FileNotFoundError:
+            raise FileNotFoundError(f"no checkpoint of a CIFAR app run and no generator.npz "
+                                    f"under {checkpoint_dir} (a JAX run's: export it with "
+                                    "scripts/export_generator_npz.py)") from None
 
     # ----------------------------------------------------------- internals
     def check_labels(self, labels: Sequence[int]) -> np.ndarray:
@@ -566,15 +603,18 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="rcgan_tpu_torch sampler")
     p.add_argument("--model", choices=["mnist", "cifar", "pggan"], required=True)
     p.add_argument("--checkpoint_dir", required=True,
-                   help="cifar: the directory holding generator.npz; mnist, pggan: the "
-                        "run's ckpt directory (config.json here or up to two levels "
-                        "above)")
+                   help="the run's checkpoint directory (cifar: <run>/checkpoint, or a "
+                        "directory holding generator.npz; mnist, pggan: <run>/ckpt), with "
+                        "config.json here or up to two levels above")
     p.add_argument("--labels", default=None, help="comma-separated class ids")
     p.add_argument("--n", type=int, default=100)
     p.add_argument("--out", default="samples.png")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--serve", action="store_true", help="run the HTTP endpoint")
     p.add_argument("--port", type=int, default=8321)
+    p.add_argument("--algorithm", default=None,
+                   help="override the checkpoint's training algorithm (usually "
+                        "auto-detected from the run's config.json)")
     p.add_argument("--register", action="append", default=[],
                    metavar="NAME=MODEL:CKPT_DIR",
                    help="register extra models on the HTTP registry (repeatable)")
@@ -586,7 +626,9 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     args = p.parse_args(argv)
 
-    sampler = Sampler.from_checkpoint(args.model, args.checkpoint_dir, device=args.device)
+    overrides = {} if args.algorithm is None else {"algorithm": args.algorithm}
+    sampler = Sampler.from_checkpoint(args.model, args.checkpoint_dir, device=args.device,
+                                      **overrides)
 
     if args.serve:
         registry = {"default": sampler}

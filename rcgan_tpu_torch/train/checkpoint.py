@@ -13,8 +13,16 @@ at once (the only part that waits on the device) and written by a
 background thread; :meth:`Checkpointer.close` and every read wait for it.
 
 ``optimistic_restore`` loads what matches by name and shape
-(``common/misc.py:275-307``).  JAX's ``restore_sharded`` (a GSPMD-sharded
-state onto a device mesh) waits for the parallel slice (ROADMAP.md).
+(``common/misc.py:275-307``).
+
+Under data parallelism (``group=``, a
+:class:`~rcgan_tpu_torch.parallel.mesh.DataGroup`) the state is replicated:
+rank 0 alone copies it to the host and writes it, every rank calls
+``save``, ``restore`` and ``close`` at the same points, and
+:meth:`Checkpointer.wait` ends at a barrier of all ranks, so that no rank
+reads a step while rank 0 still writes it; every rank restores the same
+whole state.  JAX's ``restore_sharded`` (a GSPMD-sharded state onto a
+device mesh) is not ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -22,12 +30,15 @@ from __future__ import annotations
 import os
 import shutil
 import threading
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
 from rcgan_tpu_torch.core.module import scoped_modules, state_tree
 from rcgan_tpu_torch.train.state import TrainState
+
+if TYPE_CHECKING:
+    from rcgan_tpu_torch.parallel.mesh import DataGroup
 
 FILE = "train_state.pt"
 
@@ -120,11 +131,14 @@ def load_payload(ts: TrainState, payload: dict, strict: bool = True) -> int:
 
 class Checkpointer:
     """``save``/``restore``/``latest_step``/``close`` over ``directory``,
-    keeping the newest ``max_to_keep`` checkpoints."""
+    keeping the newest ``max_to_keep`` checkpoints.  With ``group``, rank 0
+    writes and every rank waits for it (module doc)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 group: Optional["DataGroup"] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -149,10 +163,13 @@ class Checkpointer:
             self._error = e
 
     def wait(self) -> None:
-        """Finish the save in flight; raise what it raised."""
+        """Finish the save in flight, then, with a group, wait for every
+        rank; raise what the save raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            self.group.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"checkpoint write to {self.directory} failed") from err
@@ -160,11 +177,13 @@ class Checkpointer:
     def save(self, step: int, ts: TrainState, wait: bool = False) -> None:
         """Save ``ts`` as checkpoint ``step``: the device-to-host copy now,
         the write in the background (``wait=True`` or :meth:`close`
-        finishes it)."""
+        finishes it).  With a group, only rank 0 copies and writes."""
         self.wait()
-        payload = state_payload(ts)
-        self._thread = threading.Thread(target=self._write, args=(step, payload), daemon=True)
-        self._thread.start()
+        if self.group is None or self.group.is_main:
+            payload = state_payload(ts)
+            self._thread = threading.Thread(target=self._write, args=(step, payload),
+                                            daemon=True)
+            self._thread.start()
         if wait:
             self.wait()
 
@@ -179,7 +198,10 @@ class Checkpointer:
     def read(self, step: Optional[int] = None) -> Optional[Tuple[int, dict]]:
         """``(step, payload)`` of checkpoint ``step`` (default the latest);
         None when there is none."""
-        step = self.latest_step() if step is None else step
+        if step is None:
+            step = self.latest_step()
+        else:
+            self.wait()
         if step is None:
             return None
         payload = torch.load(os.path.join(self.directory, str(step), FILE), map_location="cpu",

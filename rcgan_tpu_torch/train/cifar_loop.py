@@ -15,7 +15,18 @@ groups it updates, with every other group frozen
 through D without D's weight grads, and a D step runs no backward through
 G, as XLA drops both as dead code in JAX's cycle.
 
-Data parallelism (JAX's ``mesh``) is not ported yet (ROADMAP.md, Queue 1).
+Data parallelism (JAX's ``mesh``) is a
+:class:`~rcgan_tpu_torch.parallel.mesh.DataGroup` (``group=``), one process
+per rank.  Every rank builds the same parameters from the same seed and
+takes the global batches; it runs the cycle on its contiguous rows of the
+index batches ``[n_critic, B]`` and of the generator labels, and draws
+``z``, ``zg`` and the dequantisation noise for those rows by their
+**global** index, so the layout does not change the noise.  Each step means
+its gradients and the state (SN ``u``) over the ranks in one
+``all_reduce`` before its update, as ``pavg`` does at
+``rcgan_tpu/train/cifar_loop.py:167-168,236-237``; the cycle's costs are
+meaned at its end.  Batch norms take their moments per rank, as under
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -34,8 +45,9 @@ from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
                                           dequantize_chw_to_hwc_seeded)
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
+from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
-                                         init_train_state, trainable)
+                                         init_train_state, mean_over_ranks, trainable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,14 +88,18 @@ class CifarTrainer:
 
     ``device_dataset``: the dataset resident on the device, as
     :func:`rcgan_tpu_torch.data.cifar10.device_dataset_of` returns it; the
-    cycle then takes index batches and gathers on the device."""
+    cycle then takes index batches and gathers on the device.  ``group``:
+    the data-parallel group this rank belongs to (JAX's ``mesh``); the
+    trainer then runs on the group's device."""
 
     def __init__(self, cfg: ResnetGANConfig, acfg: CifarAlgoConfig, tcfg: CifarTrainConfig,
                  confusion_actual: np.ndarray, device="cuda",
                  compute_dtype: torch.dtype = torch.float32,
-                 device_dataset: Optional[Dict[str, torch.Tensor]] = None):
+                 device_dataset: Optional[Dict[str, torch.Tensor]] = None,
+                 group: Optional[DataGroup] = None):
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
-        self.device = resolve_device(device)
+        self.group = check_group(group, device)
+        self.device = group.device if group is not None else resolve_device(device)
         self.compute_dtype = compute_dtype
         float32_policy(compute_dtype)
         self.confusion_actual = torch.as_tensor(np.asarray(confusion_actual, np.float32),
@@ -117,9 +133,19 @@ class CifarTrainer:
             out[k] = self._to_device(src[k], torch.int64)
         return out
 
+    def _rows(self, x, dim: int):
+        """This rank's rows of a global batch along ``dim`` (all of them
+        without a group)."""
+        if self.group is None:
+            return x
+        sl = self.group.local_rows(x.shape[dim])
+        return x[sl] if dim == 0 else x[:, sl]
+
     def _d_batches(self, d_batches: Mapping) -> Dict[str, torch.Tensor]:
-        """``[n_critic, B, ...]`` device tensors: gathered from the resident
-        dataset for ``{"index": ...}``, else moved from the host."""
+        """``[n_critic, B, ...]`` device tensors of this rank's rows:
+        gathered from the resident dataset for ``{"index": ...}``, else moved
+        from the host."""
+        d_batches = {k: self._rows(v, 1) for k, v in d_batches.items()}
         if "index" in d_batches:
             if self.device_dataset is None:
                 raise ValueError("index batches need the trainer's device_dataset")
@@ -139,6 +165,7 @@ class CifarTrainer:
         with trainable(ts, names):
             out = ts.gan.gen_loss(g_random, g_biased, zg, self.confusion_actual)
             grads = grads_of(out["gen_cost"], params)
+        mean_over_ranks(self.group, grads, ts)
         n = 0
         for g in names:
             ps = ts.group_params(g)
@@ -156,6 +183,7 @@ class CifarTrainer:
         with trainable(ts, ["disc"]):
             out = ts.gan.disc_loss(sb, z, self.confusion_actual)
             grads = grads_of(out["disc_cost"], params)
+        mean_over_ranks(self.group, grads, ts)
         self.optimizers["disc"].update_(params, grads, ts.opt_states["disc"], lr)
         return out["disc_cost"].detach()
 
@@ -173,27 +201,32 @@ class CifarTrainer:
         ``z [n_critic, B, z_dim]`` and the dequantisation ``u
         [n_critic, B, 3072]`` (CHW order).  Metrics are device tensors:
         ``d_cost`` (the last critic step's), ``d_cost_mean``, ``g_cost``,
-        ``lr``."""
+        ``lr``.  With a group, the batches, labels and ``noise`` are the
+        global ones (every rank is given the same), the rank runs on its
+        rows, and the costs are meaned over the ranks."""
         cfg, tcfg = self.cfg, self.tcfg
         decay = float(lr_decay(iteration, tcfg.decay))
         lr = tcfg.lr * decay
         confuse_lr = tcfg.lr * tcfg.confuse_multiplier * (decay if tcfg.confuse_lr_decay else 1.0)
         batches = self._d_batches(d_batches)
-        b = batches["labels"].shape[1]
-        g_random = self._to_device(g_labels["random"], torch.int64)
-        g_biased = self._to_device(g_labels["biased"], torch.int64)
-        if g_random.shape != (tcfg.gen_bs_multiple * b,):
-            raise ValueError(f"g_labels must be [gen_bs_multiple * B] = "
-                             f"[{tcfg.gen_bs_multiple * b}]; got {tuple(g_random.shape)}")
-        seeds = rng.cycle_seeds(seed, tcfg.n_critic, b)
+        b = batches["labels"].shape[1]  # this rank's rows
+        world, rank = (1, 0) if self.group is None else (self.group.world_size, self.group.rank)
+        gb = tcfg.gen_bs_multiple * b
+        if tuple(np.shape(g_labels["random"])) != (gb * world,):
+            raise ValueError(f"g_labels must be [gen_bs_multiple * B] = [{gb * world}]; got "
+                             f"{tuple(np.shape(g_labels['random']))}")
+        g_random = self._to_device(self._rows(g_labels["random"], 0), torch.int64)
+        g_biased = self._to_device(self._rows(g_labels["biased"], 0), torch.int64)
+        seeds = rng.cycle_seeds(seed, tcfg.n_critic, b, start=rank * b)
         if noise is not None:
-            noise = {k: self._to_device(noise[k], torch.float32) for k in ("zg", "z", "u")}
+            noise = {k: self._to_device(self._rows(noise[k], 0 if k == "zg" else 1),
+                                        torch.float32) for k in ("zg", "z", "u")}
         else:
             q_seeds = torch.from_numpy(seeds.dequant).to(self.device, non_blocking=True)
 
         if iteration > 0:
-            zg = noise["zg"] if noise else rng.example_normal(seeds.g_z, len(g_random),
-                                                              cfg.z_dim, self.device)
+            zg = noise["zg"] if noise else rng.example_normal(seeds.g_z, gb, cfg.z_dim,
+                                                              self.device, rank * gb)
             g_cost = self._g_step(ts, g_random, g_biased, zg, lr, confuse_lr)
         else:  # the reference skips the G step at iteration 0
             g_cost = torch.zeros((), device=self.device)
@@ -208,11 +241,14 @@ class CifarTrainer:
             else:
                 real = dequantize_chw_to_hwc_seeded(batch["images"], q_seeds[k], cfg.img_size,
                                                     cfg.img_dim)
-                z = rng.example_normal(seeds.d_z[k], b, cfg.z_dim, self.device)
+                z = rng.example_normal(seeds.d_z[k], b, cfg.z_dim, self.device, rank * b)
             d_costs.append(self._d_step(ts, batch, real, z, lr))
         ts.step += 1
         d_costs = torch.stack(d_costs)
-        metrics = {"d_cost": d_costs[-1], "d_cost_mean": d_costs.mean(), "g_cost": g_cost,
+        costs = torch.stack([d_costs[-1], d_costs.mean(), g_cost])
+        if self.group is not None:
+            self.group.mean_([costs])
+        metrics = {"d_cost": costs[0], "d_cost_mean": costs[1], "g_cost": costs[2],
                    "lr": torch.full((), lr, device=self.device)}
         return ts, metrics
 
@@ -221,7 +257,10 @@ class CifarTrainer:
         B]``, ``g_random``/``g_biased`` ``[K, gen_bs_multiple * B]``.  Cycle
         ``j`` runs at iteration ``ts.step`` with the seed
         ``fold_in(seed, ts.step)``, as JAX's ``step_scan`` keys it.  Metrics
-        come back stacked ``[K]``."""
+        come back stacked ``[K]``.  One device only: a group steps cycle by
+        cycle (:meth:`step`), as JAX's mesh path does."""
+        if self.group is not None:
+            raise ValueError("step_scan runs on one device; with a group, call step per cycle")
         if self.device_dataset is None:
             raise ValueError("step_scan needs the trainer's device_dataset")
         ms = []
@@ -282,3 +321,4 @@ class CifarTrainer:
         dtype."""
         return sample(ts.gan.G, self._to_device(z, torch.float32),
                       self._to_device(labels, torch.int64))
+

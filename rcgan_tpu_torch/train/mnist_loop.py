@@ -27,7 +27,16 @@ gradients with ``torch.autograd.grad`` with respect to the groups it
 updates, the others frozen (``train/state.py::trainable``): the D step runs
 no backward through G.
 
-Data parallelism (JAX's ``mesh``) is not ported yet (ROADMAP.md, Queue 1).
+Data parallelism (JAX's ``mesh``) is a
+:class:`~rcgan_tpu_torch.parallel.mesh.DataGroup` (``group=``), one process
+per rank, as ``rcgan_tpu/train/mnist_loop.py:83-202`` under ``shard_map``:
+every rank takes the global batch and runs on its contiguous rows, ``z`` is
+drawn for those rows by their **global** index, the gradients and the
+state (BN moving statistics, SN ``u``) are meaned over the ranks after the
+D step's backward and after each G step's, before the update, and the
+max-norm clip after the D update runs on every rank.  The scalar metrics
+are meaned; ``prob_real`` and ``prob_fake`` are gathered to the global
+batch in rank order.  Batch norms take their moments per rank.
 """
 
 from __future__ import annotations
@@ -44,11 +53,13 @@ from rcgan_tpu_torch.core import rng
 from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models.dcgan import DCGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
+from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, apply_constraints,
                                          constraints_of, grads_of, init_train_state,
-                                         trainable)
+                                         mean_over_ranks, trainable)
 
 BATCH_KEYS = ("images", "y_real", "y_gen", "y_fake", "y_real_weights")
+PER_EXAMPLE = ("prob_real", "prob_fake")  # metrics gathered over the ranks, not meaned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,16 +91,16 @@ def new_train_state(cfg: DCGANConfig, acfg: MnistAlgoConfig, tcfg: MnistTrainCon
 
 
 class MnistTrainer:
-    """Builds the train state and runs the iteration on ``device``."""
+    """Builds the train state and runs the iteration on ``device``, or on
+    the device of ``group``, the data-parallel group this rank belongs to
+    (JAX's ``mesh``)."""
 
     def __init__(self, cfg: DCGANConfig, acfg: MnistAlgoConfig, tcfg: MnistTrainConfig,
-                 confusion_actual: np.ndarray, mesh=None, device="cuda",
-                 compute_dtype: torch.dtype = torch.float32):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel MNIST training (mesh) is not ported: see "
-                                      "ROADMAP.md, Queue 1 (parallel training)")
+                 confusion_actual: np.ndarray, group: Optional[DataGroup] = None,
+                 device="cuda", compute_dtype: torch.dtype = torch.float32):
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
-        self.device = resolve_device(device)
+        self.group = check_group(group, device)
+        self.device = group.device if group is not None else resolve_device(device)
         self.compute_dtype = compute_dtype
         float32_policy(compute_dtype)
         self.confusion_actual = torch.as_tensor(np.asarray(confusion_actual, np.float32),
@@ -125,21 +136,26 @@ class MnistTrainer:
         Metrics are device tensors: the D step's ``d_loss``, ``d_loss_real``,
         ``d_loss_fake``, ``class_loss_real`` and ``prob_real [B]``; the last
         G step's ``g_loss``, ``class_loss_fake``, ``prob_fake [B]`` and
-        ``confusion``."""
+        ``confusion``.  With a group, ``batch`` and ``z`` are the global ones
+        (every rank is given the same) and the rank runs on its rows; the
+        metrics are meaned over the ranks, the ``[B]`` ones gathered."""
         cfg, tcfg = self.cfg, self.tcfg
         lr = tcfg.learning_rate
-        batch = self.batch_to_device(batch)
-        b = batch["images"].shape[0]
+        batch = self.batch_to_device({k: self._rows(batch[k]) for k in BATCH_KEYS})
+        b = batch["images"].shape[0]  # this rank's rows
+        rank = 0 if self.group is None else self.group.rank
         if z is None:
-            z = rng.example_uniform(rng.fold_in(seed, 0), b, cfg.z_dim, self.device, -1.0, 1.0)
+            z = rng.example_uniform(rng.fold_in(seed, 0), b, cfg.z_dim, self.device, -1.0, 1.0,
+                                    first_index=rank * b)
         else:
-            z = self._to_device(z, torch.float32)
+            z = self._to_device(self._rows(z), torch.float32)
 
         # ---- D update: d_loss + 1 * class_loss_real over the d_ variables
         params = ts.group_params("disc")
         with trainable(ts, ["disc"]):
             d_out = mnist_losses(ts.gan, batch, z, self.confusion_actual)
             grads = grads_of(d_out["d_loss"] + 1.0 * d_out["class_loss_real"], params)
+        mean_over_ranks(self.group, grads, ts)
         self.optimizers["disc"].update_(params, grads, ts.opt_states["disc"], lr)
         apply_constraints(ts.groups["disc"], constraints_of(ts.gan))
 
@@ -152,6 +168,7 @@ class MnistTrainer:
                 g_out = mnist_losses(ts.gan, batch, z, self.confusion_actual, g_step_only=True)
                 grads = grads_of(g_out["g_loss"] + tcfg.perm_multiplier
                                  * g_out["class_loss_fake"], params)
+            mean_over_ranks(self.group, grads, ts)
             n = 0
             for g in names:
                 ps = ts.group_params(g)
@@ -166,14 +183,29 @@ class MnistTrainer:
                                                        "confusion")})
         metrics["prob_real"] = d_out["D"].detach().float()
         metrics["prob_fake"] = g_out["D_"].detach().float()
+        if self.group is not None:
+            # pmean of the scalars (and C), out_specs P('data') of the probs
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            self.group.mean_([v for k, v in metrics.items() if k not in PER_EXAMPLE])
+            for k in PER_EXAMPLE:
+                metrics[k] = self.group.gather_rows(metrics[k])
         return ts, metrics
+
+    def _rows(self, x):
+        """This rank's rows of a global batch (all of them without a group)."""
+        return x if self.group is None else x[self.group.local_rows(x.shape[0])]
 
     def step_scan(self, ts: TrainState, dataset: Mapping[str, torch.Tensor], idx, seed: int):
         """``len(idx)`` iterations over ``dataset`` (device tensors keyed by
         :data:`BATCH_KEYS`, the whole split resident on the device), batch
         ``j`` gathered on the device from ``idx [K, B]``; iteration ``j``
         takes the seed ``fold_in(seed, ts.step)``, as JAX's ``step_scan``
-        keys it.  Metrics come back stacked ``[K, ...]``."""
+        keys it.  Metrics come back stacked ``[K, ...]``.  One device only:
+        a group steps iteration by iteration (:meth:`step`), as JAX's mesh
+        path does."""
+        if self.group is not None:
+            raise ValueError("step_scan runs on one device; with a group, call step per "
+                             "iteration")
         if set(dataset) != set(BATCH_KEYS):
             raise ValueError(f"dataset must hold {BATCH_KEYS}; got {sorted(dataset)}")
         idx = self._to_device(idx, torch.int64)

@@ -165,6 +165,22 @@ def grads_of(cost: torch.Tensor, params) -> List[torch.Tensor]:
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
+def state_buffers(module: nn.Module) -> List[torch.Tensor]:
+    """The live buffers of the non-trainable state under ``module`` (SN
+    ``u``, BN moving statistics: JAX's state tree), in scope order, so that
+    every rank lists them alike."""
+    return [b for _, m in sorted(scoped_modules(module).items())
+            for _, b in sorted(m.named_buffers(recurse=False))]
+
+
+def mean_over_ranks(group, grads: Sequence[torch.Tensor], ts: TrainState) -> None:
+    """A step's gradients, then the state, meaned in place over the ranks of
+    ``group`` (a ``parallel.DataGroup``) by one ``all_reduce``, as JAX's
+    ``pavg`` of both; nothing without a group."""
+    if group is not None:
+        group.mean_(list(grads) + state_buffers(ts.gan))
+
+
 def constraints_of(module: nn.Module) -> Dict[str, Dict[str, Tuple[float, float]]]:
     """``{scope: {var: (lo, hi)}}``: the clip constraints the layers under
     ``module`` register (JAX's ``ctx.constraints`` after init)."""

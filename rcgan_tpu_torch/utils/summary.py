@@ -8,6 +8,7 @@ else a no-op with one logged warning (metrics still reach
 from __future__ import annotations
 
 import logging
+from typing import Optional
 
 import numpy as np
 
@@ -15,8 +16,13 @@ log = logging.getLogger(__name__)
 
 
 class SummaryWriter:
-    def __init__(self, log_dir: str):
+    """``log_dir=None``: a writer that writes nothing (a data-parallel
+    rank other than 0)."""
+
+    def __init__(self, log_dir: Optional[str]):
         self._w = None
+        if log_dir is None:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter as _SW
 

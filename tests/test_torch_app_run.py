@@ -130,14 +130,18 @@ def test_resume_after_an_injected_fault_equals_the_uninterrupted_run(tmp_path, m
     _assert_same_bits(per_cycle, whole)
 
 
-def test_app_refuses_what_is_not_ported(tmp_path):
-    """Two devices raise with a pointer to ROADMAP.md instead of running
-    with less.  Inception-v3 weights in the data dir are taken now, and a
-    file that is not a whole Inception-v3 is refused on load, as in JAX."""
+def test_app_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Two devices on a machine with one card raise instead of running with
+    less (two ranks on the CPU run: ``tests/test_torch_parallel_app.py``).
+    Inception-v3 weights in the data dir are taken now, and a file that is
+    not a whole Inception-v3 is refused on load, as in JAX."""
     base = ["--algorithm", "rcgan", "--parent_dir", str(tmp_path), "--expt_dir", "x",
             "--log_file", str(tmp_path / "l.txt"), "--niters", "1"] + _data(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cifar_app.main(base + ["--mesh_devices", "2"], device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="2 devices asked for; 1 card"):
+            cifar_app.main(base + ["--mesh_devices", "2"], device="cuda")
     (tmp_path / "data").mkdir()
     np.savez(tmp_path / "data" / "inception_v3.npz", w=np.zeros(1))
     with pytest.raises(ValueError, match="inception_v3 weights missing"):

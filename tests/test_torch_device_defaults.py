@@ -17,6 +17,7 @@ from rcgan_tpu_torch.evals.classifier import cifar_classifier, mnist_classifier
 from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
+from rcgan_tpu_torch.parallel import mesh
 from rcgan_tpu_torch.train import mnist_loop
 from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer, new_train_state
@@ -27,6 +28,25 @@ MCFG = DCGANConfig(gf_dim=8, df_dim=8, gfc_dim=32, dfc_dim=32, disc_type="projec
 MACFG, MTCFG = MnistAlgoConfig(algorithm="rcgan"), mnist_loop.MnistTrainConfig()
 PCFG, PBASE = PGGANConfig(z_dim=8, dim=8, max_stage=2), ResnetGANConfig(dim_g=8, dim_d=8)
 PTCFG = PGGANTrainConfig()
+
+def _under_a_launcher():
+    """``maybe_initialize_distributed`` in a process that torchrun started."""
+    import os
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(mesh.free_port())}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh.maybe_initialize_distributed()
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+
+
+def _never_called(group):
+    raise AssertionError("no rank may start")
+
 
 # each entry point called with every argument but device
 CALLS = {
@@ -40,6 +60,10 @@ CALLS = {
     "Generator": lambda: Generator(CFG),
     "cifar_classifier": lambda: cifar_classifier(dim=8),
     "cifar_app.main": lambda: cifar_app.main(["--niters", "1"]),
+    "cifar_app.main on 2 devices": lambda: cifar_app.main(["--niters", "1", "--mesh_devices",
+                                                           "2"]),
+    "parallel.launch": lambda: mesh.launch(_never_called, 2),
+    "maybe_initialize_distributed under a launcher": _under_a_launcher,
     "MnistTrainer": lambda: mnist_loop.MnistTrainer(MCFG, MACFG, MTCFG, np.eye(10)),
     "mnist new_train_state": lambda: mnist_loop.new_train_state(MCFG, MACFG, MTCFG),
     "MnistGAN": lambda: MnistGAN(MCFG, MACFG),
@@ -47,6 +71,8 @@ CALLS = {
                                                                             MTCFG),
     "mnist_classifier": lambda: mnist_classifier(),
     "mnist_app.main": lambda: mnist_app.main(["--epoch", "1"]),
+    "mnist_app.main on 2 devices": lambda: mnist_app.main(["--epoch", "1", "--mesh_devices",
+                                                           "2"]),
     "Sampler.from_checkpoint mnist": lambda: serving.Sampler.from_checkpoint("mnist",
                                                                               "/nonexistent"),
     "PGGANTrainer": lambda: PGGANTrainer(PCFG, PBASE, PTCFG),
@@ -56,6 +82,8 @@ CALLS = {
     "pggan_app.main": lambda: pggan_app.main(["--run_dir", "/nonexistent/pg", "--size", "16",
                                               "--max_stage", "2"]),
     "Sampler.from_checkpoint pggan": lambda: serving.Sampler.from_checkpoint("pggan",
+                                                                              "/nonexistent"),
+    "Sampler.from_checkpoint cifar": lambda: serving.Sampler.from_checkpoint("cifar",
                                                                               "/nonexistent"),
     "inception_v3.make_logits_fn": lambda: inception_v3.make_logits_fn({}),
     "calibrate_inception.main": lambda: calibrate_inception.main(["--data_dir",

@@ -428,8 +428,13 @@ def test_app_per_iteration_path_and_add_noise(small_app, tmp_path, monkeypatch):
     assert len(hist["noise_rel_alpha"]) == 2 and len(hist["d_loss"]) == 16
 
 
-def test_app_refuses_more_than_one_device_and_other_datasets(small_app):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mnist_app.main(TINY_APP + ["--mesh_devices", "2"] + small_app, device="cpu")
+def test_app_refuses_more_than_one_device_and_other_datasets(small_app, monkeypatch):
+    """More devices than the cards present raise (two ranks on the CPU run:
+    ``tests/test_torch_parallel_app.py``); so does another dataset."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="2 devices asked for; 1 card"):
+            mnist_app.main(TINY_APP + ["--mesh_devices", "2"] + small_app, device="cuda")
     with pytest.raises(SystemExit):
         mnist_app.main(["--dataset", "cifar"] + small_app, device="cpu")

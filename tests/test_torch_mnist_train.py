@@ -252,6 +252,9 @@ def test_train_state_bridge_round_trip_is_bit_exact():
 
 
 def test_mesh_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """JAX's ``mesh`` is a ``parallel.DataGroup`` here (``group=``; the
+    data-parallel step: ``tests/test_torch_parallel_mnist.py``); anything
+    else is refused."""
+    with pytest.raises(TypeError, match="DataGroup"):
         MnistTrainer(DCGANConfig(**TINY_MNIST), MnistAlgoConfig(), MnistTrainConfig(),
-                     np.eye(10), mesh=object(), device="cpu")
+                     np.eye(10), group=object(), device="cpu")

@@ -76,3 +76,26 @@ def perturb_mnist(params, state, seed: int):
             d["moving_variance"] = rs.uniform(0.5, 2.0, d["moving_variance"].shape).astype(
                 np.float32)
     return params, state
+
+
+def _state_leaves(np_ts):
+    """``{name: array}`` of every leaf of a bridge train state."""
+    out = {"step": np.asarray(np_ts.step)}
+    for g, d in np_ts.groups.items():
+        out.update({f"{g}/{la}/{v}": a for la, vs in d.items() for v, a in vs.items()})
+    out.update({f"state/{la}/{v}": a for la, vs in np_ts.state.items() for v, a in vs.items()})
+    for g, (adam, _) in np_ts.opt_states.items():
+        out[f"{g}/count"] = np.asarray(adam.count)
+        for mom in ("mu", "nu"):
+            tree = getattr(adam, mom)
+            out.update({f"{g}/{mom}/{la}/{v}": a for la, vs in tree.items()
+                        for v, a in vs.items()})
+    return out
+
+
+def assert_states_bit_equal(a, b, label: str):
+    """Every leaf of two bridge train states bit-equal."""
+    la, lb = _state_leaves(a), _state_leaves(b)
+    assert la.keys() == lb.keys(), label
+    for k in la:
+        np.testing.assert_array_equal(la[k], lb[k], err_msg=f"{label} {k}")
