@@ -82,7 +82,9 @@ class Scoped(nn.Module):
     def add_stat(self, name: str, shape, init_fn: Callable) -> torch.Tensor:
         """Non-trainable float32 state (JAX ``Ctx.stat``), a buffer named
         ``name``.  Written by rebinding the attribute to a new tensor, never
-        in place, so a tensor that autograd saved is never modified."""
+        in place, so a tensor that autograd saved is never modified; the
+        trainers copy a step's last value back into the buffer at the step's
+        end (``train/state.py::state_in_place``), so its address holds."""
         value = init_fn(name_generator(self._seed, self.scope, name), tuple(shape), torch.float32)
         self.register_buffer(name, value)
         return value

@@ -16,7 +16,9 @@ integer hash (splitmix64), so nothing waits on the device:
 seed, the row's **global** example index and the column, then Box-Muller),
 so a row does not depend on the batch it is drawn in, and no host
 generator is involved; :func:`example_uniform` (the MNIST stack's
-U[-1, 1) latents, JAX ``example_uniform``) is keyed the same way.  The
+U[-1, 1) latents, JAX ``example_uniform``) is keyed the same way.  Each has
+a form keyed by a device scalar, the seed's :func:`seed_base`, for steps
+replayed from a CUDA graph (``train/graphs.py``).  The
 streams differ from JAX's threefry; tests hand both frameworks the same
 noise instead.
 """
@@ -96,15 +98,48 @@ def _signed(x: int) -> int:
     return x - (1 << 64) if x >= 1 << 63 else x
 
 
-def example_bits(seed: int, n: int, dim: int, device, first_index: int = 0) -> torch.Tensor:
-    """``[n, dim]`` int64 hashes, one per (example, column):
-    ``mix(mix(mix(seed) ^ mix(index)) ^ mix(column))`` with the example's
-    global index ``first_index + i``; computed on ``device``."""
-    base = _signed(int(_mix(np.array([seed & ((1 << 64) - 1)], np.uint64))[0]))
+def seed_base(seed: int) -> int:
+    """``mix(seed)`` as the int64 with its 64 bits: what :func:`example_bits`
+    folds every row with.  A step captured in a CUDA graph cannot take a
+    Python seed (the graph would keep the value it was captured with for
+    ever), so its host part writes this value into a device buffer and the
+    step draws with :func:`example_normal_from` / :func:`example_uniform_from`."""
+    return _signed(int(_mix(np.array([seed & ((1 << 64) - 1)], np.uint64))[0]))
+
+
+def _bits(base, n: int, dim: int, device, first_index: int) -> torch.Tensor:
     index = torch.arange(first_index, first_index + n, dtype=torch.int64, device=device)
     column = torch.arange(dim, dtype=torch.int64, device=device)
     rows = _mix_device(_mix_device(index) ^ base)
     return _mix_device(rows[:, None] ^ _mix_device(column)[None, :])
+
+
+def example_bits(seed: int, n: int, dim: int, device, first_index: int = 0) -> torch.Tensor:
+    """``[n, dim]`` int64 hashes, one per (example, column):
+    ``mix(mix(mix(seed) ^ mix(index)) ^ mix(column))`` with the example's
+    global index ``first_index + i``; computed on ``device``."""
+    return _bits(seed_base(seed), n, dim, device, first_index)
+
+
+def example_bits_from(base: torch.Tensor, n: int, dim: int, first_index: int = 0
+                      ) -> torch.Tensor:
+    """:func:`example_bits` of the seed whose :func:`seed_base` is ``base``,
+    an int64 scalar tensor (shape ``()`` or ``[1]``) on the device where the
+    hashes are computed: the same bits."""
+    return _bits(base.reshape(()), n, dim, base.device, first_index)
+
+
+def _normal(bits: torch.Tensor) -> torch.Tensor:
+    hi = (bits >> 32) & 0xFFFFFFFF
+    lo = bits & 0xFFFFFFFF
+    u1 = (hi.to(torch.float32) + 1.0) * 2.0 ** -32
+    u2 = lo.to(torch.float32) * 2.0 ** -32
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def _uniform(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    u = ((bits >> 40) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
+    return minval + (maxval - minval) * u
 
 
 def example_normal(seed: int, n: int, dim: int, device, first_index: int = 0) -> torch.Tensor:
@@ -114,12 +149,15 @@ def example_normal(seed: int, n: int, dim: int, device, first_index: int = 0) ->
     ``first_index=k``.  Each element's 64-bit hash gives two uniforms, its
     high 32 bits ``u1`` in (0, 1] and its low 32 bits ``u2`` in [0, 1), and
     Box-Muller's ``sqrt(-2 ln u1) cos(2 pi u2)`` the normal (|z| < 6.7)."""
-    bits = example_bits(seed, n, dim, device, first_index)
-    hi = (bits >> 32) & 0xFFFFFFFF
-    lo = bits & 0xFFFFFFFF
-    u1 = (hi.to(torch.float32) + 1.0) * 2.0 ** -32
-    u2 = lo.to(torch.float32) * 2.0 ** -32
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return _normal(example_bits(seed, n, dim, device, first_index))
+
+
+def example_normal_from(base: torch.Tensor, n: int, dim: int, first_index: int = 0
+                        ) -> torch.Tensor:
+    """:func:`example_normal` keyed by a device ``base`` (:func:`seed_base`
+    of the seed) instead of the seed: the same values, on ``base``'s
+    device."""
+    return _normal(example_bits_from(base, n, dim, first_index))
 
 
 def example_uniform(seed: int, n: int, dim: int, device, minval: float = 0.0,
@@ -128,6 +166,11 @@ def example_uniform(seed: int, n: int, dim: int, device, minval: float = 0.0,
     keyed per example as :func:`example_normal` (JAX ``example_uniform``):
     the top 24 bits of each element's hash give ``u`` in [0, 1) exactly in
     float32, and ``minval + (maxval - minval) u`` the value."""
-    bits = example_bits(seed, n, dim, device, first_index)
-    u = ((bits >> 40) & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
-    return minval + (maxval - minval) * u
+    return _uniform(example_bits(seed, n, dim, device, first_index), minval, maxval)
+
+
+def example_uniform_from(base: torch.Tensor, n: int, dim: int, minval: float = 0.0,
+                         maxval: float = 1.0, first_index: int = 0) -> torch.Tensor:
+    """:func:`example_uniform` keyed by a device ``base`` (:func:`seed_base`
+    of the seed): the same values, on ``base``'s device."""
+    return _uniform(example_bits_from(base, n, dim, first_index), minval, maxval)

@@ -1,44 +1,48 @@
 """How ``chip_smoke.py``'s float32 card-vs-CPU training check answers to the
 order in which the hand-written float32 kernels sum.
 
-The check (batch 8, two cycles of rcgan and of rcgan-u, ``TRAIN_TOL``)
-reads gradients that are ill-conditioned in float32, with near-ties that a
-reordered sum can tip.  This replays it on the card under several
-arithmetics of the FFMA conv3x3, the spectral-norm and the cond-BN kernels,
-so that a failure after a change to the float32 path can be told apart from
-a wrong kernel, and so that the check's data can be chosen where no
-arithmetic sits on a near-tie:
+The check (batch 8, two cycles of rcgan and of rcgan-u at five data seeds,
+limits 3x ``TRAIN_SPREAD``) reads gradients that are ill-conditioned in
+float32, with near-ties that a reordered sum can tip.  This replays it on
+the card under several arithmetics of the FFMA conv3x3, the spectral-norm
+and the cond-BN kernels, so that a failure after a change to the float32
+path can be told apart from a wrong kernel, and so that the check's limits
+can be derived from the spread over those arithmetics:
 
 1. every FFMA conv, spectral-norm and cond-BN call of the check's iteration
    0, held against float64 on its own tensors (max |err| / max |ref|): the
    kernel's distance and, for sn and cond-BN, the plain version's;
-2. the check itself, its readings against ``TRAIN_TOL``, for each data seed
-   asked for, with one kernel at a time replaced: conv3x3 by the shipped
+2. the check itself, its readings against its limits
+   (``chip_smoke.train_limits``), for each data seed asked for (default:
+   ``CHECK_TRAIN["data_seeds"]``), with one kernel at a time replaced:
+   conv3x3 by the shipped
    geometry (``ffma_geometry``), ``split first`` (64 x 64 tiles split over
    K wherever 64 x 64 tiles are fewer than the SMs), ``unsplit`` (the
    shipped tiles with K never split) and ``float64`` (each call computed in
    float64 and rounded once); sn and cond-BN each by the shipped kernel,
    their plain version and float64; and all three in float64 together.  A
    table per data seed says which arithmetics pass every reading.  With
-   ``--scan`` the data seeds are tried in turn, each dropped at its first
-   arithmetic over a limit, until one passes under every arithmetic: that
-   is a seed for ``CHECK_TRAIN["data_seed"]`` at which the check sits on no
-   near-tie that these arithmetics can tip.  As in ``chip_smoke.py``, the
-   replay runs under PyTorch's deterministic algorithms, so a reading
-   repeats from run to run;
+   ``--scan`` it then prints the spread of every reading per iteration,
+   its median and its max over the algorithms, the data seeds and the
+   arithmetics, as the dict ``TRAIN_SPREAD`` from which ``chip_smoke.py``
+   derives the check's limits: a change of the float32 sum order that stays
+   within the spread of these nine cannot fail the check.  As in
+   ``chip_smoke.py``, the replay runs under PyTorch's deterministic
+   algorithms, so a reading repeats from run to run;
 3. with ``--times``, the six FFMA calls of a float32 generator pass at each
    serving bucket under each geometry, device time in CUDA graphs.
 
 Needs a card; run from the repository's root (it reads the check's data,
 readings and limits from ``chip_smoke.py``):
 
-    python3 -m rcgan_tpu_torch.diagnostics.sum_order [--data_seeds 92 93 ...] [--scan] [--times]
+    python3 -m rcgan_tpu_torch.diagnostics.sum_order [--data_seeds 200 201 ...] [--scan] [--times]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import statistics
 import sys
 from pathlib import Path
 
@@ -140,10 +144,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--data_seeds", type=int, nargs="*", default=None,
                    help="replay the check with its data drawn from each of these (default: "
-                        "chip_smoke.py's CHECK_TRAIN['data_seed'])")
+                        "chip_smoke.py's CHECK_TRAIN['data_seeds'])")
     p.add_argument("--scan", action="store_true",
-                   help="drop each data seed at its first arithmetic over a limit, and stop at "
-                        "the first seed that passes under every arithmetic")
+                   help="print the spread of every reading over the algorithms, the data seeds "
+                        "and the arithmetics: chip_smoke.py's TRAIN_SPREAD")
     p.add_argument("--times", action="store_true",
                    help="also time a float32 G pass's FFMA convs under each geometry")
     args = p.parse_args(argv)
@@ -166,15 +170,18 @@ def main(argv=None) -> int:
     c_mat, _ = build_confusion(0.6)
     tcfg = CifarTrainConfig(n_critic=cs.CHECK_TRAIN["n_critic"],
                             gen_bs_multiple=cs.CHECK_TRAIN["gen_bs_multiple"])
-    data_seeds = args.data_seeds or [cs.CHECK_TRAIN["data_seed"]]
+    data_seeds = args.data_seeds or list(cs.CHECK_TRAIN["data_seeds"])
     algorithms = (("rcgan", False), ("rcgan-u", True))
 
     def trainers(alg, perm):
         # float32 trainers: they turn TF32 off themselves (float32_policy)
         cfg = ResnetGANConfig(algorithm=alg)
         acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        # the cycle's eager body on the card: the check's two cycles (iteration
+        # 0, then a first G step) run eagerly on a capturing trainer too
         return cfg, acfg, {side: CifarTrainer(cfg, acfg, tcfg, c_mat,
-                                              dev if side == "card" else "cpu")
+                                              dev if side == "card" else "cpu",
+                                              graphs=False if side == "card" else None)
                            for side in ("card", "cpu")}
 
     # 1. every FFMA, sn and cond-BN call of iteration 0 against float64
@@ -223,6 +230,7 @@ def main(argv=None) -> int:
             if (kernel, what, who) in worst), flush=True)
 
     # 2. the check under each arithmetic, each cycle from the card's state
+    spread = {0: collections.defaultdict(list), 1: collections.defaultdict(list)}
     for data_seed in data_seeds:
         feeds = cs.check_train_feeds(0, data_seed)
         table = {}
@@ -231,6 +239,7 @@ def main(argv=None) -> int:
             for alg, perm in algorithms:
                 cfg, acfg, tr = trainers(alg, perm)
                 ts_card = tr["card"].init(0)
+                one_param = cs.one_param_of(ts_card)
                 for it, (d, g, noise) in enumerate(feeds):
                     ts_cpu = train_state_from_jax(to_jax_train_state(ts_card), cfg, acfg, tcfg,
                                                   "cpu")
@@ -241,33 +250,29 @@ def main(argv=None) -> int:
                     r, _ = cs.train_readings(to_jax_train_state(ts_cpu),
                                              to_jax_train_state(ts_card), m_cpu, m_card, tcfg.lr,
                                              steps)
-                    over = [k for k, v in r.items() if v > cs.TRAIN_TOL[it].get(k, float("inf"))]
+                    limits = cs.train_limits(it, one_param)
+                    over = [k for k, v in r.items() if v > limits.get(k, (0, float("inf")))[1]]
                     table[(name, alg, it)] = over
+                    for k, v in r.items():
+                        spread[it][k].append(v)
                     print(f"  [data seed {data_seed}] [{name}] {alg} iteration {it}: "
                           + ", ".join(f"{k} {v:.3g}" for k, v in r.items())
-                          + f"; over TRAIN_TOL: {over or 'none'}", flush=True)
-                    if over and args.scan:
-                        break
-                if args.scan and any(table.values()):
-                    break
-            if args.scan and any(table.values()):
-                break
+                          + f"; over the max limits: {over or 'none'}", flush=True)
         _use({})
-        if args.scan and any(table.values()):
-            print(f"data seed {data_seed}: dropped, over a limit under [{name}] ({alg})",
-                  flush=True)
-            continue
-        print(f"data seed {data_seed}, readings over TRAIN_TOL per arithmetic "
+        print(f"data seed {data_seed}, readings over the max limits per arithmetic "
               f"(algorithm/iteration):", flush=True)
         for name in ARITHMETICS:
             cells = [f"{alg}/{it} " + (",".join(table[(name, alg, it)]) or "pass")
                      for alg, _ in algorithms for it in range(len(feeds))]
             print(f"  {name:22s} " + " | ".join(cells), flush=True)
-        print(f"data seed {data_seed}: "
-              + ("some arithmetic is over a limit" if any(table.values())
-                 else "every arithmetic passes every reading"), flush=True)
-        if args.scan:
-            break
+    if args.scan:
+        print(f"spread over {len(algorithms)} algorithms x {len(data_seeds)} data seeds "
+              f"{data_seeds} x {len(ARITHMETICS)} arithmetics (median, max) per iteration, on "
+              f"{torch.cuda.get_device_name(0)}:", flush=True)
+        print("TRAIN_SPREAD = " + repr({it: {k: (float(f"{statistics.median(v):.3g}"),
+                                                 float(f"{max(v):.3g}"))
+                                             for k, v in sorted(d.items())}
+                                        for it, d in spread.items()}), flush=True)
 
     # 3. the six FFMA calls of a float32 G pass per bucket, per geometry
     if not args.times:

@@ -7,7 +7,10 @@ has none.  Routing is decided by where the tensor lives:
 - a CPU tensor goes to the kernel's plain PyTorch version;
 - a CUDA tensor goes to the hand-written kernel, or the call raises.
 
-There is no fallback from a failed build or launch to the plain version.
+Launches are counted on the host, where a wrapper launches; a launch
+recorded into a CUDA graph is counted by each replay instead
+(:func:`recorded_launches`, :func:`add_launches`).  There is no fallback
+from a failed build or launch to the plain version.
 
 CUDA sources under ``rcgan_tpu_torch/csrc`` are compiled with ``nvcc`` at
 first use into ``rcgan_tpu_torch/_build`` (listed in ``.gitignore``), as
@@ -20,6 +23,7 @@ a build made by this process is kept in :data:`build_logs`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -28,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -60,15 +64,75 @@ _build_locks: Dict[str, threading.Lock] = {}  # one per library: builds run in p
 _locks_lock = threading.Lock()
 
 
+class LaunchRecord:
+    """Launches counted inside :func:`recorded_launches`: ``counts`` by
+    kernel, ``variants`` by kernel and variant (the shape of
+    :func:`launch_counts` and :func:`variant_counts`)."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {k: 0 for k in KERNELS}
+        self.variants: Dict[str, Dict[str, int]] = {k: dict.fromkeys(v, 0)
+                                                    for k, v in VARIANTS.items()}
+
+
+_records: Dict[int, LaunchRecord] = {}  # capture stream's raw handle -> its record
+
+
+def _capturing_stream() -> Optional[int]:
+    """The raw handle of this thread's current CUDA stream while a CUDA
+    graph captures it, else None."""
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.cuda.current_stream().cuda_stream
+
+
 def count_launch(name: str, variant: Optional[str] = None) -> None:
+    """One launch of kernel ``name`` (of ``variant``), added to the totals,
+    or, when it is recorded into a CUDA graph (:func:`recorded_launches`),
+    to the capture's record."""
+    if (variant is None) != (name not in VARIANTS) \
+            or (variant is not None and variant not in VARIANTS[name]):
+        raise ValueError(f"{name}: variant {variant!r} (want one of {VARIANTS.get(name)})")
+    rec = _records.get(_capturing_stream()) if _records else None
     with _count_lock:
-        if (variant is None) != (name not in VARIANTS) \
-                or (variant is not None and variant not in VARIANTS[name]):
-            raise ValueError(f"{name}: variant {variant!r} (want one of {VARIANTS.get(name)})")
+        counts = _counts if rec is None else rec.counts
+        variants = _variant_counts if rec is None else rec.variants
         if variant not in LIBRARY_VARIANTS.get(name, ()):
-            _counts[name] += 1
+            counts[name] += 1
         if variant is not None:
-            _variant_counts[name][variant] += 1
+            variants[name][variant] += 1
+
+
+@contextlib.contextmanager
+def recorded_launches(stream: int) -> Iterator[LaunchRecord]:
+    """Inside the block, the launches that the wrappers count on ``stream``
+    (a raw stream handle) while a CUDA graph captures it go to the yielded
+    :class:`LaunchRecord` and not to the totals, from whichever thread
+    launches them (autograd runs a backward on a thread of its own, on the
+    stream of its forward).  Nothing runs at a capture, and every replay
+    then adds the record once (:func:`add_launches`), so that the totals
+    read after N replays as after N eager calls."""
+    rec = LaunchRecord()
+    with _count_lock:
+        if stream in _records:
+            raise RuntimeError(f"stream {stream:#x} is already being recorded")
+        _records[stream] = rec
+    try:
+        yield rec
+    finally:
+        with _count_lock:
+            del _records[stream]
+
+
+def add_launches(rec: LaunchRecord, times: int = 1) -> None:
+    """Add ``times`` runs of what ``rec`` recorded to the totals (one replay
+    of a captured graph per run)."""
+    with _count_lock:
+        for k, n in rec.counts.items():
+            _counts[k] += times * n
+        for k, d in rec.variants.items():
+            for v, n in d.items():
+                _variant_counts[k][v] += times * n
 
 
 def launch_counts() -> Dict[str, int]:

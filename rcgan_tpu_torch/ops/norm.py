@@ -67,7 +67,9 @@ class BatchNorm(Scoped):
     *biased* batch variance, as JAX writes it (``F.batch_norm``'s running
     variance is the unbiased one).  Each call rebinds the buffers, never
     writes them in place, so calls chain: the next call reads what this one
-    wrote, as ``Ctx.stat`` chains them in JAX.  In eval mode the buffers
+    wrote, as ``Ctx.stat`` chains them in JAX; a trainer's step copies the
+    last values back into the buffers it started from
+    (``train/state.py::state_in_place``), where a CUDA graph reads them.  In eval mode the buffers
     are read and left alone.  ``zero_debias`` is TF's
     ``zero_debias_moving_mean``: the moving mean is a biased accumulator
     (``biased_mean``) over ``1 - decay^t`` with ``t`` its update count

@@ -60,7 +60,9 @@ def _steps(layers: List[Scoped], weights: List[torch.Tensor]):
     out = []
     for layer, w, (w_bar, u_new, sigma) in zip(layers, weights, spectral_norm_group(pairs)):
         if layer.update_sn:
-            # rebind, never copy_: autograd saved the old u for the backward
+            # rebind, never copy_: autograd saved the old u for the backward;
+            # a trainer's step copies the last u back into the buffer it
+            # started from (train/state.py::state_in_place)
             layer.u = u_new.detach()
         out.append((w_bar.reshape(w.shape).to(w.dtype), sigma))
     return out

@@ -38,7 +38,11 @@ What differs:
 On a CUDA device the CIFAR and PGGAN generators run through the
 hand-written cond-BN and 3x3-conv kernels; the MNIST generator's linears, BNs and 5x5
 transposed convs run on cuBLAS and cuDNN, as JAX leaves them to XLA.
-Constructing a :class:`Sampler` applies the port's float32 policy
+On a card each bucket's generator pass is captured into a CUDA graph at
+its first use and replayed after (``train/graphs.py``; JAX's sampler is
+"compiled once per bucket size"), reading ``z`` and the labels from the
+bucket's fixed buffers; the CPU runs the same pass eagerly on the same
+buffers.  Constructing a :class:`Sampler` applies the port's float32 policy
 (``core.module.float32_policy``: TF32 off for cuDNN convolutions and
 cuBLAS matmuls), so float32 serving is float32 throughout, as it is in
 JAX.
@@ -53,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import threading
@@ -66,6 +71,7 @@ from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
 from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models import dcgan, pggan
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
+from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, state_key
 from rcgan_tpu_torch.utils.images import encode_png, merge
 
 DEFAULT_BUCKETS = (1, 8, 32, 100)
@@ -159,7 +165,8 @@ class Sampler:
     ``Generator`` (``model`` "cifar"), the MNIST ``dcgan.Generator``
     ("mnist") or the PGGAN ``pggan.Generator`` ("pggan")."""
 
-    def __init__(self, generator, buckets: Sequence[int] = DEFAULT_BUCKETS):
+    def __init__(self, generator, buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 graphs: Optional[bool] = None):
         float32_policy(torch.float32)  # serving is float32 throughout
         self.generator = generator
         self.buckets = tuple(sorted(buckets))
@@ -172,8 +179,17 @@ class Sampler:
             self.model, self.n_labels = "cifar", self.cfg.vocab_size
         self.z_dim = self.cfg.z_dim
         self.device = next(generator.parameters()).device
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"CUDA graphs need a CUDA device; the generator is on {self.device}")
+        self.graphs = on_card if graphs is None else bool(graphs)
         self.passes = 0  # generator passes run, one per bucketed chunk
         self._passes_lock = threading.Lock()
+        # one (StepBlock, CapturedStep) per bucket size; the lock covers a
+        # pass's copy in, its run or replay and its copy out, since the
+        # coalescer's worker and the HTTP handlers share the buffers
+        self._passes_at: Dict[int, tuple] = {}
+        self._pass_lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, model: str, checkpoint_dir: str,
@@ -232,20 +248,36 @@ class Sampler:
             return rng.uniform(-1.0, 1.0, (n, self.z_dim)).astype(np.float32)
         return rng.standard_normal((n, self.z_dim)).astype(np.float32)
 
+    def _pass(self, block: StepBlock) -> torch.Tensor:
+        """The generator pass on the bucket's block: what a graph captures."""
+        z, labels = block.row("z"), block.row("labels")
+        if self.model == "mnist":
+            y = torch.nn.functional.one_hot(labels, self.n_labels).float()
+            return dcgan.sample(self.generator, z, y)
+        if self.model == "pggan":  # NHWC at the schedule's last stage
+            return pggan.sample(self.generator, z, labels)
+        return sample(self.generator, z, labels)
+
     def _run_batch_z(self, z, padded: np.ndarray) -> np.ndarray:
         """One generator pass at len(padded) (a bucket size), explicit z:
-        ``[B, H, W, C]`` float32."""
-        zt = torch.as_tensor(z, dtype=torch.float32).to(self.device)
-        lt = torch.as_tensor(padded, dtype=torch.int64).to(self.device)
-        if self.model == "mnist":
-            y = torch.nn.functional.one_hot(lt, self.n_labels).float()
-            out = dcgan.sample(self.generator, zt, y).cpu().numpy()
-        elif self.model == "pggan":  # NHWC at the schedule's last stage
-            out = pggan.sample(self.generator, zt, lt).cpu().numpy()
-        else:
+        ``[B, H, W, C]`` float32.  The bucket's inputs are copied into its
+        fixed buffers, then its pass runs, replayed from a CUDA graph on a
+        card (captured at the bucket's first pass: JAX's "compiled once per
+        bucket size")."""
+        n = len(padded)
+        key = state_key(list(self.generator.parameters()) + list(self.generator.buffers()))
+        with self._pass_lock:
+            if n not in self._passes_at:
+                block = StepBlock({"z": (torch.float32, (n, self.z_dim)),
+                                   "labels": (torch.int64, (n,))}, 1, self.device)
+                self._passes_at[n] = (block, CapturedStep(functools.partial(self._pass, block),
+                                                          self.device, self.graphs))
+            block, step = self._passes_at[n]
+            block.load({"z": np.asarray(z, np.float32)[None], "labels": padded[None]})
+            out = step(key, held=self.generator).cpu().numpy()
+        if self.model == "cifar":
             c = self.cfg
-            out = sample(self.generator, zt, lt).cpu().numpy().reshape(
-                -1, c.img_size, c.img_size, c.img_dim)
+            out = out.reshape(-1, c.img_size, c.img_size, c.img_dim)
         with self._passes_lock:
             self.passes += 1
         return out

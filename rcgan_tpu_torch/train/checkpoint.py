@@ -34,7 +34,7 @@ from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
-from rcgan_tpu_torch.core.module import scoped_modules, state_tree
+from rcgan_tpu_torch.core.module import state_tree
 from rcgan_tpu_torch.train.state import TrainState
 
 if TYPE_CHECKING:
@@ -73,9 +73,10 @@ def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
 
 
 def load_payload(ts: TrainState, payload: dict, strict: bool = True) -> int:
-    """Copy ``payload`` into ``ts`` in place: parameters and moments by
-    copy, SN state by rebinding the buffer (as the SN update writes it),
-    counts and step.  ``strict``: every leaf must be there with its shape
+    """Copy ``payload`` into ``ts`` in place: every parameter, moment and
+    state buffer (SN ``u``, BN statistics) is written into the live tensor,
+    which keeps its address (a captured step reads it there); then counts
+    and step.  ``strict``: every leaf must be there with its shape
     and dtype, else raise; otherwise only leaves that match by name and
     shape are loaded.  Returns the number of leaves loaded."""
     loaded = 0
@@ -99,12 +100,11 @@ def load_payload(ts: TrainState, payload: dict, strict: bool = True) -> int:
             if src is not None:
                 _copy_into(p, src.to(p.dtype), f"{g} {_key(*k)}")
                 loaded += 1
-    mods = scoped_modules(ts.gan)
     for layer, d in state_tree(ts.gan).items():
         for var, t in d.items():
             src = take(payload.get("state", {}), _key(layer, var), t, "state")
             if src is not None:
-                setattr(mods[layer], var, src.to(t.device, t.dtype).clone())
+                _copy_into(t, src.to(t.dtype), f"state {_key(layer, var)}")
                 loaded += 1
     for g, st in ts.opt_states.items():
         saved = payload.get("opt_states", {}).get(g)

@@ -4,10 +4,16 @@
 One cycle is one G step (plus the C step of rcgan-u), skipped at iteration
 0, then ``n_critic`` D steps, each on its own micro-batch, as JAX's
 ``_cycle``.  JAX compiles the cycle into one program; the port runs it
-eagerly, with no host sync inside :meth:`CifarTrainer.step` (no ``.item()``,
-no Python branch on a device value, seeds derived on the host by
-:mod:`rcgan_tpu_torch.core.rng`), so that a later change can capture it in
-a CUDA graph.
+eagerly on the CPU and with a group; on a card it captures the cycle into a
+CUDA graph once and replays it (``train/graphs.py``), the counterpart of
+``_jitted_cycle``, and :meth:`CifarTrainer.step_scan` replays it once per
+row of a block, the counterpart of ``_jitted_scan``.  Both paths run one
+body, :meth:`CifarTrainer._cycle`, which reads only device tensors: a host
+part (:meth:`CifarTrainer._cycle_row`) derives the learning rates, Adam's
+bias corrections and every seed (by :mod:`rcgan_tpu_torch.core.rng`) and
+packs them with the batch into the cycle's row of a
+:class:`~rcgan_tpu_torch.train.graphs.StepBlock`; the cycle at iteration 0,
+which has no G step, runs eagerly.
 
 Each step takes gradients with ``torch.autograd.grad`` with respect to the
 groups it updates, with every other group frozen
@@ -46,8 +52,10 @@ from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
+from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, load_block, state_key
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
-                                         init_train_state, mean_over_ranks, trainable)
+                                         init_train_state, mean_over_ranks, state_in_place,
+                                         train_state_tensors, trainable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,13 +98,17 @@ class CifarTrainer:
     :func:`rcgan_tpu_torch.data.cifar10.device_dataset_of` returns it; the
     cycle then takes index batches and gathers on the device.  ``group``:
     the data-parallel group this rank belongs to (JAX's ``mesh``); the
-    trainer then runs on the group's device."""
+    trainer then runs on the group's device.  ``graphs``: capture the cycle
+    into a CUDA graph and replay it (``train/graphs.py``); by default on a
+    CUDA device without a group, as JAX always jits its cycle.  ``False``
+    runs the same body eagerly there (to compare); the CPU and a group run
+    it eagerly, and asking them for graphs raises."""
 
     def __init__(self, cfg: ResnetGANConfig, acfg: CifarAlgoConfig, tcfg: CifarTrainConfig,
                  confusion_actual: np.ndarray, device="cuda",
                  compute_dtype: torch.dtype = torch.float32,
                  device_dataset: Optional[Dict[str, torch.Tensor]] = None,
-                 group: Optional[DataGroup] = None):
+                 group: Optional[DataGroup] = None, graphs: Optional[bool] = None):
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
         self.group = check_group(group, device)
         self.device = group.device if group is not None else resolve_device(device)
@@ -110,6 +122,15 @@ class CifarTrainer:
             raise ValueError(f"device_dataset must hold {DATASET_KEYS} on {self.device}")
         self.device_dataset = device_dataset
         self.optimizers = optimizers(tcfg)
+        on_card = self.device.type == "cuda" and group is None
+        if graphs and not on_card:
+            raise ValueError("CUDA graphs need a CUDA device and no group; "
+                             f"got {self.device}{' with a group' if group is not None else ''}")
+        self.graphs = on_card if graphs is None else bool(graphs)
+        self.block: Optional[StepBlock] = None   # the cycle's inputs and metrics
+        self.captured = CapturedStep(self._cycle, self.device, self.graphs)
+        self._ts: Optional[TrainState] = None    # what the cycle body runs on
+        self._g_step = True
 
     def init(self, seed: int = 0) -> TrainState:
         """A fresh train state with parameters drawn from ``seed``.  (JAX's
@@ -141,25 +162,95 @@ class CifarTrainer:
         sl = self.group.local_rows(x.shape[dim])
         return x[sl] if dim == 0 else x[:, sl]
 
-    def _d_batches(self, d_batches: Mapping) -> Dict[str, torch.Tensor]:
-        """``[n_critic, B, ...]`` device tensors of this rank's rows:
-        gathered from the resident dataset for ``{"index": ...}``, else moved
-        from the host."""
-        d_batches = {k: self._rows(v, 1) for k, v in d_batches.items()}
+    def _host(self, x) -> np.ndarray:
+        return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+    def _cycle_row(self, ts: TrainState, d_batches: Mapping, g_labels: Mapping,
+                   iteration: int, seed: int, noise: Optional[Mapping]) -> Dict[str, np.ndarray]:
+        """The host part of one cycle: checks the shapes, derives the
+        learning rates and the seeds, advances the Adam counts the cycle's
+        updates take, and returns the cycle's row of the block (this rank's
+        rows of the batches): ``adam [2 + n_critic, 5]`` (:meth:`ScalelessAdam.scalars`
+        of the G step, the C step and each critic step), ``z_base [1 +
+        n_critic]`` (:func:`rng.seed_base` of the G step's and each critic
+        step's ``z`` seed), ``q_seeds [n_critic, B]`` (the dequantisation
+        seeds), ``g_labels [2, gen_bs_multiple * B]``, the batches
+        (``index``, or the dataset's arrays) and, when given, ``noise``."""
+        tcfg = self.tcfg
+        decay = float(lr_decay(iteration, tcfg.decay))
+        lr = tcfg.lr * decay
+        confuse_lr = tcfg.lr * tcfg.confuse_multiplier * (decay if tcfg.confuse_lr_decay else 1.0)
+        d_batches = {k: self._rows(self._host(v), 1) for k, v in d_batches.items()}
         if "index" in d_batches:
             if self.device_dataset is None:
                 raise ValueError("index batches need the trainer's device_dataset")
-            idx = self._to_device(d_batches["index"], torch.int64)
-            d_batches = {k: v[idx] for k, v in self.device_dataset.items()}
-        out = self._batch_to_device(d_batches)
-        if out["images"].shape[0] != self.tcfg.n_critic:
-            raise ValueError(f"d_batches need a leading dim of n_critic={self.tcfg.n_critic}; "
-                             f"got {tuple(out['images'].shape)}")
-        return out
+            batches = {"index": d_batches["index"].astype(np.int64)}
+        else:
+            batches = {k: d_batches[k] for k in DATASET_KEYS}
+        lead = next(iter(batches.values())).shape
+        if lead[0] != tcfg.n_critic:
+            raise ValueError(f"d_batches need a leading dim of n_critic={tcfg.n_critic}; "
+                             f"got {tuple(lead)}")
+        b = lead[1]  # this rank's rows
+        world, rank = (1, 0) if self.group is None else (self.group.world_size, self.group.rank)
+        gb = tcfg.gen_bs_multiple * b
+        if tuple(np.shape(g_labels["random"])) != (gb * world,):
+            raise ValueError(f"g_labels must be [gen_bs_multiple * B] = [{gb * world}]; got "
+                             f"{tuple(np.shape(g_labels['random']))}")
+        seeds = rng.cycle_seeds(seed, tcfg.n_critic, b, start=rank * b)
+        row = dict(batches, g_labels=np.stack([self._rows(self._host(g_labels[k]), 0)
+                                               for k in ("random", "biased")]),
+                   z_base=np.array([rng.seed_base(s) for s in [seeds.g_z, *seeds.d_z]]),
+                   q_seeds=seeds.dequant)
+        if noise is not None:
+            row.update({k: self._rows(self._host(noise[k]), 0 if k == "zg" else 1)
+                        for k in ("zg", "z", "u")})
+        adam = np.zeros((2 + tcfg.n_critic, 5), np.float32)
+        if iteration > 0:  # the reference skips the G step at iteration 0
+            for i, (g, g_lr) in enumerate((("gen", lr), ("confusion", confuse_lr))):
+                if g in ts.groups:
+                    st = ts.opt_states[g]
+                    st.count += 1
+                    adam[i] = self.optimizers[g].scalars(st.count, g_lr)
+        st = ts.opt_states["disc"]
+        for k in range(tcfg.n_critic):
+            st.count += 1
+            adam[2 + k] = self.optimizers["disc"].scalars(st.count, lr)
+        row["adam"] = adam
+        return row
+
+    _DTYPES = {"index": torch.int64, "images": torch.uint8, "labels": torch.int64,
+               "labels_random": torch.int64, "labels_biased": torch.int64,
+               "labels_inv_weights": torch.float32, "g_labels": torch.int64,
+               "z_base": torch.int64, "q_seeds": torch.int32, "adam": torch.float32,
+               "zg": torch.float32, "z": torch.float32, "u": torch.float32}
+    METRICS = ("d_cost", "d_cost_mean", "g_cost", "lr")
+
+    def _run(self, ts: TrainState, rows, iterations) -> Dict[str, torch.Tensor]:
+        """The cycles of ``rows`` (each at its iteration), in place on
+        ``ts``: the cycle at iteration 0 eagerly (no G step), every other one
+        through :attr:`captured`.  Returns the metrics ``[K]``."""
+        self.block = load_block(self.block, rows, self._DTYPES, self.device,
+                                {k: (torch.float32, ()) for k in self.METRICS}, self.captured)
+        self._ts = ts
+        # the addresses the graph reads: a new state or dataset captures
+        # again (a new block did in load_block)
+        key = (id(ts), state_key(train_state_tensors(ts) + list(
+            (self.device_dataset or {}).values())))
+        try:
+            for it in iterations:
+                self._g_step = it > 0
+                if self._g_step:
+                    self.captured(key, held=ts)
+                else:
+                    self._cycle()
+                ts.step += 1
+        finally:
+            self._ts = None
+        return self.block.read(len(rows))
 
     # ------------------------------------------------------------- steps
-    def _g_step(self, ts: TrainState, g_random, g_biased, zg, lr: float,
-                confuse_lr: float) -> torch.Tensor:
+    def _g_step_update(self, ts: TrainState, g_random, g_biased, zg, adam) -> torch.Tensor:
         names = [g for g in ("gen", "confusion") if g in ts.groups]
         params = [p for g in names for p in ts.group_params(g)]
         with trainable(ts, names):
@@ -169,13 +260,13 @@ class CifarTrainer:
         n = 0
         for g in names:
             ps = ts.group_params(g)
-            self.optimizers[g].update_(ps, grads[n:n + len(ps)], ts.opt_states[g],
-                                       lr if g == "gen" else confuse_lr)
+            self.optimizers[g].apply_(ps, grads[n:n + len(ps)], ts.opt_states[g],
+                                      adam[0 if g == "gen" else 1])
             n += len(ps)
         return out["gen_cost"].detach()
 
     def _d_step(self, ts: TrainState, batch: dict, real: torch.Tensor, z: torch.Tensor,
-                lr: float) -> torch.Tensor:
+                scalars: torch.Tensor) -> torch.Tensor:
         sb = {"real_data": real, "labels": batch["labels"],
               "labels_random": batch["labels_random"], "labels_biased": batch["labels_biased"],
               "labels_inv_weights": batch["labels_inv_weights"]}
@@ -184,8 +275,53 @@ class CifarTrainer:
             out = ts.gan.disc_loss(sb, z, self.confusion_actual)
             grads = grads_of(out["disc_cost"], params)
         mean_over_ranks(self.group, grads, ts)
-        self.optimizers["disc"].update_(params, grads, ts.opt_states["disc"], lr)
+        self.optimizers["disc"].apply_(params, grads, ts.opt_states["disc"], scalars)
         return out["disc_cost"].detach()
+
+    def _cycle(self) -> None:
+        """The body of one cycle (JAX's ``_cycle``), on the block's row
+        ``counter``; it reads only device tensors, so that one body runs
+        eagerly and in a CUDA graph: the G step (unless this is iteration
+        0), then the ``n_critic`` D steps, the state kept at its addresses
+        (:func:`state_in_place`); the metrics go to the block's row."""
+        ts, blk, cfg, tcfg = self._ts, self.block, self.cfg, self.tcfg
+        f = {k: blk.row(k) for k in blk.fields}
+        if "index" in f:
+            batches = self._batch_to_device({k: v[f["index"]]
+                                             for k, v in self.device_dataset.items()})
+        else:
+            batches = {k: f[k] for k in DATASET_KEYS}
+        b = batches["labels"].shape[1]
+        gb = tcfg.gen_bs_multiple * b
+        rank = 0 if self.group is None else self.group.rank
+        noise = "zg" in f
+        adam, z_base = f["adam"], f["z_base"]
+        with state_in_place(ts.gan):
+            if self._g_step:
+                zg = f["zg"] if noise else rng.example_normal_from(z_base[0], gb, cfg.z_dim,
+                                                                   rank * gb)
+                g_cost = self._g_step_update(ts, f["g_labels"][0], f["g_labels"][1], zg, adam)
+            else:  # the reference skips the G step at iteration 0
+                g_cost = torch.zeros((), device=self.device)
+            d_costs = []
+            for k in range(tcfg.n_critic):
+                batch = {key: v[k] for key, v in batches.items()}
+                if noise:
+                    real = dequantize_chw_to_hwc(batch["images"], f["u"][k], cfg.img_size,
+                                                 cfg.img_dim)
+                    z = f["z"][k]
+                else:
+                    real = dequantize_chw_to_hwc_seeded(batch["images"], f["q_seeds"][k],
+                                                        cfg.img_size, cfg.img_dim)
+                    z = rng.example_normal_from(z_base[1 + k], b, cfg.z_dim, rank * b)
+                d_costs.append(self._d_step(ts, batch, real, z, adam[2 + k]))
+        d_costs = torch.stack(d_costs)
+        costs = torch.stack([d_costs[-1], d_costs.mean(), g_cost])
+        if self.group is not None:
+            self.group.mean_([costs])
+        for name, value in zip(self.METRICS, (*costs, adam[2, 0])):
+            blk.write(name, value)
+        blk.advance()
 
     def step(self, ts: TrainState, d_batches: Mapping, g_labels: Mapping, iteration: int,
              seed: int, noise: Optional[Mapping] = None):
@@ -199,77 +335,40 @@ class CifarTrainer:
         G and C steps); ``seed`` keys the cycle's noise.  ``noise``, when
         given, replaces that noise: ``zg [gen_bs_multiple*B, z_dim]``,
         ``z [n_critic, B, z_dim]`` and the dequantisation ``u
-        [n_critic, B, 3072]`` (CHW order).  Metrics are device tensors:
-        ``d_cost`` (the last critic step's), ``d_cost_mean``, ``g_cost``,
-        ``lr``.  With a group, the batches, labels and ``noise`` are the
-        global ones (every rank is given the same), the rank runs on its
-        rows, and the costs are meaned over the ranks."""
-        cfg, tcfg = self.cfg, self.tcfg
-        decay = float(lr_decay(iteration, tcfg.decay))
-        lr = tcfg.lr * decay
-        confuse_lr = tcfg.lr * tcfg.confuse_multiplier * (decay if tcfg.confuse_lr_decay else 1.0)
-        batches = self._d_batches(d_batches)
-        b = batches["labels"].shape[1]  # this rank's rows
-        world, rank = (1, 0) if self.group is None else (self.group.world_size, self.group.rank)
-        gb = tcfg.gen_bs_multiple * b
-        if tuple(np.shape(g_labels["random"])) != (gb * world,):
-            raise ValueError(f"g_labels must be [gen_bs_multiple * B] = [{gb * world}]; got "
-                             f"{tuple(np.shape(g_labels['random']))}")
-        g_random = self._to_device(self._rows(g_labels["random"], 0), torch.int64)
-        g_biased = self._to_device(self._rows(g_labels["biased"], 0), torch.int64)
-        seeds = rng.cycle_seeds(seed, tcfg.n_critic, b, start=rank * b)
-        if noise is not None:
-            noise = {k: self._to_device(self._rows(noise[k], 0 if k == "zg" else 1),
-                                        torch.float32) for k in ("zg", "z", "u")}
-        else:
-            q_seeds = torch.from_numpy(seeds.dequant).to(self.device, non_blocking=True)
+        [n_critic, B, 3072]`` (CHW order).  Metrics are device tensors of
+        their own: ``d_cost`` (the last critic step's), ``d_cost_mean``,
+        ``g_cost``, ``lr``.  With a group, the batches, labels and ``noise``
+        are the global ones (every rank is given the same), the rank runs on
+        its rows, and the costs are meaned over the ranks."""
+        row = self._cycle_row(ts, d_batches, g_labels, iteration, seed, noise)
+        ms = self._run(ts, [row], [iteration])
+        return ts, {k: v[0] for k, v in ms.items()}
 
-        if iteration > 0:
-            zg = noise["zg"] if noise else rng.example_normal(seeds.g_z, gb, cfg.z_dim,
-                                                              self.device, rank * gb)
-            g_cost = self._g_step(ts, g_random, g_biased, zg, lr, confuse_lr)
-        else:  # the reference skips the G step at iteration 0
-            g_cost = torch.zeros((), device=self.device)
-
-        d_costs = []
-        for k in range(tcfg.n_critic):
-            batch = {key: v[k] for key, v in batches.items()}
-            if noise:
-                real = dequantize_chw_to_hwc(batch["images"], noise["u"][k], cfg.img_size,
-                                             cfg.img_dim)
-                z = noise["z"][k]
-            else:
-                real = dequantize_chw_to_hwc_seeded(batch["images"], q_seeds[k], cfg.img_size,
-                                                    cfg.img_dim)
-                z = rng.example_normal(seeds.d_z[k], b, cfg.z_dim, self.device, rank * b)
-            d_costs.append(self._d_step(ts, batch, real, z, lr))
-        ts.step += 1
-        d_costs = torch.stack(d_costs)
-        costs = torch.stack([d_costs[-1], d_costs.mean(), g_cost])
-        if self.group is not None:
-            self.group.mean_([costs])
-        metrics = {"d_cost": costs[0], "d_cost_mean": costs[1], "g_cost": costs[2],
-                   "lr": torch.full((), lr, device=self.device)}
-        return ts, metrics
-
-    def step_scan(self, ts: TrainState, idx, g_random, g_biased, seed: int):
+    def step_scan(self, ts: TrainState, idx, g_random, g_biased, seed: int,
+                  noise: Optional[Mapping] = None):
         """``len(idx)`` cycles over the device dataset: ``idx [K, n_critic,
         B]``, ``g_random``/``g_biased`` ``[K, gen_bs_multiple * B]``.  Cycle
         ``j`` runs at iteration ``ts.step`` with the seed
-        ``fold_in(seed, ts.step)``, as JAX's ``step_scan`` keys it.  Metrics
-        come back stacked ``[K]``.  One device only: a group steps cycle by
-        cycle (:meth:`step`), as JAX's mesh path does."""
+        ``fold_in(seed, ts.step)``, as JAX's ``step_scan`` keys it, or, when
+        ``noise`` is given, with its row ``j`` (:meth:`step`'s ``noise``
+        stacked ``[K, ...]``).  The
+        block's inputs go to the device in one copy; on a card the captured
+        cycle is replayed K times, each replay reading the next row (JAX's
+        ``lax.scan``).  Metrics come back stacked ``[K]``.  One device only:
+        a group steps cycle by cycle (:meth:`step`), as JAX's mesh path
+        does."""
         if self.group is not None:
             raise ValueError("step_scan runs on one device; with a group, call step per cycle")
         if self.device_dataset is None:
             raise ValueError("step_scan needs the trainer's device_dataset")
-        ms = []
-        for j in range(len(idx)):
-            ts, m = self.step(ts, {"index": idx[j]},
-                              {"random": g_random[j], "biased": g_biased[j]},
-                              ts.step, rng.fold_in(seed, ts.step))
-            ms.append(m)
-        return ts, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        idx, g_random, g_biased = (self._host(x) for x in (idx, g_random, g_biased))
+        first = ts.step
+        rows = [self._cycle_row(ts, {"index": idx[j]},
+                                {"random": g_random[j], "biased": g_biased[j]},
+                                first + j, rng.fold_in(seed, first + j),
+                                None if noise is None else {k: v[j] for k, v in noise.items()})
+                for j in range(len(idx))]
+        return ts, self._run(ts, rows, range(first, first + len(idx)))
 
     @torch.no_grad()
     def eval_disc_cost(self, ts: TrainState, batch: Mapping, seed: int,

@@ -17,7 +17,10 @@ place, which saves a copy of every parameter per update:
 :class:`ScalelessAdam` is optax's ``scale_by_adam`` ∘ ``scale(-1)`` times a
 learning rate that the caller passes every step (``scaleless_adam`` +
 ``apply_updates_with_lr``): bias-corrected moments, eps outside the square
-root, written with ``torch._foreach`` ops in optax's order.  The moments
+root, written with ``torch._foreach`` ops in optax's order.  The learning
+rate and the bias corrections are read from a small device tensor
+(:meth:`ScalelessAdam.apply_`), so that a step captured in a CUDA graph
+(``train/graphs.py``) replays with each step's values.  The moments
 are float32, or stored in a narrower dtype (``moment_dtype="bfloat16"``,
 JAX's ``_scale_by_adam_lowp``): widened to float32 for the update, then
 rounded back for storage.
@@ -71,12 +74,42 @@ class ScalelessAdam:
         zeros = [torch.zeros_like(p, dtype=self.moment_dtype) for p in params]
         return AdamState(0, zeros, [torch.zeros_like(z) for z in zeros])
 
-    @torch.no_grad()
+    def scalars(self, count: int, lr: float) -> np.ndarray:
+        """``[5]`` float32: ``lr``, optax's two bias corrections at step
+        ``count`` (``1 − b1^count``, ``1 − b2^count``) and their reciprocals,
+        computed on the host, what :meth:`apply_` reads from a device
+        tensor."""
+        bc1, bc2 = _bias_correction(self.b1, count), _bias_correction(self.b2, count)
+        return np.array([lr, bc1, bc2, 1.0 / bc1, 1.0 / bc2], np.float32)
+
     def update_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                 state: AdamState, lr: float) -> None:
-        """One step in place on ``params`` and ``state``."""
-        params, grads = list(params), [g.float() for g in grads]
+        """One step in place on ``params`` and ``state``, advancing
+        ``state.count``; its scalars go to the device with one copy."""
         state.count += 1
+        scalars = torch.from_numpy(self.scalars(state.count, lr))
+        self.apply_(params, grads, state, scalars.to(params[0].device, non_blocking=True))
+
+    @torch.no_grad()
+    def apply_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               state: AdamState, scalars: torch.Tensor) -> None:
+        """One step in place on ``params`` and the moments of ``state``, with
+        ``lr`` and the bias corrections read from ``scalars`` (:meth:`scalars`
+        of the step's count, a float32 tensor on the parameters' device), so
+        that a CUDA graph can replay it with other values; ``state.count`` is
+        the caller's to advance.  On each device the arithmetic is, bit for
+        bit, that of the same update with the scalars as Python floats
+        (``_foreach_div`` by a float, ``add(step, alpha=-lr)``), which the
+        float32 card-vs-CPU checks were calibrated on: PyTorch's
+        ``_foreach_div`` by a float divides on the CPU and multiplies by the
+        float32 reciprocal on CUDA, and so does this form with the tensors;
+        ``addcmul`` by the tensor ``-lr`` is the fused multiply-add (one
+        rounding) of ``add(step, alpha=-lr)`` on both devices, where
+        ``addcmul(step, lr, value=-1)`` would round the product first on
+        CUDA."""
+        params, grads = list(params), [g.float() for g in grads]
+        lr, bc1, bc2, inv1, inv2 = scalars.unbind()
+        cuda = params[0].is_cuda
         b1, b2 = self.b1, self.b2
         narrow = self.moment_dtype != torch.float32
         mu = [m.float() for m in state.mu] if narrow else state.mu
@@ -85,12 +118,13 @@ class ScalelessAdam:
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(nu, _bias_correction(b2, state.count))
+        denom = torch._foreach_mul(nu, inv2) if cuda else torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu, _bias_correction(b1, state.count))
+        step = torch._foreach_mul(mu, inv1) if cuda else torch._foreach_div(mu, bc1)
         torch._foreach_div_(step, denom)
-        torch._foreach_add_(params, step, alpha=-lr)
+        neg_lr = torch.neg(lr)
+        torch._foreach_addcmul_(params, step, [neg_lr] * len(params))
         if narrow:  # rounded to nearest even for storage, as JAX's astype
             torch._foreach_copy_(state.mu, mu)
             torch._foreach_copy_(state.nu, nu)
@@ -171,6 +205,39 @@ def state_buffers(module: nn.Module) -> List[torch.Tensor]:
     every rank lists them alike."""
     return [b for _, m in sorted(scoped_modules(module).items())
             for _, b in sorted(m.named_buffers(recurse=False))]
+
+
+def train_state_tensors(ts: TrainState) -> List[torch.Tensor]:
+    """Every tensor of ``ts`` that a step reads or writes: the groups'
+    parameters, the Adam moments and the state buffers."""
+    return ([p for ps in ts.groups.values() for p in ps.values()]
+            + [t for st in ts.opt_states.values() for t in st.mu + st.nu]
+            + state_buffers(ts.gan))
+
+
+@contextlib.contextmanager
+def state_in_place(module: nn.Module) -> Iterator[None]:
+    """Inside the block the layers under ``module`` rebind their state
+    buffers (SN ``u``, BN moving statistics) to new tensors, as eager
+    autograd needs (a saved tensor is never written); at the block's end each
+    newest value is copied into the buffer that was there when the block
+    began, and that buffer is bound again.  So the state keeps its
+    addresses across steps, where a CUDA graph reads and writes it, and a
+    step's values chain as before."""
+    held = [(m, name, b) for m in scoped_modules(module).values()
+            for name, b in m.named_buffers(recurse=False)]
+    try:
+        yield
+    except BaseException:  # the old buffers back, unwritten: a failed capture ran nothing
+        for m, name, b in held:
+            setattr(m, name, b)
+        raise
+    with torch.no_grad():
+        for m, name, b in held:
+            new = getattr(m, name)
+            if new is not b:
+                b.copy_(new)
+                setattr(m, name, b)
 
 
 def mean_over_ranks(group, grads: Sequence[torch.Tensor], ts: TrainState) -> None:

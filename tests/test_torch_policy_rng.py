@@ -125,14 +125,17 @@ def test_example_normal_is_standard_normal():
 
 def test_the_cycle_draws_z_per_example(monkeypatch):
     """``CifarTrainer.step`` without injected noise draws both ``z`` with
-    ``example_normal``: the G step's at ``gen_bs_multiple * B`` rows, each
-    critic step's at ``B``, each from its own seed of the cycle."""
+    ``example_normal`` in its device-base form (``example_normal_from``, the
+    seed's ``seed_base`` read from the cycle's block, so that a CUDA graph
+    replays it with each cycle's seed): the G step's at ``gen_bs_multiple *
+    B`` rows, each critic step's at ``B``, each from its own seed of the
+    cycle."""
     draws = []
-    real = trng.example_normal
-    monkeypatch.setattr(trng, "example_normal",
-                        lambda seed, n, dim, device, first_index=0:
-                        draws.append((seed, n, dim, first_index))
-                        or real(seed, n, dim, device, first_index))
+    real = trng.example_normal_from
+    monkeypatch.setattr(trng, "example_normal_from",
+                        lambda base, n, dim, first_index=0:
+                        draws.append((int(base), n, dim, first_index))
+                        or real(base, n, dim, first_index))
     tcfg = CifarTrainConfig(n_critic=2, gen_bs_multiple=2)
     tr = CifarTrainer(CFG, CifarAlgoConfig(), tcfg, build_confusion(0.6)[0], "cpu")
     ts = tr.init(0)
@@ -144,5 +147,6 @@ def test_the_cycle_draws_z_per_example(monkeypatch):
     g = {"random": rs.randint(0, 10, 8), "biased": rs.randint(0, 10, 8)}
     tr.step(ts, d, g, 1, 9)
     seeds = trng.cycle_seeds(9, 2, 4)
-    assert draws == [(seeds.g_z, 8, CFG.z_dim, 0), (seeds.d_z[0], 4, CFG.z_dim, 0),
-                     (seeds.d_z[1], 4, CFG.z_dim, 0)]
+    base = trng.seed_base
+    assert draws == [(base(seeds.g_z), 8, CFG.z_dim, 0), (base(seeds.d_z[0]), 4, CFG.z_dim, 0),
+                     (base(seeds.d_z[1]), 4, CFG.z_dim, 0)]
