@@ -182,7 +182,30 @@ and the CIFAR app's Inception-v3 scorer:
    and graph pool MB, eager against captured, also as the line
    ``{"compiled": ...}``.  The trainers and samplers of phases 4 to 10
    capture as well (by default on the card without a group), so their
-   checks, launch counts and resumes hold the replays.
+   checks, launch counts and resumes hold the replays;
+14. the rest of what JAX compiles, each captured program against its eager
+   body (``graphs=False``) from the same start under deterministic
+   algorithms, bit for bit: the PGGAN fade-in with ``alpha`` a device
+   scalar against the host float at every alpha of a 600-iteration
+   transition; ``PGGANTrainer.step`` at the app's defaults (64x64, dim
+   128, batch 64, bf16), three iterations each of stage 1 and stage 4
+   stabilization and the stage-4 transition (the warm-up, then replays;
+   the whole state's sha256, the costs, each iteration's launches against
+   ``pggan_counts``), and ``sample`` at stages 1 and 4; the CIFAR dev
+   cost's scan at ``bench.py``'s configuration, rcgan and rcgan-u, 16
+   batches of 64 twice (the mean and every batch's cost, the state
+   unchanged, launches against ``dev_cost_counts``); the Inception score
+   with the stand-in classifier and with Inception-v3's
+   ``random_weights(0)``, one program across the app's 50 000 samples
+   (and then, for the stand-in, 5 000); label recovery at ``RecoverConfig()`` (its first 50 steps,
+   then the app's 1 000); the CIFAR eval classifier's train step over one
+   epoch of the app's pin (every parameter).  Each program's eager and
+   captured ms (CUDA events), busy ms (profiler), the last capture's
+   warm-up, collection, cache-emptying and capture seconds and graph pool
+   MB, also as the line ``{"compiled_evals": ...}``; and what the full
+   ``gc.collect()`` that each capture runs first costs the process there.
+   PGGAN's trainer, the evals and recovery capture by default on the
+   card, so phases 8 to 11 run them captured.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -217,6 +240,8 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -3193,6 +3218,51 @@ def parallel_slice(torch, dev, seed: int, card: str) -> dict:
     return {"counts": totals}
 
 
+def capture_row(stats: dict) -> dict:
+    """A ``CapturedStep``'s last capture from its ``stats()``: the host
+    seconds of its warm-up, collection, cache emptying and capture, the
+    pool's MB."""
+    return {k: stats[k] for k in ("warm_up_s", "gc_s", "empty_cache_s", "capture_s")} | {
+        "pool_mb": stats["pool_bytes"] / 2 ** 20}
+
+
+def capture_text(row: dict) -> str:
+    return (f"warm-up {row['warm_up_s']:.3f} s, gc {row['gc_s']:.3f} s, empty_cache "
+            f"{row['empty_cache_s']:.3f} s, capture {row['capture_s']:.3f} s, graph pool "
+            f"{row['pool_mb']:.1f} MB")
+
+
+def eager_vs_captured(torch, card: str, rows: dict, label: str, eager_fn, graph_fn, step,
+                      per: float = 1, reps: int = 12):
+    """Eager against captured, printed and kept in ``rows[label]``: ms (the
+    median of ``reps`` calls by CUDA events, after one), busy ms (profiler,
+    over one eager call and two captured), both per ``per`` units, and the
+    last capture of ``step`` (a ``CapturedStep``: ``capture_row``); then the
+    device ms by kernel, captured minus eager."""
+    row, by_name = {}, {}
+    for mode, fn, n_prof in (("eager", eager_fn, 1), ("captured", graph_fn, 2)):
+        ms = event_ms(torch, fn, reps=reps, warmup=1) / per
+        wall, busy, kernels = device_profile(torch, fn, reps=n_prof)
+        row[mode] = {"ms": ms, "busy_ms": busy / per, "profiled_ms": wall / per}
+        by_name[mode] = {}
+        for t, _, name in kernels:
+            by_name[mode][name] = by_name[mode].get(name, 0.0) + t / per
+    row.update(capture_row(step.stats()))
+    rows[label] = row
+    e, c = row["eager"], row["captured"]
+    print(f"  {label} on {card}: eager {e['ms']:.3f} ms (busy {e['busy_ms']:.3f} ms, "
+          f"{e['busy_ms'] / e['profiled_ms']:.0%} of its profiled time), captured "
+          f"{c['ms']:.3f} ms (busy {c['busy_ms']:.3f} ms, "
+          f"{c['busy_ms'] / c['profiled_ms']:.0%}); {e['ms'] / c['ms']:.2f}x; "
+          f"{capture_text(row)}", flush=True)
+    names = set(by_name["eager"]) | set(by_name["captured"])
+    diff = sorted(((by_name["captured"].get(k, 0.0) - by_name["eager"].get(k, 0.0), k)
+                   for k in names), reverse=True)
+    print("    device ms captured minus eager, by kernel (largest 5): " + "; ".join(
+        f"{d:+.3f} {k[:60]}" for d, k in diff[:5]), flush=True)
+    return row
+
+
 # Phase 13, the compiled programs (``train/graphs.py``) at ``bench.py``'s
 # configuration: the CIFAR cycle (bf16, batch 64, n_critic 5) on a resident
 # dataset of 4 096 images, cycles 0 (eager in both: no G step) to 3, then a
@@ -3245,29 +3315,8 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
         return out, got, var
 
     def timed(label, eager_fn, graph_fn, step, per=1):
-        """eager against captured: ms (median of COMPILED["timed"], CUDA
-        events), busy ms (profiler), both per ``per`` units."""
-        row, by_name = {}, {}
-        for mode, fn in (("eager", eager_fn), ("captured", graph_fn)):
-            ms = event_ms(torch, fn, reps=COMPILED["timed"], warmup=1) / per
-            wall, busy, kernels = device_profile(torch, fn, reps=1 if mode == "eager" else 2)
-            row[mode] = {"ms": ms, "busy_ms": busy / per, "profiled_ms": wall / per}
-            by_name[mode] = {}
-            for t, _, name in kernels:
-                by_name[mode][name] = by_name[mode].get(name, 0.0) + t / per
-        row["capture_s"], row["pool_mb"] = step.capture_s, step.pool_bytes / 2 ** 20
-        rows[label] = row
-        e, c = row["eager"], row["captured"]
-        print(f"  {label} on {card}: eager {e['ms']:.3f} ms (busy {e['busy_ms']:.3f} ms, "
-              f"{e['busy_ms'] / e['profiled_ms']:.0%} of its profiled time), captured "
-              f"{c['ms']:.3f} ms (busy {c['busy_ms']:.3f} ms, "
-              f"{c['busy_ms'] / c['profiled_ms']:.0%}); {e['ms'] / c['ms']:.2f}x; capture "
-              f"{row['capture_s']:.2f} s, graph pool {row['pool_mb']:.1f} MB", flush=True)
-        names = set(by_name["eager"]) | set(by_name["captured"])
-        diff = sorted(((by_name["captured"].get(k, 0.0) - by_name["eager"].get(k, 0.0), k)
-                       for k in names), reverse=True)
-        print("    device ms captured minus eager, by kernel (largest 5): " + "; ".join(
-            f"{d:+.3f} {k[:60]}" for d, k in diff[:5]), flush=True)
+        eager_vs_captured(torch, card, rows, label, eager_fn, graph_fn, step, per,
+                          COMPILED["timed"])
 
     t0 = time.perf_counter()
     # ---- Adam with its scalars on the device against the host-float form
@@ -3444,7 +3493,412 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
               f"{want})")
         timed(f"CIFAR sampler pass at bucket {bucket}, float32",
               lambda: s_eager.sample_with_z(z, labels), lambda: s_graph.sample_with_z(z, labels),
-              s_graph._passes_at[bucket][1])
+              next(prog.captured for (_, shapes), prog in s_graph._passes.programs.items()
+                   if dict(shapes)["labels"] == (bucket,)))
+    return {"counts": totals, "variants": var_totals, "rows": rows}
+
+
+# Phase 14, the rest of what JAX compiles (``train/graphs.py``), each
+# captured program against its eager body on the same start state under
+# deterministic algorithms, bit for bit: PGGAN's step at its app's defaults
+# (64x64, dim 128, z 128, batch 64, bf16; ``PG_WIDTH``, ``PG_BATCH``), three
+# iterations each of a stabilization at stage 1 and at stage 4 and of the
+# stage-4 transition (``alpha`` (i+1)/600 from the block); the CIFAR dev
+# cost's scan at ``bench.py``'s configuration (bf16, batch 64) over 16
+# index batches of a 4 096-image split, rcgan and rcgan-u (perm
+# classifier); the Inception score in batches of 500 with the stand-in
+# classifier and with Inception-v3's ``random_weights(0)``, one program kept
+# across calls as the CIFAR app keeps it: the app's 50 000 samples (the
+# first call, the capture included), then for the stand-in 5 000 (replays
+# only); label
+# recovery at ``RecoverConfig()`` (batch 500, lr 5e2) through the MNIST
+# generator at ``DCGANConfig()``, bf16, the first 50 steps compared, then
+# the app's call of all 1 000 steps; the CIFAR eval classifier's train step
+# over one epoch of the app's pin (20 000 images at batch 256).  Times:
+# PGGAN's and the dev cost's are medians by CUDA events over replays of a
+# program kept across calls; the others are one run each by CUDA events,
+# as the apps call them (a program per recovery and per train call).
+COMPILED_EVALS = {"pg_dataset": 256, "pg_iters": 3, "dev_dataset": 4096, "dev_batches": 16,
+                  "inception_n": 5000, "inception_app_n": 50000, "inception_batch": 500,
+                  "recover_check": 50, "cls_train": 20000, "cls_batch": 256, "timed": 5}
+
+
+def profiled_call(torch, fn, profiled: bool = True):
+    """``(fn's result, CUDA-event ms, wall ms, device busy ms)`` of one call
+    of ``fn``, under ``torch.profiler`` tracing the device only (the host's
+    trace of thousands of eager ops costs the script seconds); without
+    ``profiled``, busy is None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+            contextlib.nullcontext() as prof:
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 if profiled else None
+    return out, a.elapsed_time(b), wall, busy
+
+
+def timed_row(rows: dict, card: str, label: str, eager, captured, stats: dict) -> None:
+    """``rows[label]`` and its printed line from ``profiled_call``'s
+    ``(ms, wall ms, busy ms)`` of one eager and one captured run (each per
+    unit) and the program's ``stats``."""
+    row = {mode: {"ms": t[0], "profiled_ms": t[1], "busy_ms": t[2]}
+           for mode, t in (("eager", eager), ("captured", captured))}
+    row.update(capture_row(stats))
+    rows[label] = row
+
+    def busy(r):
+        return "busy not measured" if r["busy_ms"] is None else \
+            f"busy {r['busy_ms']:.3f} ms, {r['busy_ms'] / r['profiled_ms']:.0%} of its time"
+
+    e, c = row["eager"], row["captured"]
+    print(f"  {label} on {card}: eager {e['ms']:.3f} ms ({busy(e)}), captured {c['ms']:.3f} ms "
+          f"({busy(c)}); {e['ms'] / c['ms']:.2f}x; {capture_text(row)} (one run each, CUDA "
+          f"events)", flush=True)
+
+
+def dev_cost_counts(algorithm: str, perm: bool) -> dict:
+    """Launches of one dev-cost batch: ``disc_loss``'s forward
+    (``PATH_COUNTS``) with no gradient, the perm classifier's sn launch, and
+    one dequantisation."""
+    return {**PATH_COUNTS[f"disc_loss {algorithm}"], "sn": PATH_COUNTS[
+        f"disc_loss {algorithm}"]["sn"] + perm, "dequant": 1}
+
+
+def compiled_evals_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 14: each newly captured program against its eager body from
+    the same start under deterministic algorithms, bit for bit (the whole
+    state's sha256, the outputs), the launches of each replay against
+    ``pggan_counts`` / ``dev_cost_counts``; then per program, eager against
+    captured (``eager_vs_captured``).  Returns ``{"counts", "variants",
+    "rows"}``."""
+    import numpy as np
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
+    from rcgan_tpu_torch.apps.cifar_app import _sample_images_for_cls
+    from rcgan_tpu_torch.core import rng as trng
+    from rcgan_tpu_torch.data.cifar10 import device_dataset_of
+    from rcgan_tpu_torch.data.confusion import build_confusion, corrupt_dataset_numpy
+    from rcgan_tpu_torch.evals import inception_v3
+    from rcgan_tpu_torch.evals.classifier import cifar_classifier
+    from rcgan_tpu_torch.evals.inception import InceptionScore
+    from rcgan_tpu_torch.evals.recover import RecoverConfig, recover_labels
+    from rcgan_tpu_torch.models.dcgan import DCGANConfig
+    from rcgan_tpu_torch.models.pggan import PGGANConfig, _blend
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+    from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
+    from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
+    from rcgan_tpu_torch.train.state import train_state_tensors, trainable
+
+    totals = {k: 0 for k in runtime.KERNELS}
+    var_totals = dict.fromkeys(runtime.VARIANTS["conv3x3"], 0)
+    rows = {}
+    ce = COMPILED_EVALS
+    t0 = time.perf_counter()
+
+    def counted(fn):
+        runtime.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, var = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+        for k in totals:
+            totals[k] += got[k]
+        for k in var_totals:
+            var_totals[k] += var[k]
+        return out, got, var
+
+    def lap(what):
+        free, total = torch.cuda.mem_get_info()
+        print(f"  [{what}: {time.perf_counter() - t0:.1f} s into phase 14; device memory "
+              f"reserved {torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB, free "
+              f"{free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB]", flush=True)
+
+    # ---- the fade-in with alpha on the device, against the host float, at
+    # every alpha of a 600-iteration transition (stage 4's RGB maps, bf16 in)
+    g = torch.Generator().manual_seed(seed + 16)
+    new = (torch.rand(PG_BATCH, 64, 64, 3, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+    low = (torch.rand(PG_BATCH, 64, 64, 3, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+    n_trans = PGGANTrainConfig().trans_iters
+    alphas = torch.tensor([(i + 1) / n_trans for i in range(n_trans)], dtype=torch.float32,
+                          device=dev)
+    off = sum(int((_blend(alphas[i], new, low) != _blend((i + 1) / n_trans, new, low)).sum())
+              for i in range(n_trans))
+    check(off == 0, f"PGGAN fade-in on the card, alpha a float32 device scalar against the host "
+                    f"float, every alpha of a {n_trans}-iteration transition at "
+                    f"{list(new.shape)} bf16: {off} elements differ")
+
+    # ---- PGGAN's step per phase at the app's defaults
+    cfg = PGGANConfig(max_stage=4, **PG_WIDTH)
+    base = ResnetGANConfig(dim_g=PG_WIDTH["dim"], dim_d=PG_WIDTH["dim"], z_dim=PG_WIDTH["z_dim"])
+    tcfg = PGGANTrainConfig()
+    full = cfg.resolution(cfg.max_stage)
+    n = ce["pg_dataset"]
+    x_dev = (torch.rand(n, full, full, 3, generator=g) * 2 - 1).to(dev)
+    y_dev = torch.randint(0, 10, (n,), generator=g).to(dev)
+    eager = PGGANTrainer(cfg, base, tcfg, device=dev, compute_dtype=torch.bfloat16, graphs=False)
+    graph = PGGANTrainer(cfg, base, tcfg, device=dev, compute_dtype=torch.bfloat16)
+    check(graph.graphs and not eager.graphs and graph._samples.capture,
+          "PGGAN: a trainer on the card captures its step and sample by default")
+    drs = np.random.RandomState(seed + 17)
+
+    def pg_batch():
+        idx = torch.from_numpy(drs.randint(0, n, PG_BATCH)).to(dev)
+        return {"x": x_dev[idx], "labels": y_dev[idx]}
+
+    with deterministic_algorithms(torch):
+        ts_e, ts_g = eager.init(seed), graph.init(seed)
+        it = 0
+        for stage, trans in ((1, False), (4, False), (4, True)):
+            for i in range(ce["pg_iters"]):
+                alpha = (i + 1) / tcfg.trans_iters if trans else 1.0
+                batch = pg_batch()
+                (ts_g, m_g), got, var = counted(lambda: graph.step(
+                    ts_g, batch, trng.fold_in(seed, it), alpha, stage, trans))
+                ts_e, m_e = eager.step(ts_e, batch, trng.fold_in(seed, it), alpha, stage, trans)
+                it += 1
+                compared, differ, same = state_differences(torch, ts_g, ts_e)
+                last = i == ce["pg_iters"] - 1
+                digests = (state_digest(torch, ts_g), state_digest(torch, ts_e)) if last \
+                    else ("", "")
+                how = "the warm-up before the capture" if i == 0 else \
+                    f"replay {graph.program.captured.replays}"
+                check(not differ and same and digests[0] == digests[1]
+                      and all(torch.equal(m_g[k], m_e[k]) for k in m_e)
+                      and got == pggan_counts(stage) and var == pggan_variants(stage),
+                      f"PGGAN step, stage {stage} {'trans' if trans else 'stab'} (alpha "
+                      f"{alpha:.5f}), iteration {i} ({how}) against the eager body: {compared} "
+                      f"tensors, {len(differ)} differ {differ[:3]}"
+                      + (f", sha256 {digests[0][:12]} / {digests[1][:12]}" if last else "")
+                      + f", costs equal, launches {got} (want {pggan_counts(stage)}), conv3x3 "
+                      f"by route {var}")
+        check(graph.program.captured.captures == 3
+              and graph.program.captured.replays == 3 * (ce["pg_iters"] - 1),
+              f"PGGAN: one capture per phase ({graph.program.captured.captures}), "
+              f"{graph.program.captured.replays} replays")
+        z = torch.randn(PG_BATCH, PG_WIDTH["z_dim"], generator=g).to(dev)
+        labels = torch.arange(PG_BATCH, device=dev) % 10
+        for stage in (1, 4):
+            s_g = [graph.sample(ts_g, z, labels, stage) for _ in range(2)]  # warm-up, replay
+            s_e = eager.sample(ts_e, z, labels, stage)
+            check(all(torch.equal(s, s_e) for s in s_g) and s_e.shape[1] == cfg.resolution(stage),
+                  f"PGGAN sample at stage {stage}, batch {PG_BATCH}: the captured pass (warm-up "
+                  f"and replay) bit-equal to the eager one {list(s_e.shape)}")
+
+    def pg_iter(tr, state, stage, trans):
+        def run():
+            state["ts"], m = tr.step(state["ts"], pg_batch(), trng.fold_in(seed, state["ts"].step),
+                                     0.5 if trans else 1.0, stage, trans)
+            return m
+        return run
+
+    for stage, trans in ((4, False), (4, True), (1, False)):
+        eager_vs_captured(torch, card, rows, f"PGGAN stage {stage} "
+                          f"{'transition' if trans else 'stabilization'} iteration, bf16, batch "
+                          f"{PG_BATCH}", pg_iter(eager, {"ts": ts_e}, stage, trans),
+                          pg_iter(graph, {"ts": ts_g}, stage, trans), graph.program.captured,
+                          reps=ce["timed"])
+    del eager, graph, ts_e, ts_g, x_dev
+    lap("PGGAN")
+
+    # ---- the CIFAR dev cost's scan, rcgan and rcgan-u
+    c_mat, c_inv = build_confusion(0.6)
+    n, b, k = ce["dev_dataset"], 64, ce["dev_batches"]
+    rs = np.random.RandomState(seed + 18)
+    y_real, y_gen, y_fake, inv_w = corrupt_dataset_numpy(rs, rs.randint(0, 10, n), c_mat, c_inv)
+    ds = device_dataset_of({"images": rs.randint(0, 256, (n, 3072)).astype(np.uint8),
+                            "labels": y_real, "labels_random": y_gen, "labels_biased": y_fake,
+                            "labels_inv_weights": inv_w}, dev)
+    idx = rs.permutation(n)[:k * b].reshape(k, b)
+    ctcfg = CifarTrainConfig()
+    trainers = {}
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        ccfg = ResnetGANConfig(algorithm=alg)
+        acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        eager = CifarTrainer(ccfg, acfg, ctcfg, c_mat, dev, torch.bfloat16, graphs=False)
+        graph = CifarTrainer(ccfg, acfg, ctcfg, c_mat, dev, torch.bfloat16)
+        with deterministic_algorithms(torch):
+            ts_e, ts_g = eager.init(seed), graph.init(seed)
+            before = state_digest(torch, ts_g)
+            runs = []
+            for rep in range(2):  # the warm-up and capture, then replays only
+                cost, got, var = counted(lambda: graph.eval_disc_cost_scan(ts_g, ds, idx, seed))
+                runs.append((cost, graph.dev_program.read(k)["cost"], got))
+            cost_e = eager.eval_disc_cost_scan(ts_e, ds, idx, seed)
+            rows_e = eager.dev_program.read(k)["cost"]
+        want = {kk: k * v for kk, v in dev_cost_counts(alg, perm).items()}
+        check(all(torch.equal(c, cost_e) and torch.equal(r, rows_e) and got == want
+                  for c, r, got in runs)
+              and state_digest(torch, ts_g) == before == state_digest(torch, ts_e)
+              and math.isfinite(float(cost_e))
+              and graph.dev_program.captured.captures == 1
+              and graph.dev_program.captured.replays == 2 * k - 1,
+              f"CIFAR {alg} dev cost scan, bf16, {k} batches of {b} (the warm-up, then "
+              f"{graph.dev_program.captured.replays} replays over two scans) against the eager "
+              f"body: the mean {float(cost_e):.6f} and every batch's cost bit-equal, the state "
+              f"unchanged (sha256), launches {runs[-1][2]} (want {want})")
+        eager_vs_captured(torch, card, rows, f"CIFAR {alg} dev cost per batch, bf16, batch {b}",
+                          lambda: eager.eval_disc_cost_scan(ts_e, ds, idx, seed),
+                          lambda: graph.eval_disc_cost_scan(ts_g, ds, idx, seed),
+                          graph.dev_program.captured, per=k, reps=ce["timed"])
+        trainers[alg] = (eager, graph, ts_e, ts_g)
+    lap("dev cost")
+
+    # ---- the Inception score: stand-in classifier and Inception-v3, each
+    # through one InceptionScore kept across calls, as the CIFAR app keeps
+    # it: the app's 50 000 samples, captured (its first call: the warm-up
+    # batch and the capture included) and eager; then, for the stand-in,
+    # 5 000 samples (the same graph's replays only) and eager
+    eager, graph, ts_e, ts_g = trainers.pop("rcgan")
+    trainers.clear()
+    icfg = eager.cfg
+    cls_e, cls_g = cifar_classifier(device=dev, graphs=False), cifar_classifier(device=dev)
+    cls_e.init(seed)
+    cls_g.load_params(cls_e.params)
+    iv3 = inception_v3.make_logits_fn(inception_v3.random_weights(0), device=dev)
+    t = time.perf_counter()
+    gc.collect()
+    print(f"  a full gc.collect() in this process: {(time.perf_counter() - t) * 1e3:.1f} ms "
+          f"over {len(gc.get_objects())} objects (what each capture pays first)", flush=True)
+    ni, na, bi = ce["inception_n"], ce["inception_app_n"], ce["inception_batch"]
+    cls_state = list(cls_g.net.state_dict().values())
+    for name, (logits_e, logits_g) in (("stand-in classifier", (cls_e.logits, cls_g.logits)),
+                                       ("Inception-v3 random_weights(0)", (iv3, iv3))):
+        def scorer(tr, ts, logits_fn, graphs):
+            return InceptionScore(lambda s, bb: _sample_images_for_cls(tr, ts, icfg, s, bb),
+                                  logits_fn, batch=bi, device=dev, graphs=graphs)
+
+        sc_g, sc_e = scorer(graph, ts_g, logits_g, None), scorer(eager, ts_e, logits_e, False)
+        state = train_state_tensors(ts_g) + cls_state
+        # the app's 50 000 samples are timed by events alone; Inception-v3's
+        # kernels overlap (the profiler's device sum exceeds the call's
+        # time), and its 50 000 samples are already 99 replays, so it takes
+        # no later call
+        later = not name.startswith("Inception")
+        with deterministic_algorithms(torch):
+            (app_g, *ta_g), launched, _ = counted(lambda: profiled_call(
+                torch, lambda: sc_g(state, n=na, seed=seed), False))
+            app_e, *ta_e = profiled_call(torch, lambda: sc_e((), n=na, seed=seed), False)
+            got_g = got_e = app_g
+            if later:
+                got_g, *t_g = profiled_call(torch, lambda: sc_g(state, n=ni, seed=seed))
+                got_e, *t_e = profiled_call(torch, lambda: sc_e((), n=ni, seed=seed))
+        st = sc_g.program.captured.stats()
+        check(app_g == app_e and got_g == got_e and all(math.isfinite(v) for v in app_g + got_g)
+              and st["captures"] == 1 and st["replays"] == na // bi - 1 + later * ni // bi,
+              f"Inception score ({name}) in batches of {bi}, one program: the app's {na} "
+              f"samples captured (the warm-up, then {na // bi - 1} replays) {app_g[0]:.6f} +- "
+              f"{app_g[1]:.6f}, eager {app_e[0]:.6f} +- {app_e[1]:.6f}"
+              + (f"; then {ni} samples (replays only) {got_g[0]:.6f} / {got_e[0]:.6f}"
+                 if later else "") + f"; bit-equal, {st['captures']} capture; launches "
+              f"{launched}")
+        timed_row(rows, card, f"Inception score ({name}), the app's {na} samples, its first "
+                  f"call (the capture included)", ta_e, ta_g, st)
+        if later:
+            timed_row(rows, card, f"Inception score ({name}), {ni} samples, a later call "
+                      f"(replays only)", t_e, t_g, st)
+        del sc_g, sc_e
+        lap(f"Inception score, {name}")
+    del eager, graph, ts_e, ts_g, cls_e, cls_g, iv3, cls_state, state
+
+    # ---- label recovery at RecoverConfig(): its first 50 steps checked,
+    # then the app's call, all 1 000 steps, captured and eager
+    mcfg = DCGANConfig(disc_type="projection")
+    macfg = MnistAlgoConfig(algorithm="rcgan", estimate_confuse=True, perm_regularizer=True)
+    mtr = MnistTrainer(mcfg, macfg, MnistTrainConfig(), build_confusion(0.3)[0], device=dev,
+                       compute_dtype=torch.bfloat16)
+    mts = mtr.init(seed)
+    rcfg = RecoverConfig()
+    rrs = np.random.RandomState(seed + 19)
+    images = torch.from_numpy(rrs.rand(rcfg.batch_size, 28, 28, 1).astype(np.float32)).to(dev)
+    y_act = torch.from_numpy(rrs.randint(0, 10, rcfg.batch_size)).to(dev)
+
+    def recover(epochs, graphs):
+        with trainable(mts, []):
+            return recover_labels(lambda zz, yy: mts.gan.G(zz, yy, train=False), images, y_act,
+                                  dataclasses.replace(rcfg, epochs=epochs), seed=7,
+                                  graphs=graphs)
+
+    def per_step(t, n):
+        return [None if v is None else v / n for v in t]
+
+    nc, ne = ce["recover_check"], rcfg.epochs
+    with deterministic_algorithms(torch):
+        ((rec_g, met_g), *t_c), _, _ = counted(lambda: profiled_call(
+            torch, lambda: recover(nc, True)))
+        (rec_e, met_e), *t_e = profiled_call(torch, lambda: recover(nc, False))
+    stats = met_g["program"]
+    check(all(np.array_equal(met_g[kk], met_e[kk])
+              for kk in ("mse", "zero_one", "y_recover", "z_recover"))
+          and np.array_equal(rec_g, rec_e) and stats["replays"] == nc - 1,
+          f"label recovery at RecoverConfig() (batch {rcfg.batch_size}, lr "
+          f"{rcfg.learning_rate}), the first {nc} steps captured (the warm-up, then "
+          f"{stats['replays']} replays) against the eager loop: the mse and zero-one "
+          f"trajectories, the final softmax and z bit-equal (mse {met_e['mse'][0]:.5f} -> "
+          f"{met_e['mse'][-1]:.5f})")
+    timed_row(rows, card, f"label recovery step, batch {rcfg.batch_size} (over {nc} steps, the "
+              f"capture included)", per_step(t_e, nc), per_step(t_c, nc), stats)
+    (_, full_g), *tf_g = profiled_call(torch, lambda: recover(ne, True), False)
+    (_, full_e), *tf_e = profiled_call(torch, lambda: recover(ne, False), False)
+    check(all(m["mse"].shape == (ne,) and np.isfinite(m["mse"]).all() for m in (full_g, full_e))
+          and full_g["program"]["replays"] == ne - 1,
+          f"label recovery, the app's call of all {ne} steps, captured (one capture, "
+          f"{full_g['program']['replays']} replays) and eager: mse {full_g['mse'][0]:.5f} -> "
+          f"{full_g['mse'][-1]:.5f} / {full_e['mse'][-1]:.5f}, accuracy "
+          f"{full_g['accuracy']:.3f} / {full_e['accuracy']:.3f}")
+    timed_row(rows, card, f"label recovery step, batch {rcfg.batch_size} (the app's {ne} steps, "
+              f"the capture included)", per_step(tf_e, ne), per_step(tf_g, ne),
+              full_g["program"])
+    del mtr, mts
+    lap("label recovery")
+
+    # ---- the eval classifier's train step over one epoch of the app's pin
+    # (a program per train call: the captured epoch holds its warm-up step
+    # and its capture; the apps train eagerly, as a classifier made with no
+    # ``graphs`` does)
+    by_default = cifar_classifier(device=dev)
+    check(by_default.graphs and not by_default.train_graphs,
+          "CIFAR eval classifier on the card by default: its logits captured, its train step "
+          "eager")
+    del by_default
+    crs = np.random.RandomState(seed + 20)
+    xc = crs.uniform(-1, 1, (ce["cls_train"], 32, 32, 3)).astype(np.float32)
+    yc = crs.randint(0, 10, ce["cls_train"])
+    steps = ce["cls_train"] // ce["cls_batch"]
+    made = {}
+
+    def train_epoch(graphs):
+        cls = cifar_classifier(device=dev, graphs=graphs)
+        cls.init(123)
+        made[graphs] = cls
+        return cls.train(123, xc, yc, epochs=1, batch_size=ce["cls_batch"])
+
+    with deterministic_algorithms(torch):
+        (acc_g, *t_g), _, _ = counted(lambda: profiled_call(torch, lambda: train_epoch(True)))
+        acc_e, *t_e = profiled_call(torch, lambda: train_epoch(False))
+    tp = made[True].train_program.captured.stats()
+    differ = [nm for (nm, a), (_, b_) in zip(made[True].net.named_parameters(),
+                                             made[False].net.named_parameters())
+              if not torch.equal(a, b_)]
+    check(not differ and acc_g == acc_e and tp["captures"] == 1 and tp["replays"] == steps - 1,
+          f"CIFAR eval classifier, one epoch of the app's pin ({ce['cls_train']} images, "
+          f"{steps} steps at batch {ce['cls_batch']}) captured (the warm-up, then "
+          f"{tp['replays']} replays) against the eager loop: {len(differ)} of "
+          f"{len(list(made[True].net.parameters()))} parameters differ {differ[:3]}, last "
+          f"batch's accuracy {acc_g:.4f} / {acc_e:.4f}")
+    timed_row(rows, card, f"CIFAR eval classifier train step (an epoch of {steps}, the capture "
+              f"included), batch {ce['cls_batch']}", [v / steps for v in t_e],
+              [v / steps for v in t_g], tp)
+    lap("classifier train")
     return {"counts": totals, "variants": var_totals, "rows": rows}
 
 
@@ -3875,6 +4329,11 @@ def main(argv=None) -> int:
     lap("phase 13")
     print(json.dumps({"compiled": compiled["rows"]}), flush=True)
 
+    # ------------------------------------ 14. the rest of what JAX compiles
+    compiled_evals = compiled_evals_slice(torch, dev, args.seed, card)
+    lap("phase 14")
+    print(json.dumps({"compiled_evals": compiled_evals["rows"]}), flush=True)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -3926,7 +4385,7 @@ def main(argv=None) -> int:
         row = dict(name=k, **KERNEL_INFO[k],
                    launches=(counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k]
                              + mnist["counts"][k] + pggan["counts"][k] + dp["counts"][k]
-                             + compiled["counts"][k]),
+                             + compiled["counts"][k] + compiled_evals["counts"][k]),
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":
@@ -3966,7 +4425,7 @@ def main(argv=None) -> int:
         if k == "conv3x3":
             row["variants"] = {v: serve_variants[v] + d_variants[v] + t_res["variants"][v]
                                + app["variants"][v] + pggan["variants"][v]
-                               + compiled["variants"][v]
+                               + compiled["variants"][v] + compiled_evals["variants"][v]
                                for v in runtime.VARIANTS[k]}
             row["ms_is"] = (f"the FFMA kernel on one float32 generator pass at batch 100 "
                             f"({len(ffma_shapes)} convs; G's 256 -> 3 conv is on cuDNN), eager, "

@@ -32,6 +32,12 @@ Flags, cadences and file layout are the JAX app's.  What differs:
   draws what the uninterrupted run drew; like JAX's, its batch iterators
   restart at position 0 of the split.
 - ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
+- On the card (with no group) the cycle, its blocks, the dev cost's scan,
+  the samples, the Inception score's batches (one program for the run)
+  and the classifier's logits run captured in CUDA graphs, as JAX jits
+  or scans them (``train/graphs.py``), and the classifier's train step
+  eagerly (device-bound; ``PERF.md`` §5); the ``stats`` phases read the
+  same either way.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from rcgan_tpu_torch.data.pipeline import Prefetcher
 from rcgan_tpu_torch.evals.classifier import (cifar_classifier, generated_label_accuracy,
                                               train_pinned)
 from rcgan_tpu_torch.evals import inception_v3
-from rcgan_tpu_torch.evals.inception import inception_score
+from rcgan_tpu_torch.evals.inception import InceptionScore
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.mesh import join_app_group, spawn_app
@@ -63,6 +69,7 @@ from rcgan_tpu_torch.train.checkpoint import Checkpointer, load_payload
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
 from rcgan_tpu_torch.train.failures import (PreemptionGuard, fault_injection_step,
                                             maybe_inject_fault)
+from rcgan_tpu_torch.train.state import train_state_tensors
 from rcgan_tpu_torch.utils import run_dir as run_dir_lib
 from rcgan_tpu_torch.utils.images import save_cifar_samples, to_uint8_samples
 from rcgan_tpu_torch.utils.metrics import MetricLogger
@@ -185,9 +192,13 @@ def _random_labels(seed: int, n: int, vocab: int, device) -> torch.Tensor:
     return torch.remainder(trng.example_bits(seed, n, 1, device)[:, 0], vocab)
 
 
-def _sample_images_for_cls(trainer, ts, cfg, seed: int, batch: int) -> torch.Tensor:
-    z = trng.example_normal(seed, batch, cfg.z_dim, trainer.device)
-    labels = _random_labels(trng.fold_in(seed, 1), batch, cfg.vocab_size, trainer.device)
+def _sample_images_for_cls(trainer, ts, cfg, seeds: torch.Tensor, batch: int) -> torch.Tensor:
+    """A batch of the Inception score's samples from its device seeds
+    (``evals.inception.batch_seeds``: the batch's seed and its labels'
+    ``fold_in(seed, 1)``), the draws of :func:`_random_labels` and
+    ``example_normal`` keyed on the device."""
+    z = trng.example_normal_from(seeds[0], batch, cfg.z_dim)
+    labels = torch.remainder(trng.example_bits_from(seeds[1], batch, 1)[:, 0], cfg.vocab_size)
     return trainer.sample(ts, z, labels).reshape(-1, 32, 32, 3)
 
 
@@ -306,9 +317,13 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
     metrics = MetricLogger()
     # the reference writes summaries to CHECKPOINT_DIR
     tb = SummaryWriter(ckpt_dir if main_rank else None)
-    eval_cls = inception_logits_fn = None
+    eval_cls = scorer = None
     if main_rank:  # the evals run on rank 0
         eval_cls, inception_logits_fn = _scorers(flags, train_split, dev_split, dev, clock)
+        # one program for every score of the run (its capture paid once)
+        scorer = InceptionScore(
+            lambda seeds, b: _sample_images_for_cls(trainer, ts, cfg, seeds, b),
+            inception_logits_fn, batch=500, device=dev)
 
     if flags.device_data:
         d_iter = infinite_index_batches(train_split, batch_size, tcfg.n_critic)
@@ -396,9 +411,8 @@ def main(argv=None, device="cuda", stats: Optional[dict] = None):
         if iteration % flags.inception_freq == flags.inception_freq - 1:
             log.info("starting inception score computation.")
             t = time.perf_counter()
-            score, std = inception_score(
-                sample_fn=lambda seed, b: _sample_images_for_cls(trainer, ts, cfg, seed, b),
-                logits_fn=inception_logits_fn, n=50000, batch=500)
+            score, std = scorer(
+                train_state_tensors(ts) + list(eval_cls.net.state_dict().values()), n=50000)
             clock.add("inception", time.perf_counter() - t)
             best["inception"] = max(best["inception"], score)
             metrics.plot("inception_50k", score)

@@ -29,6 +29,12 @@ Flags, cadences and file layout are the JAX app's.  What differs:
   ``fold_in(train_seed, i)`` (JAX splits a key per block).
 - The eval classifier is the port's, trained and pinned under
   ``--checkpoint_dir`` as JAX's is.
+- On the card (with no group) the iteration, ``step_scan``'s blocks, the
+  samples and the classifier's logits run captured in CUDA graphs, as JAX
+  jits or scans them (``train/graphs.py``); label recovery and the
+  classifier's train step run eagerly, as their step is device-bound and
+  a capture made per call costs more than its replays save (``PERF.md``
+  §5).  The ``stats`` phases read the same either way.
 """
 
 from __future__ import annotations

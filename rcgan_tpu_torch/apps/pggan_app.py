@@ -19,7 +19,11 @@ Flags and defaults are the JAX app's.  What differs: the app runs on the
 card (``main(argv, device="cpu")`` runs it on the CPU, as the tests do);
 ``z`` is the port's ``example_normal`` stream, not ``jax.random``'s; the
 pinned classifier is the port's (its cache file is shared with the JAX
-package's layout).
+package's layout).  On the card the step (per phase), the samples (per
+stage and batch) and the classifier's logits run captured in CUDA graphs,
+as JAX jits them (``train/graphs.py``), and the classifier's train step
+eagerly (device-bound; ``PERF.md`` §5); the ``stats`` phases read the
+same either way.
 """
 
 from __future__ import annotations

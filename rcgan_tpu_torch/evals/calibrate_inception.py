@@ -64,7 +64,8 @@ def main(argv=None, device="cuda"):
         logits_fn = cls.logits
         scorer = "compact stand-in (NOT on the 11.31 scale)"
 
-    mean, std = real_data_score(imgs, logits_fn, batch=args.batch, splits=args.splits)
+    mean, std = real_data_score(imgs, logits_fn, batch=args.batch, splits=args.splits,
+                                device=device)
     print(f"scorer: {scorer}")
     print(f"real-data inception score over {len(imgs)} images: {mean:.3f} +/- {std:.3f}")
     print("reference anchor (Inception-v3, real CIFAR-10): 11.31 +/- 0.08")

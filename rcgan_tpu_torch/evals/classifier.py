@@ -17,13 +17,22 @@ training may run bf16.  The CIFAR ResNet's 3x3 convs at 64-256 channels
 reach the FFMA conv3x3 kernel on the card (the 3-channel stem goes to
 cuDNN); the MNIST CNN's 5x5 convs go to cuDNN (``F.conv2d``), as JAX
 leaves them to XLA.
+
+JAX jits the classifier's ``logits`` and its train step; the port runs
+each as one body (``train/graphs.py``), its batch and Adam's scalars read
+from a block that one copy fills each step.  On a card ``logits`` is
+captured in a CUDA graph once per batch shape; the train step is captured
+once per :meth:`EvalClassifier.train` call only when asked: it is
+device-bound, and its capture costs more than its replays save
+(``PERF.md`` §5).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
-from typing import Callable, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +43,8 @@ from rcgan_tpu_torch.core.module import float32_policy, param_tree, scoped_modul
 from rcgan_tpu_torch.ops.conv import Conv2dLib, mean_pool
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.ops.linear import LinearLib
-from rcgan_tpu_torch.train.state import ScalelessAdam
+from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on, state_key
+from rcgan_tpu_torch.train.state import AdamState, ScalelessAdam
 
 
 class _Block(nn.Module):
@@ -112,16 +122,23 @@ def cifar_resnet(dim: int = 64, seed: int = 0, device="cuda") -> CifarResnet:
 class EvalClassifier:
     """init/train/predict around a net built by ``build(seed)`` on
     ``device``, float32.  ``params`` is its weight tree in the JAX layout
-    (numpy), what :meth:`save` writes and :meth:`load` reads."""
+    (numpy), what :meth:`save` writes and :meth:`load` reads.  ``graphs``
+    (module doc): by default a CUDA device captures ``logits`` and runs
+    the train step eagerly; ``True`` captures both, ``False`` neither, and
+    asking the CPU for graphs raises."""
 
     def __init__(self, build: Callable[[int], nn.Module], input_shape: Tuple[int, ...],
-                 device="cuda"):
+                 device="cuda", graphs: Optional[bool] = None):
         self.device = resolve_device(device)
         float32_policy(torch.float32)
         self.build = build
         self.input_shape = input_shape
         self.net = None
         self.meta: dict = {}
+        self.graphs = capture_on(self.device, graphs)
+        self.train_graphs = graphs is True
+        self._logits = Passes(self._logits_pass, {"x": torch.float32}, self.device, self.graphs)
+        self.train_program: Optional[Program] = None  # the last train call's step
 
     def init(self, seed: int = 0) -> nn.Module:
         self.net = self.build(seed).to(self.device)
@@ -151,10 +168,14 @@ class EvalClassifier:
 
     def logits(self, x) -> torch.Tensor:
         """float32 logits of ``x [B, *input_shape]`` (numpy or tensor) on the
-        classifier's device."""
-        x = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x)
+        classifier's device, a tensor of their own; on a card the pass is
+        captured once per batch shape."""
+        return self._logits({"x": x}, self.net)
+
+    @staticmethod
+    def _logits_pass(inputs: Dict[str, torch.Tensor], net: nn.Module) -> torch.Tensor:
         with torch.no_grad():
-            return self.net(x.to(self.device, torch.float32)).float()
+            return net(inputs["x"]).float()
 
     def predict(self, x: np.ndarray, batch_size: int = 500) -> np.ndarray:
         """Argmax labels, every batch issued before one fetch at the end."""
@@ -171,21 +192,38 @@ class EvalClassifier:
         params = list(self.net.parameters())
         opt = ScalelessAdam(0.9, 0.999)
         state = opt.init(params)
+        prog = self.train_program = Program(
+            functools.partial(self._train_step, params, opt, state),
+            {"x": torch.float32, "y": torch.int64, "adam": torch.float32}, self.device,
+            self.train_graphs, {"acc": (torch.float32, ())})
+        key = state_key(params + state.mu + state.nu)
         n = len(x)
-        acc = 0.0
+        stepped = False
         rs = np.random.RandomState(0)
         for _ in range(epochs):
             perm = rs.permutation(n)
             for i in range(0, n - batch_size + 1, batch_size):
                 idx = perm[i: i + batch_size]
-                xb = torch.from_numpy(np.asarray(x[idx], np.float32)).to(self.device)
-                yb = torch.from_numpy(np.asarray(y[idx], np.int64)).to(self.device)
-                logits = self.net(xb)
-                loss = F.cross_entropy(logits, yb)
-                grads = torch.autograd.grad(loss, params)
-                opt.update_(params, grads, state, lr)
-                acc = (logits.argmax(-1) == yb).float().mean()
-        return float(acc)
+                state.count += 1
+                prog.run([{"x": np.asarray(x[idx], np.float32), "y": np.asarray(y[idx], np.int64),
+                           "adam": opt.scalars(state.count, lr)}], key, held=state)
+                stepped = True
+        acc = float(prog.read(1)["acc"][0]) if stepped else 0.0
+        prog.captured.reset()  # the graph and its pool go; its counts and times stay
+        return acc
+
+    def _train_step(self, params: List[torch.Tensor], opt: ScalelessAdam, state: AdamState,
+                    blk: StepBlock) -> None:
+        """One Adam step on the block's row ``counter`` (the batch and
+        :meth:`ScalelessAdam.scalars` of the step's count), in place on the
+        net's parameters and ``state``; the batch's accuracy to the row."""
+        xb, yb = blk.row("x"), blk.row("y")
+        logits = self.net(xb)
+        loss = F.cross_entropy(logits, yb)
+        grads = torch.autograd.grad(loss, params)
+        opt.apply_(params, grads, state, blk.row("adam"))
+        blk.write("acc", (logits.argmax(-1) == yb).float().mean())
+        blk.advance()
 
     def accuracy(self, x: np.ndarray, y: np.ndarray) -> float:
         """Top-1 accuracy on (clean) data, the classifier's yardstick."""
@@ -242,14 +280,16 @@ def train_pinned(cls: EvalClassifier, path: str, x_train: np.ndarray, y_train: n
     return acc
 
 
-def mnist_classifier(device="cuda") -> EvalClassifier:
+def mnist_classifier(device="cuda", graphs: Optional[bool] = None) -> EvalClassifier:
     """The MNIST eval classifier (JAX ``mnist_classifier``)."""
-    return EvalClassifier(lambda seed: MnistCnn(seed), (28, 28, 1), device)
+    return EvalClassifier(lambda seed: MnistCnn(seed), (28, 28, 1), device, graphs)
 
 
-def cifar_classifier(dim: int = 64, img_size: int = 32, device="cuda") -> EvalClassifier:
+def cifar_classifier(dim: int = 64, img_size: int = 32, device="cuda",
+                     graphs: Optional[bool] = None) -> EvalClassifier:
     """The CIFAR eval classifier (fully convolutional: any ``img_size``)."""
-    return EvalClassifier(lambda seed: CifarResnet(dim, seed), (img_size, img_size, 3), device)
+    return EvalClassifier(lambda seed: CifarResnet(dim, seed), (img_size, img_size, 3), device,
+                          graphs)
 
 
 def generated_label_accuracy(classifier: EvalClassifier, samples: np.ndarray, labels: np.ndarray,

@@ -175,30 +175,36 @@ def inception_v3_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     return inception_v3_blocks(params, x, keep_blocks=False)[0]
 
 
-def preprocess(images: torch.Tensor, source_range: str = "[-1,1]") -> torch.Tensor:
+def preprocess(images: torch.Tensor, source_range: str = "[-1,1]",
+               norm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """``images [B, H, W, 3]`` → ``[B, 299, 299, 3]``: to [0, 1] (from
     [-1, 1] unless ``source_range`` says otherwise), bilinear to 299, and
-    ImageNet-normalized."""
+    ImageNet-normalized by ``norm`` (ImageNet's mean and std already on the
+    images' device; made from the host constants when not given)."""
     x = images.float()
     if source_range == "[-1,1]":
         x = (x + 1.0) * 0.5
     antialias = max(x.shape[1], x.shape[2]) > SIZE
     x = F.interpolate(x.permute(0, 3, 1, 2), size=(SIZE, SIZE), mode="bilinear",
                       align_corners=False, antialias=antialias).permute(0, 2, 3, 1)
-    mean = torch.as_tensor(_MEAN, device=x.device)
-    std = torch.as_tensor(_STD, device=x.device)
+    mean, std = norm if norm is not None else (torch.as_tensor(_MEAN, device=x.device),
+                                                torch.as_tensor(_STD, device=x.device))
     return (x - mean) / std
 
 
 def make_logits_fn(params: Dict[str, np.ndarray], source_range: str = "[-1,1]",
                    device="cuda"):
-    """A ``logits_fn`` for :func:`rcgan_tpu_torch.evals.inception.
-    inception_score`: takes flat ``[B, 3072]`` HWC CIFAR samples or
+    """A ``logits_fn`` for :class:`rcgan_tpu_torch.evals.inception.
+    InceptionScore`: takes flat ``[B, 3072]`` HWC CIFAR samples or
     ``[B, H, W, 3]`` images (numpy or tensors) → float32 logits on
-    ``device``, TF32 off.  The weights move to ``device`` once."""
+    ``device``, TF32 off.  The weights and the normalization's constants
+    move to ``device`` once, so that a call on a device tensor does no host
+    work and can be captured in a CUDA graph (the Inception score's
+    program)."""
     dev = resolve_device(device)
     float32_policy(torch.float32)
     p = {k: torch.as_tensor(np.asarray(v, np.float32)).to(dev) for k, v in params.items()}
+    norm = (torch.as_tensor(_MEAN, device=dev), torch.as_tensor(_STD, device=dev))
 
     def logits_fn(imgs) -> torch.Tensor:
         x = torch.as_tensor(imgs if torch.is_tensor(imgs) else np.asarray(imgs, np.float32))
@@ -207,7 +213,7 @@ def make_logits_fn(params: Dict[str, np.ndarray], source_range: str = "[-1,1]",
             n = int(round((x.shape[-1] // 3) ** 0.5))
             x = x.reshape(-1, n, n, 3)
         with torch.no_grad():
-            return inception_v3_logits(p, preprocess(x, source_range))
+            return inception_v3_logits(p, preprocess(x, source_range, norm))
 
     return logits_fn
 

@@ -10,8 +10,15 @@ over every class ``k``:
     loss = mean_i Σ_k softmax(y_logits_i)_k · mean((x_i − G(z_ik, e_k))²)
 
 The reference takes 1000 steps at lr 5e2 on a batch of 500.  JAX runs the
-loop as one ``lax.scan``; the port runs it eagerly on the device, the
-per-step losses kept there and fetched once at the end.  The initial
+loop as one ``lax.scan``; the port runs one step's body (G forward, the
+gradients in ``z`` and ``y_logits``, the update) once per row of a block
+(``train/graphs.py``): eagerly by default, or on a card (``graphs=True``)
+captured once in a CUDA graph and replayed ``epochs`` times.  The step is
+device-bound at the reference's batch (5 000 rows through G), so the
+replays save about what the capture costs (``PERF.md`` §5), and eager is
+the default.  ``z`` and ``y_logits`` are leaves at fixed addresses,
+updated in place; the per-step losses go to the block's outputs and are
+fetched once at the end.  The initial
 ``(z, y_logits)`` are TF's default Glorot-uniform, drawn per example on the
 device (:func:`rcgan_tpu_torch.core.rng.example_uniform`); a test hands in
 JAX's instead (``init``).
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from rcgan_tpu_torch.core import rng as trng
+from rcgan_tpu_torch.train.graphs import Program, StepBlock, capture_on
 from rcgan_tpu_torch.utils.images import encode_png
 
 
@@ -52,45 +60,57 @@ def initial_values(cfg: RecoverConfig, seed: int, device) -> Tuple[torch.Tensor,
 
 def recover_labels(sampler: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                    images: torch.Tensor, y_actual: torch.Tensor, cfg: RecoverConfig,
-                   seed: int = 7, init: Optional[Tuple] = None) -> Tuple[np.ndarray, dict]:
+                   seed: int = 7, init: Optional[Tuple] = None,
+                   graphs: bool = False) -> Tuple[np.ndarray, dict]:
     """``sampler(z, y_onehot)`` is the frozen generator (BN in inference
-    mode), differentiable in ``z``.  ``images [B, H, W, C]`` and ``y_actual
-    [B]`` (evals only) lie on the device the recovery runs on; ``init``,
-    when given, is the initial ``(z, y_logits)``.  Returns the recovered
-    labels ``[B]`` and the metrics: the ``mse`` and ``zero_one``
-    trajectories (one value per step), ``accuracy``, ``y_recover`` (the
-    final softmax) and ``z_recover``."""
+    mode), differentiable in ``z``, run eagerly inside the step's body.
+    ``images [B, H, W, C]`` and ``y_actual [B]`` (evals only) lie on the
+    device the recovery runs on; ``init``, when given, is the initial ``(z,
+    y_logits)``.  ``graphs``: capture the step (a card only; module doc).
+    Returns the recovered labels ``[B]`` and the metrics: the ``mse`` and
+    ``zero_one`` trajectories (one value per step), ``accuracy``,
+    ``y_recover`` (the final softmax), ``z_recover`` and ``program``, the
+    step's :meth:`~rcgan_tpu_torch.train.graphs.CapturedStep.stats`."""
     b, y_dim = cfg.batch_size, cfg.y_dim
     if images.shape[0] != b:
         raise ValueError(f"recover_labels wants {b} images; got {images.shape[0]}")
     dev = images.device
+    capture = capture_on(dev, graphs)
     if init is None:
         z, y_logits = initial_values(cfg, seed, dev)
     else:
         z, y_logits = (torch.as_tensor(np.asarray(t), dtype=torch.float32).to(dev) for t in init)
+    z, y_logits = z.clone().requires_grad_(True), y_logits.clone().requires_grad_(True)
     hard_y = torch.eye(y_dim, dtype=torch.float32, device=dev).repeat(b, 1)  # [B*y, y]
     imgs = images.float()[:, None]
     y_actual = y_actual.to(dev)
-    mses, zero_ones = [], []
-    for _ in range(cfg.epochs):
-        z.requires_grad_(True)
-        y_logits.requires_grad_(True)
+
+    def step(blk: StepBlock) -> None:
         gen = sampler(z, hard_y).float().reshape((b, y_dim) + tuple(imgs.shape[2:]))
         sq = torch.mean((imgs - gen) ** 2, dim=(-1, -2, -3))  # [B, y]
         loss = torch.mean(torch.sum(sq * torch.softmax(y_logits, dim=-1), dim=-1))
         gz, gy = torch.autograd.grad(loss, (z, y_logits))
         with torch.no_grad():
-            z = z - cfg.learning_rate * gz
-            y_logits = y_logits - cfg.learning_rate * gy
-            mses.append(loss.detach())
-            zero_ones.append((y_logits.argmax(-1) != y_actual).float().mean())
+            z.copy_(z - cfg.learning_rate * gz)
+            y_logits.copy_(y_logits - cfg.learning_rate * gy)
+            blk.write("mse", loss.detach())
+            blk.write("zero_one", (y_logits.argmax(-1) != y_actual).float().mean())
+        blk.advance()
+
+    prog = Program(step, {}, dev, capture,
+                   {"mse": (torch.float32, ()), "zero_one": (torch.float32, ())})
+    prog.run([{}] * cfg.epochs)
+    out = prog.read(cfg.epochs)
+    prog.captured.reset()  # the graph and its pool go; its counts and times stay
+    z, y_logits = z.detach(), y_logits.detach()
     recovered = y_logits.argmax(-1).cpu().numpy()
     metrics = {
-        "mse": torch.stack(mses).cpu().numpy(),
-        "zero_one": torch.stack(zero_ones).cpu().numpy(),
+        "mse": out["mse"].cpu().numpy(),
+        "zero_one": out["zero_one"].cpu().numpy(),
         "accuracy": float((recovered == y_actual.cpu().numpy()).mean()),
         "y_recover": torch.softmax(y_logits, dim=-1).cpu().numpy(),
         "z_recover": z.cpu().numpy(),
+        "program": prog.captured.stats(),
     }
     return recovered, metrics
 

@@ -8,7 +8,8 @@ with PGGAN's fade-in between stages (reference surface:
   trans, alpha)`` runs only that phase's: the input linear, pixel norm, the
   blocks 1..stage (cond-BN, "up") with pixel norm after each, ReLU, ToRGB
   and tanh; in a transition, ``alpha * new + (1 - alpha) * up(low)``, with
-  ``low`` the previous stage's RGB through ``ToRGB.{stage-1}``.
+  ``low`` the previous stage's RGB through ``ToRGB.{stage-1}`` (``alpha`` a
+  host float or a float32 scalar tensor, :func:`_blend`).
 - :class:`Discriminator` holds ``PG.D.FromRGB.{s}``, ``PG.D.Block.{s}``
   ("down", spectral-normed), ``PG.D.Output`` and the projection head
   (``PG.D.Embedding.Label``, the spectral-normed ``PG.D.Embedding_y``);
@@ -35,7 +36,7 @@ scopes and layouts are JAX's, so the trees load by name
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,9 +74,16 @@ def _check_phase(cfg: PGGANConfig, stage: int, trans: bool) -> None:
                          f"{cfg.max_stage} stages (a transition needs stage >= 2)")
 
 
-def _blend(alpha: float, new: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+def _blend(alpha, new: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
     """``alpha * new + (1 - alpha) * low`` in float32, both weights rounded
-    to float32 as JAX computes them from its float32 ``alpha``."""
+    to float32 as JAX computes them from its float32 ``alpha``.  ``alpha``
+    is a host float, or a float32 scalar tensor on the maps' device (a
+    captured step's, which reads it from its block): ``1 - alpha`` is then
+    taken there, in float32, and each product and the sum round as with the
+    host floats."""
+    if torch.is_tensor(alpha):
+        a = alpha.to(torch.float32)
+        return a * new.float() + (1.0 - a) * low.float()
     a = np.float32(alpha)
     return float(a) * new.float() + float(np.float32(1.0) - a) * low.float()
 
@@ -97,7 +105,7 @@ class Generator(nn.Module):
                                                he_init=False, seed=seed) for s in stages])
 
     def forward(self, z: torch.Tensor, labels: torch.Tensor, stage: int, trans: bool = False,
-                alpha: float = 1.0) -> torch.Tensor:
+                alpha: Union[float, torch.Tensor] = 1.0) -> torch.Tensor:
         cfg = self.cfg
         _check_phase(cfg, stage, trans)
         out = self.input(z).reshape(-1, cfg.base_size, cfg.base_size, cfg.dim)
@@ -162,7 +170,8 @@ class Discriminator(nn.Module):
             self._groups[key] = layers
         return self._groups[key]
 
-    def forward(self, x: torch.Tensor, stage: int, trans: bool = False, alpha: float = 1.0,
+    def forward(self, x: torch.Tensor, stage: int, trans: bool = False,
+                alpha: Union[float, torch.Tensor] = 1.0,
                 labels: Optional[torch.Tensor] = None):
         _check_phase(self.cfg, stage, trans)
         if labels is not None and not self.cfg.conditional:

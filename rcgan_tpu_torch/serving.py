@@ -57,7 +57,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import json
 import os
 import threading
@@ -71,7 +70,7 @@ from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
 from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models import dcgan, pggan
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
-from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, state_key
+from rcgan_tpu_torch.train.graphs import Passes
 from rcgan_tpu_torch.utils.images import encode_png, merge
 
 DEFAULT_BUCKETS = (1, 8, 32, 100)
@@ -185,10 +184,11 @@ class Sampler:
         self.graphs = on_card if graphs is None else bool(graphs)
         self.passes = 0  # generator passes run, one per bucketed chunk
         self._passes_lock = threading.Lock()
-        # one (StepBlock, CapturedStep) per bucket size; the lock covers a
-        # pass's copy in, its run or replay and its copy out, since the
-        # coalescer's worker and the HTTP handlers share the buffers
-        self._passes_at: Dict[int, tuple] = {}
+        # one program per bucket size; the lock covers a pass's copy in, its
+        # run or replay and its copy out, since the coalescer's worker and
+        # the HTTP handlers share the buffers
+        self._passes = Passes(self._pass, {"z": torch.float32, "labels": torch.int64},
+                              self.device, self.graphs)
         self._pass_lock = threading.Lock()
 
     @classmethod
@@ -248,15 +248,15 @@ class Sampler:
             return rng.uniform(-1.0, 1.0, (n, self.z_dim)).astype(np.float32)
         return rng.standard_normal((n, self.z_dim)).astype(np.float32)
 
-    def _pass(self, block: StepBlock) -> torch.Tensor:
-        """The generator pass on the bucket's block: what a graph captures."""
-        z, labels = block.row("z"), block.row("labels")
+    def _pass(self, inputs: Dict[str, torch.Tensor], generator) -> torch.Tensor:
+        """The generator pass on the bucket's inputs: what a graph captures."""
+        z, labels = inputs["z"], inputs["labels"]
         if self.model == "mnist":
             y = torch.nn.functional.one_hot(labels, self.n_labels).float()
-            return dcgan.sample(self.generator, z, y)
+            return dcgan.sample(generator, z, y)
         if self.model == "pggan":  # NHWC at the schedule's last stage
-            return pggan.sample(self.generator, z, labels)
-        return sample(self.generator, z, labels)
+            return pggan.sample(generator, z, labels)
+        return sample(generator, z, labels)
 
     def _run_batch_z(self, z, padded: np.ndarray) -> np.ndarray:
         """One generator pass at len(padded) (a bucket size), explicit z:
@@ -264,17 +264,9 @@ class Sampler:
         fixed buffers, then its pass runs, replayed from a CUDA graph on a
         card (captured at the bucket's first pass: JAX's "compiled once per
         bucket size")."""
-        n = len(padded)
-        key = state_key(list(self.generator.parameters()) + list(self.generator.buffers()))
         with self._pass_lock:
-            if n not in self._passes_at:
-                block = StepBlock({"z": (torch.float32, (n, self.z_dim)),
-                                   "labels": (torch.int64, (n,))}, 1, self.device)
-                self._passes_at[n] = (block, CapturedStep(functools.partial(self._pass, block),
-                                                          self.device, self.graphs))
-            block, step = self._passes_at[n]
-            block.load({"z": np.asarray(z, np.float32)[None], "labels": padded[None]})
-            out = step(key, held=self.generator).cpu().numpy()
+            out = self._passes({"z": np.asarray(z, np.float32), "labels": padded},
+                               self.generator).cpu().numpy()
         if self.model == "cifar":
             c = self.cfg
             out = out.reshape(-1, c.img_size, c.img_size, c.img_dim)

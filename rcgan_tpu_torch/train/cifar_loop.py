@@ -13,7 +13,11 @@ part (:meth:`CifarTrainer._cycle_row`) derives the learning rates, Adam's
 bias corrections and every seed (by :mod:`rcgan_tpu_torch.core.rng`) and
 packs them with the batch into the cycle's row of a
 :class:`~rcgan_tpu_torch.train.graphs.StepBlock`; the cycle at iteration 0,
-which has no G step, runs eagerly.
+which has no G step, runs eagerly.  The dev cost (``eval_disc_cost``,
+``eval_disc_cost_scan``: JAX's jitted cost and its ``lax.scan``) is one
+body over rows of a block of its own, :meth:`CifarTrainer._dev_cost`, and
+``sample`` one pass per batch size, each captured on a card in a graph and
+pool of its own, so that an eval leaves the cycle's graph in place.
 
 Each step takes gradients with ``torch.autograd.grad`` with respect to the
 groups it updates, with every other group frozen
@@ -52,7 +56,8 @@ from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
-from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, load_block, state_key
+from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, Program, StepBlock, load_block,
+                                          state_key)
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
                                          init_train_state, mean_over_ranks, state_in_place,
                                          train_state_tensors, trainable)
@@ -129,8 +134,15 @@ class CifarTrainer:
         self.graphs = on_card if graphs is None else bool(graphs)
         self.block: Optional[StepBlock] = None   # the cycle's inputs and metrics
         self.captured = CapturedStep(self._cycle, self.device, self.graphs)
-        self._ts: Optional[TrainState] = None    # what the cycle body runs on
+        self._ts: Optional[TrainState] = None    # what the cycle and dev-cost bodies run on
         self._g_step = True
+        # the evals' programs, each in a graph and pool of its own (one device:
+        # with a group the evals run on the main rank, eagerly)
+        self.dev_program = Program(self._dev_cost, self._DTYPES, self.device, self.graphs,
+                                   {"cost": (torch.float32, ())})
+        self._eval_dataset: Optional[Mapping[str, torch.Tensor]] = None
+        self._samples = Passes(self._sample_pass, {"z": torch.float32, "labels": torch.int64},
+                               self.device, self.graphs)
 
     def init(self, seed: int = 0) -> TrainState:
         """A fresh train state with parameters drawn from ``seed``.  (JAX's
@@ -370,32 +382,17 @@ class CifarTrainer:
                 for j in range(len(idx))]
         return ts, self._run(ts, rows, range(first, first + len(idx)))
 
-    @torch.no_grad()
     def eval_disc_cost(self, ts: TrainState, batch: Mapping, seed: int,
                        noise: Optional[Mapping] = None) -> torch.Tensor:
         """The discriminator cost on a held-out ``batch`` (``images`` uint8
         ``[B, 3072]`` and the labels), with no SN update and no parameter
-        update (the dev cost of ``gan_resnet.py:976-989``).  ``noise``, when
-        given, supplies ``z [B, z_dim]`` and ``u [B, 3072]``."""
-        return self._disc_cost(ts, self._batch_to_device(batch), seed, noise)
+        update (the dev cost of ``gan_resnet.py:976-989``), keyed by
+        ``seed``: ``z`` from ``fold_in(seed, 0)``, the dequantisation from
+        ``fold_in(seed, 1)``.  ``noise``, when given, supplies ``z [B,
+        z_dim]`` and ``u [B, 3072]``.  A device scalar of its own."""
+        row = self._dev_cost_row({k: self._host(batch[k]) for k in DATASET_KEYS}, seed, noise)
+        return self._run_dev_cost(ts, [row], None)[0]
 
-    def _disc_cost(self, ts: TrainState, sb: Dict[str, torch.Tensor], seed: int,
-                   noise: Optional[Mapping]) -> torch.Tensor:
-        cfg = self.cfg
-        b = sb["labels"].shape[0]
-        if noise is not None:
-            real = dequantize_chw_to_hwc(sb["images"], self._to_device(noise["u"], torch.float32),
-                                         cfg.img_size, cfg.img_dim)
-            z = self._to_device(noise["z"], torch.float32)
-        else:
-            seeds = torch.from_numpy(rng.example_seeds(rng.fold_in(seed, 1), b)).to(self.device)
-            real = dequantize_chw_to_hwc_seeded(sb["images"], seeds, cfg.img_size, cfg.img_dim)
-            z = rng.example_normal(rng.fold_in(seed, 0), b, cfg.z_dim, self.device)
-        sb = dict(sb, real_data=real)
-        with sn_updates(ts.gan, False):
-            return ts.gan.disc_loss(sb, z, self.confusion_actual)["disc_cost"]
-
-    @torch.no_grad()
     def eval_disc_cost_scan(self, ts: TrainState, dataset: Mapping[str, torch.Tensor], idx,
                             seed: int, noise: Optional[Mapping] = None) -> torch.Tensor:
         """The mean discriminator cost over ``idx [K, B]`` index batches of a
@@ -404,20 +401,77 @@ class CifarTrainer:
         each batch gathered on the device and keyed by
         ``fold_in(seed, k)``; no SN or parameter update (JAX's
         ``eval_disc_cost_scan``).  ``noise``, when given, supplies ``z [K,
-        B, z_dim]`` and ``u [K, B, 3072]``.  Returns a device scalar."""
-        idx = self._to_device(idx, torch.int64)
-        costs = []
-        for k in range(idx.shape[0]):
-            sb = self._batch_to_device({key: v[idx[k]] for key, v in dataset.items()})
-            nk = None if noise is None else {"z": noise["z"][k], "u": noise["u"][k]}
-            costs.append(self._disc_cost(ts, sb, rng.fold_in(seed, k), nk))
-        return torch.stack(costs).mean()
+        B, z_dim]`` and ``u [K, B, 3072]``.  The K index rows go to the
+        device in one copy and the body runs once a row (a replay each on a
+        card); the mean is taken on the device.  Returns a device scalar."""
+        idx = self._host(idx).astype(np.int64)
+        rows = [self._dev_cost_row({"index": idx[k]}, rng.fold_in(seed, k),
+                                   None if noise is None else
+                                   {"z": noise["z"][k], "u": noise["u"][k]})
+                for k in range(len(idx))]
+        return self._run_dev_cost(ts, rows, dataset).mean()
+
+    def _dev_cost_row(self, batch: Mapping, seed: int,
+                      noise: Optional[Mapping]) -> Dict[str, np.ndarray]:
+        """One dev-cost batch's row: the batch (``index`` or the dataset's
+        arrays) and ``z`` and ``u`` when given, else ``z_base``
+        (:func:`rng.seed_base` of ``fold_in(seed, 0)``) and ``q_seeds [B]``
+        (the dequantisation seeds of ``fold_in(seed, 1)``)."""
+        row = dict(batch)
+        b = len(next(iter(batch.values())))
+        if noise is not None:
+            row.update(z=self._host(noise["z"]), u=self._host(noise["u"]))
+        else:
+            row.update(z_base=np.array(rng.seed_base(rng.fold_in(seed, 0))),
+                       q_seeds=rng.example_seeds(rng.fold_in(seed, 1), b))
+        return row
+
+    def _run_dev_cost(self, ts: TrainState, rows, dataset) -> torch.Tensor:
+        """The dev-cost body once per row of ``rows`` through
+        :attr:`dev_program`; returns the costs ``[K]``."""
+        self._ts, self._eval_dataset = ts, dataset
+        key = (id(ts), state_key(train_state_tensors(ts) + list((dataset or {}).values())))
+        try:
+            self.dev_program.run(rows, key, held=(ts, dataset))
+        finally:
+            self._ts = self._eval_dataset = None
+        return self.dev_program.read(len(rows))["cost"]
+
+    def _dev_cost(self, blk: StepBlock) -> None:
+        """The body of one dev-cost batch on the block's row ``counter``:
+        the batch gathered on the device (or read from the row), the real
+        images dequantised, ``z`` drawn, and D's cost on them with SN
+        frozen, into the row's ``cost``."""
+        ts, cfg = self._ts, self.cfg
+        f = {k: blk.row(k) for k in blk.fields}
+        with torch.no_grad():
+            if "index" in f:
+                sb = self._batch_to_device({k: v[f["index"]]
+                                            for k, v in self._eval_dataset.items()})
+            else:
+                sb = {k: f[k] for k in DATASET_KEYS}
+            b = sb["labels"].shape[0]
+            if "u" in f:
+                real = dequantize_chw_to_hwc(sb["images"], f["u"], cfg.img_size, cfg.img_dim)
+                z = f["z"]
+            else:
+                real = dequantize_chw_to_hwc_seeded(sb["images"], f["q_seeds"], cfg.img_size,
+                                                    cfg.img_dim)
+                z = rng.example_normal_from(f["z_base"], b, cfg.z_dim)
+            sb = dict(sb, real_data=real)
+            with sn_updates(ts.gan, False):
+                cost = ts.gan.disc_loss(sb, z, self.confusion_actual)["disc_cost"]
+        blk.write("cost", cost)
+        blk.advance()
 
     def sample(self, ts: TrainState, z, labels) -> torch.Tensor:
         """The generator forward for evals and sample grids, float32 ``[B,
-        output_dim]`` on the device: cond-BN with batch statistics, as the
-        reference (``normalization.py:47-58``), in the trainer's compute
-        dtype."""
-        return sample(ts.gan.G, self._to_device(z, torch.float32),
-                      self._to_device(labels, torch.int64))
+        output_dim]`` on the device, a tensor of its own: cond-BN with batch
+        statistics, as the reference (``normalization.py:47-58``), in the
+        trainer's compute dtype.  On a card the pass is captured once per
+        batch size."""
+        return self._samples({"z": z, "labels": labels}, ts.gan.G)
 
+    @staticmethod
+    def _sample_pass(inputs: Dict[str, torch.Tensor], gen) -> torch.Tensor:
+        return sample(gen, inputs["z"], inputs["labels"])

@@ -3,9 +3,12 @@ training step or a sampler pass.
 
 The JAX package compiles each training program (``_jitted_cycle`` and
 ``_jitted_scan`` of ``rcgan_tpu/train/cifar_loop.py``, ``_jitted_step``
-and ``_jitted_scan`` of ``rcgan_tpu/train/mnist_loop.py``) and its sampler
-once per bucket size into one XLA program that runs with no host work
-between its ops.  This module has no counterpart file there.  The port
+and ``_jitted_scan`` of ``rcgan_tpu/train/mnist_loop.py``, PGGAN's step
+per phase), its evals (the dev cost's scan, the trainers' ``sample``, the
+classifier's logits and train step, the Inception score's scan, label
+recovery's scan) and its sampler once per bucket size into one XLA program
+each that runs with no host work between its ops.  This module has no
+counterpart file there.  The port
 runs the same step eagerly (the CPU, a data-parallel group) or, on a card,
 records it once into a CUDA graph and replays it:
 
@@ -24,7 +27,16 @@ records it once into a CUDA graph and replays it:
   work, such as ``cudaFuncSetAttribute``, cuDNN's plans and autograd's
   first build, happens there), then captured into a CUDA graph in a
   private memory pool, and replayed for every later call with that key.  A
-  capture that fails raises; nothing carries on eagerly.
+  capture that fails raises; nothing carries on eagerly;
+- :class:`Program` is a body over the rows of a block of its own, run once
+  per row by a :class:`CapturedStep` of its own (JAX's ``lax.scan`` of one
+  jitted body), so that an owner holds one graph, and one pool, per
+  program: a trainer's cycle graph outlives its evals';
+- :class:`Passes` is a forward pass captured once per input layout (JAX's
+  jit per shape), one :class:`Program` each, returning a copy of the
+  output.  Called inside another program's warm-up or capture, a pass runs
+  its body on the given device tensors (:func:`inside_program`), so that
+  one program's body may call another's pass.
 
 A graph reads and writes every tensor at the address it had at capture, so
 the state a step updates (parameters, Adam moments, SN ``u``, BN
@@ -44,9 +56,11 @@ after N eager steps.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
 import time
-from typing import Any, Callable, Dict, Hashable, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +77,32 @@ def _aligned(n: int) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
+_program = threading.local()  # .depth: programs warming up or capturing on this thread
+
+
+def inside_program() -> bool:
+    """True while this thread runs a program's warm-up or capture."""
+    return getattr(_program, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _in_program() -> Iterator[None]:
+    _program.depth = getattr(_program, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _program.depth -= 1
+
+
+def capture_on(device: torch.device, graphs: Optional[bool]) -> bool:
+    """Whether an owner on ``device`` captures: by default on a CUDA device,
+    as JAX always jits; ``graphs=True`` off one raises."""
+    on_card = device.type == "cuda"
+    if graphs and not on_card:
+        raise ValueError(f"CUDA graphs need a CUDA device; got {device}")
+    return on_card if graphs is None else bool(graphs)
+
+
 class StepBlock:
     """Up to ``capacity`` rows of the ``fields`` (``{name: (dtype, row
     shape)}``) and of the ``outputs`` on ``device``, and a row counter.
@@ -71,7 +111,11 @@ class StepBlock:
     then one record per row, so that :meth:`load` fills the counter and the
     first K rows with one copy of the buffer's first bytes; on a CUDA device
     the copy comes from one of two pinned staging buffers, used in turn,
-    each written only after its last copy ended."""
+    each written only after its last copy ended.  A field whose rows are
+    given as a tensor on the block's device is copied there on the device
+    instead.  An output that ``outputs`` does not declare is made at its
+    first :meth:`write` (a capture's warm-up, eagerly), with that value's
+    shape and dtype."""
 
     def __init__(self, fields: Mapping[str, Field], capacity: int, device,
                  outputs: Optional[Mapping[str, Field]] = None):
@@ -103,32 +147,41 @@ class StepBlock:
         rows = buf[self._header:].view(self.capacity, self._record)[:, off:off + n]
         return rows.view(dt).view(self.capacity, *shape)
 
-    def load(self, rows: Mapping[str, np.ndarray]) -> int:
-        """Write ``rows`` (``{name: [K, *row shape]}``, every field) to rows
-        ``0..K-1`` and set the counter to 0, with one host-to-device copy;
-        returns K."""
+    def load(self, rows: Mapping[str, Any], k: Optional[int] = None) -> int:
+        """Write ``rows`` (``{name: [K, *row shape]}``, every field: arrays,
+        or tensors on the block's device) to rows ``0..K-1`` and set the
+        counter to 0, with one host-to-device copy (and one device copy per
+        tensor field); returns K (``k`` for a block with no fields)."""
         if set(rows) != set(self.fields):
             raise ValueError(f"block fields {sorted(self.fields)}; got {sorted(rows)}")
-        k = len(next(iter(rows.values())))
-        if not 1 <= k <= self.capacity:
+        k = len(next(iter(rows.values()))) if rows else k
+        if k is None or not 1 <= k <= self.capacity:
             raise ValueError(f"{k} rows for a block of {self.capacity}")
         i = self._turn
         self._turn ^= self.device.type == "cuda"
         if self._copied[i] is not None:
             self._copied[i].synchronize()  # its last copy has ended
         host = self._staging[i]
+        on_device = []
         with torch.no_grad():
             host[:8].view(torch.int64).zero_()
             for name, dt, shape in self.spec:
-                arr = np.asarray(rows[name])
-                if arr.shape != (k, *shape):
-                    raise ValueError(f"{name}: rows of {(k, *shape)} expected; got {arr.shape}")
+                arr = rows[name]
+                if tuple(np.shape(arr)) != (k, *shape):
+                    raise ValueError(f"{name}: rows of {(k, *shape)} expected; got "
+                                     f"{tuple(np.shape(arr))}")
+                if torch.is_tensor(arr) and arr.device == self._buffer.device:
+                    on_device.append((name, arr))
+                    continue
+                arr = np.asarray(arr.detach().cpu() if torch.is_tensor(arr) else arr)
                 self._view(host, name)[:k].numpy()[...] = arr.astype(_NUMPY[dt], copy=False)
             if host is not self._buffer:
                 n = self._header + k * self._record
                 self._buffer[:n].copy_(host[:n], non_blocking=True)
                 self._copied[i] = torch.cuda.Event()
                 self._copied[i].record(torch.cuda.current_stream(self.device))
+            for name, arr in on_device:
+                self.fields[name][:k].copy_(arr)
         return k
 
     def row(self, name: str) -> torch.Tensor:
@@ -137,6 +190,9 @@ class StepBlock:
 
     def write(self, name: str, value: torch.Tensor) -> None:
         """``value`` into row ``counter`` of output ``name``."""
+        if name not in self.outputs:
+            self.outputs[name] = torch.zeros((self.capacity, *value.shape), dtype=value.dtype,
+                                             device=self.device)
         out = self.outputs[name]
         out.index_copy_(0, self.counter, value.reshape(1, *out.shape[1:]).to(out.dtype))
 
@@ -152,16 +208,22 @@ class StepBlock:
 def load_block(block: Optional[StepBlock], rows: Sequence[Mapping[str, np.ndarray]],
                dtypes: Mapping[str, torch.dtype], device,
                outputs: Mapping[str, Field], captured: "CapturedStep") -> StepBlock:
-    """``rows`` (one dict of arrays a step) loaded into ``block``, or into a
-    new block of ``len(rows)`` rows when the fields' layout changed or the
-    rows outnumber it; a new block frees ``captured``'s graph, which read
-    the old one.  Returns the block loaded."""
-    fields = {k: (dtypes[k], np.shape(v)) for k, v in rows[0].items()}
+    """``rows`` (one dict of arrays, or of tensors on the device, a step)
+    loaded into ``block``, or into a new block of ``len(rows)`` rows when the
+    fields' layout changed or the rows outnumber it; a new block frees
+    ``captured``'s graph, which read the old one.  Returns the block
+    loaded."""
+    fields = {k: (dtypes[k], tuple(np.shape(v))) for k, v in rows[0].items()}
     spec = tuple((k, dt, tuple(shape)) for k, (dt, shape) in fields.items())
     if block is None or block.spec != spec or block.capacity < len(rows):
         captured.reset()
         block = StepBlock(fields, len(rows), device, outputs=outputs)
-    block.load({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+
+    def stacked(k):
+        vs = [r[k] for r in rows]
+        return torch.stack(vs) if torch.is_tensor(vs[0]) else np.stack(vs)
+
+    block.load({k: stacked(k) for k in rows[0]}, k=len(rows))
     return block
 
 
@@ -193,8 +255,21 @@ class CapturedStep:
         self.launches: Optional[runtime.LaunchRecord] = None  # one replay's
         self.captures = 0
         self.replays = 0
-        self.capture_s = 0.0     # host seconds of the last capture
+        # host seconds of the last warm-up (the eager step, to its end), of
+        # the full collection and of emptying the allocator's cache after
+        # it, and of the capture
+        self.warm_up_s = self.gc_s = self.empty_cache_s = self.capture_s = 0.0
         self.pool_bytes = 0      # device memory the last capture reserved
+
+    def stats(self) -> Dict[str, float]:
+        """``captures``, ``replays``, the host seconds of the last warm-up,
+        collection, cache emptying and capture (``warm_up_s``, ``gc_s``,
+        ``empty_cache_s``, ``capture_s``) and the device memory the capture
+        reserved (``pool_bytes``)."""
+        return {"captures": self.captures, "replays": self.replays,
+                "warm_up_s": self.warm_up_s, "gc_s": self.gc_s,
+                "empty_cache_s": self.empty_cache_s, "capture_s": self.capture_s,
+                "pool_bytes": self.pool_bytes}
 
     def reset(self) -> None:
         """Free the graph and what it holds (the pool's memory returns to
@@ -215,17 +290,25 @@ class CapturedStep:
 
     def _warm_up_and_capture(self, key: Hashable, held: Any) -> Any:
         self.reset()
+        t = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _in_program():
             out = self.body()  # the step itself, eagerly
         stream.wait_stream(side)
-        # what torch.cuda.graph does on entering, done first, so that the
-        # reserved memory read before the capture is what it starts from
         torch.cuda.synchronize(self.device)
+        self.warm_up_s = time.perf_counter() - t
+        # a full collection first: a graph that only a reference cycle still
+        # holds (a dropped owner's) would otherwise be freed by a collection
+        # during the capture, which invalidates it; then what torch.cuda.graph
+        # does on entering, so that the reserved memory read before the
+        # capture is what it starts from
+        t = time.perf_counter()
         gc.collect()
+        self.gc_s = time.perf_counter() - t
         torch.cuda.empty_cache()
+        self.empty_cache_s = time.perf_counter() - t - self.gc_s
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.Stream(self.device)
@@ -233,7 +316,7 @@ class CapturedStep:
         # a private pool of the graph's own: a pool outlives no graph, so a
         # new key's capture takes a new one once the old graph is freed
         with runtime.recorded_launches(capture.cuda_stream) as rec, \
-                torch.cuda.device(self.device), \
+                torch.cuda.device(self.device), _in_program(), \
                 torch.cuda.graph(graph, stream=capture, capture_error_mode="thread_local"):
             static = self.body()
         torch.cuda.synchronize(self.device)
@@ -243,3 +326,69 @@ class CapturedStep:
         self.launches = rec
         self.captures += 1
         return out
+
+
+class Program:
+    """``body(block)`` over the rows of a :class:`StepBlock` of its own (its
+    fields' dtypes ``dtypes``, its declared ``outputs``), run once per row
+    by a :class:`CapturedStep` of its own: eagerly, or captured at the first
+    row of a new key and replayed for the rest (JAX's ``lax.scan`` of one
+    jitted body).  The body reads row ``counter`` of the fields, writes its
+    outputs there and advances the counter."""
+
+    def __init__(self, body: Callable[[StepBlock], Any], dtypes: Mapping[str, torch.dtype],
+                 device, capture: bool, outputs: Optional[Mapping[str, Field]] = None):
+        self.dtypes = dict(dtypes)
+        self.outputs = dict(outputs or {})
+        self.device = torch.device(device)
+        self.block: Optional[StepBlock] = None
+        self.captured = CapturedStep(lambda: body(self.block), self.device, capture)
+
+    def run(self, rows: Sequence[Mapping[str, Any]], key: Hashable = None,
+            held: Any = None) -> Any:
+        """``rows`` (one dict a step, as :func:`load_block` takes them) into
+        the block, then the body once a row; returns the last call's
+        result."""
+        self.block = load_block(self.block, rows, self.dtypes, self.device, self.outputs,
+                                self.captured)
+        out = None
+        for _ in range(len(rows)):
+            out = self.captured(key, held)
+        return out
+
+    def read(self, k: int) -> Dict[str, torch.Tensor]:
+        return self.block.read(k)
+
+
+class Passes:
+    """``body(inputs, held, *extra)`` (``inputs``: ``{name: device
+    tensor}``) captured once per ``extra`` and input shapes, one
+    :class:`Program` each: JAX's jit of a forward pass per shape.  Each call
+    returns a copy of the pass's output, since a replay overwrites its own.
+    ``held`` is the module the pass reads: a graph replays while it, its
+    parameters and its buffers lie where they lay at the capture."""
+
+    def __init__(self, body: Callable[..., torch.Tensor], dtypes: Mapping[str, torch.dtype],
+                 device, capture: bool):
+        self.body, self.dtypes = body, dict(dtypes)
+        self.device, self.capture = torch.device(device), capture
+        self.programs: Dict[Hashable, Program] = {}
+        self._held: Any = None
+
+    def __call__(self, inputs: Mapping[str, Any], held: torch.nn.Module,
+                 extra: Tuple = ()) -> torch.Tensor:
+        if inside_program():  # the calling program's body: no block, no capture of its own
+            return self.body({k: torch.as_tensor(v).to(self.device, self.dtypes[k])
+                              for k, v in inputs.items()}, held, *extra).clone()
+        key = (id(held), state_key(list(held.parameters()) + list(held.buffers())))
+        sig = (tuple(extra), tuple((k, tuple(np.shape(v))) for k, v in inputs.items()))
+        prog = self.programs.get(sig)
+        if prog is None:
+            prog = self.programs[sig] = Program(
+                lambda blk: self.body({k: blk.row(k) for k in blk.fields}, self._held, *extra),
+                self.dtypes, self.device, self.capture)
+        self._held = held
+        try:
+            return prog.run([dict(inputs)], key, held).clone()
+        finally:
+            self._held = None

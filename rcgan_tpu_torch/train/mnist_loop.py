@@ -19,8 +19,8 @@ each G step (G runs in train mode inside the losses), D's BN statistics
 and spectral-norm ``u`` on every D pass.  The real and fake D passes are
 never concatenated: each must see its own batch moments.
 
-JAX compiles the iteration (``_jitted_step``) and ``step_scan``'s blocks
-(``_jitted_scan``) into one program each; the port runs one body,
+JAX compiles the iteration (``_jitted_step``), ``step_scan``'s blocks
+(``_jitted_scan``) and ``sample`` into one program each; the port runs one body,
 :meth:`MnistTrainer._iteration`, eagerly on the CPU and with a group, and on
 a card captures it into a CUDA graph once and replays it, once per row of a
 block for ``step_scan`` (``train/graphs.py``).  The body reads only device
@@ -60,7 +60,7 @@ from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models.dcgan import DCGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
-from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, load_block, state_key
+from rcgan_tpu_torch.train.graphs import CapturedStep, Passes, StepBlock, load_block, state_key
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, apply_constraints,
                                          constraints_of, grads_of, init_train_state,
                                          mean_over_ranks, state_in_place, train_state_tensors,
@@ -128,6 +128,9 @@ class MnistTrainer:
         self.captured = CapturedStep(self._iteration, self.device, self.graphs)
         self._ts: Optional[TrainState] = None    # what the iteration body runs on
         self._dataset: Optional[Mapping[str, torch.Tensor]] = None  # step_scan's
+        # sample: one pass per batch size, in a graph and pool of its own
+        self._samples = Passes(self._sample_pass, {"z": torch.float32, "y": torch.float32},
+                               self.device, self.graphs)
 
     def init(self, seed: int = 0) -> TrainState:
         """A fresh train state with parameters drawn from ``seed``.  (JAX's
@@ -324,9 +327,14 @@ class MnistTrainer:
     # ------------------------------------------------------------ sample
     def sample(self, ts: TrainState, z, y_onehot) -> torch.Tensor:
         """The reference's ``gen_sampler``: G with BN in inference mode,
-        float32 ``[B, H, W, c_dim]`` on the device."""
-        return sample(ts.gan.G, self._to_device(z, torch.float32),
-                      self._to_device(y_onehot, torch.float32))
+        float32 ``[B, H, W, c_dim]`` on the device, a tensor of its own.  On
+        a card the pass is captured once per batch size; it reads BN's
+        moving statistics where they live, which the steps keep in place."""
+        return self._samples({"z": z, "y": y_onehot}, ts.gan.G)
+
+    @staticmethod
+    def _sample_pass(inputs: Dict[str, torch.Tensor], gen) -> torch.Tensor:
+        return sample(gen, inputs["z"], inputs["y"])
 
 
 def dataset_to_device(data, n: int, device) -> Dict[str, torch.Tensor]:

@@ -23,15 +23,27 @@
   ``fold_in(seed, it)`` and ``data_fn(it)``, so a resumed run repeats the
   uninterrupted one bit for bit.
 
-JAX compiles each phase into one program; the port runs the step eagerly,
-with no host sync inside it.
+JAX compiles each phase into one program (``jax.jit`` per ``(stage,
+trans)``, ``alpha`` traced as float32).  The port runs one body,
+:meth:`PGGANTrainer._iteration`, eagerly on the CPU, and on a card captures
+it into a CUDA graph per phase and replays it (``train/graphs.py``): a new
+phase, or a state at other addresses, frees the graph and captures again.
+The body reads only device tensors: a host part
+(:meth:`PGGANTrainer._iteration_row`) packs the full-resolution batch and
+its labels, the seed's base for ``z``, ``alpha`` as float32 and Adam's
+scalars for both groups into the iteration's row of a
+:class:`~rcgan_tpu_torch.train.graphs.StepBlock`, advancing the Adam counts
+there.  The state (parameters, moments, SN ``u``, the critic's BN
+statistics) keeps its addresses (``train/state.py::state_in_place``).
+``sample`` is captured per ``(stage, batch)`` (:class:`~rcgan_tpu_torch.
+train.graphs.Passes`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -42,8 +54,9 @@ from rcgan_tpu_torch.core.module import float32_policy, sn_updates
 from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig, sample
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
+from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on, state_key
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of, init_train_state,
-                                         trainable)
+                                         state_in_place, train_state_tensors, trainable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,15 +86,31 @@ def partition_predicates() -> Dict[str, Callable[[str], bool]]:
 
 class PGGANTrainer:
     """The progressive schedule over a model that holds every stage, on
-    ``device``."""
+    ``device``.  ``graphs``: capture the step (per phase) and ``sample``
+    (per stage and batch) into CUDA graphs and replay them
+    (``train/graphs.py``); by default on a CUDA device, as JAX always jits
+    them.  ``False`` runs the same bodies eagerly there; the CPU runs them
+    eagerly, and asking it for graphs raises."""
+
+    _DTYPES = {"x": torch.float32, "labels": torch.int64, "z": torch.float32,
+               "z_base": torch.int64, "alpha": torch.float32, "adam": torch.float32}
+    METRICS = ("d_cost", "g_cost")
 
     def __init__(self, cfg: PGGANConfig, base: ResnetGANConfig, tcfg: PGGANTrainConfig,
-                 device="cuda", compute_dtype: torch.dtype = torch.float32):
+                 device="cuda", compute_dtype: torch.dtype = torch.float32,
+                 graphs: Optional[bool] = None):
         self.cfg, self.base, self.tcfg = cfg, base, tcfg
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         float32_policy(compute_dtype)
         self.optimizers = {g: ScalelessAdam(tcfg.beta1, tcfg.beta2) for g in ("gen", "disc")}
+        self.graphs = capture_on(self.device, graphs)
+        self.program = Program(self._iteration, self._DTYPES, self.device, self.graphs,
+                               {k: (torch.float32, ()) for k in self.METRICS})
+        self._samples = Passes(self._sample_pass, {"z": torch.float32, "labels": torch.int64},
+                               self.device, self.graphs)
+        self._ts: Optional[TrainState] = None  # what the step body runs on, and its phase
+        self._phase = (1, False)
 
     def init(self, seed: int = 0) -> TrainState:
         """A train state over every stage's parameters drawn from ``seed``,
@@ -90,47 +119,84 @@ class PGGANTrainer:
         gan = PGGAN(self.cfg, self.base, seed, self.device, self.compute_dtype)
         return init_train_state(gan, partition_predicates(), self.optimizers)
 
-    def _to_device(self, x, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(
-            self.device, dtype, non_blocking=True)
-
     # -------------------------------------------------------------- step
-    def step(self, ts: TrainState, images: Mapping, seed: int, alpha: float, stage: int,
-             trans: bool, z: Optional[torch.Tensor] = None):
-        """One D and one G update at ``(stage, trans, alpha)``, in place on
-        ``ts``; returns ``(ts, {"d_cost", "g_cost"})`` as device scalars.
-        ``images``: ``{"x": [B, H, W, C] full-resolution float in [-1, 1],
-        "labels": [B] int}``; ``z`` is drawn from ``fold_in(seed, 0)``
-        unless given."""
-        cfg, tcfg = self.cfg, self.tcfg
-        gan = ts.gan
-        x = self._to_device(images["x"], torch.float32)
-        x = pool_to_stage(x, cfg, stage).to(self.compute_dtype)
-        labels = self._to_device(images["labels"], torch.int64)
-        d_labels = labels if cfg.conditional else None
+    def _iteration_row(self, ts: TrainState, images: Mapping, seed: int, alpha: float,
+                       z=None) -> Dict[str, Any]:
+        """The host part of one iteration: the iteration's row of the block,
+        ``x`` (the full-resolution batch), ``labels``, ``z`` or ``z_base``
+        (:func:`rng.seed_base` of ``fold_in(seed, 0)``), ``alpha`` (float32)
+        and ``adam [2, 5]`` (:meth:`ScalelessAdam.scalars` of the D step and
+        the G step), advancing both Adam counts.  The batch stays where it
+        is given: a tensor on the device is copied there on the device."""
+        row = {"x": images["x"], "labels": images["labels"],
+               "alpha": np.array(alpha, np.float32)}
         if z is None:
-            z = rng.example_normal(rng.fold_in(seed, 0), x.shape[0], cfg.z_dim, self.device)
+            row["z_base"] = np.array(rng.seed_base(rng.fold_in(seed, 0)))
         else:
-            z = self._to_device(z, torch.float32)
+            row["z"] = z
+        adam = np.zeros((2, 5), np.float32)
+        for i, g in enumerate(("disc", "gen")):
+            st = ts.opt_states[g]
+            st.count += 1
+            adam[i] = self.optimizers[g].scalars(st.count, self.tcfg.lr)
+        row["adam"] = adam
+        return row
 
-        params = ts.group_params("disc")
-        with trainable(ts, ["disc"]):
-            fake = gan.G(z, labels, stage, trans, alpha)
-            _, d_fake = gan.D(fake, stage, trans, alpha, d_labels)
-            _, d_real = gan.D(x, stage, trans, alpha, d_labels)
-            _, d_cost = get_loss(d_real, d_fake, tcfg.loss_type)
-            grads = grads_of(d_cost, params)
-        self.optimizers["disc"].update_(params, grads, ts.opt_states["disc"], tcfg.lr)
+    def _iteration(self, blk: StepBlock) -> None:
+        """The body of one iteration at :attr:`_phase` on the block's row
+        ``counter``; it reads only device tensors, so that one body runs
+        eagerly and in a CUDA graph: ``pool_to_stage``, the D step, the G
+        step, the state kept at its addresses (:func:`state_in_place`); the
+        costs go to the block's row."""
+        ts, cfg, tcfg = self._ts, self.cfg, self.tcfg
+        stage, trans = self._phase
+        gan = ts.gan
+        f = {k: blk.row(k) for k in blk.fields}
+        x = pool_to_stage(f["x"], cfg, stage).to(self.compute_dtype)
+        labels = f["labels"]
+        d_labels = labels if cfg.conditional else None
+        z = f["z"] if "z" in f else rng.example_normal_from(f["z_base"], x.shape[0], cfg.z_dim)
+        alpha, adam = f["alpha"], f["adam"]
+        with state_in_place(gan):
+            params = ts.group_params("disc")
+            with trainable(ts, ["disc"]):
+                fake = gan.G(z, labels, stage, trans, alpha)
+                _, d_fake = gan.D(fake, stage, trans, alpha, d_labels)
+                _, d_real = gan.D(x, stage, trans, alpha, d_labels)
+                _, d_cost = get_loss(d_real, d_fake, tcfg.loss_type)
+                grads = grads_of(d_cost, params)
+            self.optimizers["disc"].apply_(params, grads, ts.opt_states["disc"], adam[0])
 
-        params = ts.group_params("gen")
-        with trainable(ts, ["gen"]), sn_updates(gan.D, False):
-            fake = gan.G(z, labels, stage, trans, alpha)
-            _, d_fake = gan.D(fake, stage, trans, alpha, d_labels)
-            g_cost, _ = get_loss(torch.zeros_like(d_fake), d_fake, tcfg.loss_type)
-            grads = grads_of(g_cost, params)
-        self.optimizers["gen"].update_(params, grads, ts.opt_states["gen"], tcfg.lr)
+            params = ts.group_params("gen")
+            with trainable(ts, ["gen"]), sn_updates(gan.D, False):
+                fake = gan.G(z, labels, stage, trans, alpha)
+                _, d_fake = gan.D(fake, stage, trans, alpha, d_labels)
+                g_cost, _ = get_loss(torch.zeros_like(d_fake), d_fake, tcfg.loss_type)
+                grads = grads_of(g_cost, params)
+            self.optimizers["gen"].apply_(params, grads, ts.opt_states["gen"], adam[1])
+        blk.write("d_cost", d_cost.detach())
+        blk.write("g_cost", g_cost.detach())
+        blk.advance()
+
+    def step(self, ts: TrainState, images: Mapping, seed: int, alpha: float, stage: int,
+             trans: bool, z=None):
+        """One D and one G update at ``(stage, trans, alpha)``, in place on
+        ``ts``; returns ``(ts, {"d_cost", "g_cost"})`` as device scalars of
+        their own.  ``images``: ``{"x": [B, H, W, C] full-resolution float
+        in [-1, 1], "labels": [B] int}`` (arrays, or tensors on the
+        device); ``z`` is drawn from ``fold_in(seed, 0)`` unless given.  On
+        a card the first iteration of a phase is the warm-up before the
+        capture, and every later one replays."""
+        row = self._iteration_row(ts, images, seed, alpha, z)
+        # the phase's layers, its sn group, and the addresses of the state
+        key = (stage, trans, id(ts), state_key(train_state_tensors(ts)))
+        self._ts, self._phase = ts, (stage, trans)
+        try:
+            self.program.run([row], key, held=ts)
+        finally:
+            self._ts = None
         ts.step += 1
-        return ts, {"d_cost": d_cost.detach(), "g_cost": g_cost.detach()}
+        return ts, {k: v[0] for k, v in self.program.read(1).items()}
 
     # ---------------------------------------------------------- schedule
     def phases(self):
@@ -184,6 +250,11 @@ class PGGANTrainer:
     # ------------------------------------------------------------ sample
     def sample(self, ts: TrainState, z, labels, stage: Optional[int] = None) -> torch.Tensor:
         """Images at ``stage`` (default the last), float32 NHWC on the
-        device; no state moves."""
-        return sample(ts.gan.G, self._to_device(z, torch.float32),
-                      self._to_device(labels, torch.int64), stage)
+        device, a tensor of their own; no state moves.  On a card the pass
+        is captured once per stage and batch size."""
+        stage = self.cfg.max_stage if stage is None else stage
+        return self._samples({"z": z, "labels": labels}, ts.gan.G, extra=(stage,))
+
+    @staticmethod
+    def _sample_pass(inputs: Dict[str, torch.Tensor], gen, stage: int) -> torch.Tensor:
+        return sample(gen, inputs["z"], inputs["labels"], stage)

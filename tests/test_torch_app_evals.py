@@ -96,22 +96,25 @@ def test_pinned_classifier_cache_is_shared_with_jax(tmp_path):
 
 def test_inception_estimator_matches_jax():
     """``preds_to_score`` equals JAX's on the same probabilities (one with
-    an underflowed zero); ``inception_score`` scores uniform predictions
+    an underflowed zero); ``InceptionScore`` scores uniform predictions
     1 and confident class-balanced ones 10 over 1000 samples in batches of
-    100, keying each batch by ``fold_in(seed, i)``."""
+    100, keying each batch by ``fold_in(seed, i)`` (its seeds' device
+    bases, ``batch_seeds``)."""
     p = np.random.RandomState(0).dirichlet(np.ones(10) * 0.3, 200)
     p[0, 3] = 0.0
     assert tinc.preds_to_score(p) == jinc.preds_to_score(p)
     seeds = []
 
-    def sample_fn(seed, b):
-        seeds.append(seed)
+    def sample_fn(s, b):
+        seeds.append(tuple(s.tolist()))
         return torch.arange(b) % 10
 
-    uniform = tinc.inception_score(sample_fn, lambda x: torch.zeros(len(x), 10), n=1000,
-                                   batch=100)
+    uniform = tinc.InceptionScore(sample_fn, lambda x: torch.zeros(len(x), 10), batch=100,
+                                  device="cpu")((), n=1000)
     assert uniform[0] == pytest.approx(1.0) and len(set(seeds)) == 10
-    sharp = tinc.inception_score(sample_fn, lambda x: 50.0 * torch.eye(10)[x], n=1000, batch=100)
+    assert seeds == [tuple(tinc.batch_seeds(0, i).tolist()) for i in range(10)]
+    sharp = tinc.InceptionScore(sample_fn, lambda x: 50.0 * torch.eye(10)[x], batch=100,
+                                device="cpu")((), n=1000)
     assert sharp[0] == pytest.approx(10.0, rel=1e-6)
 
 

@@ -171,6 +171,33 @@ def test_a_stand_in_capture_counts_once_per_replay(monkeypatch):
         graphs.CapturedStep(body, "cpu", capture=True)
 
 
+def test_a_capture_collects_before_it_begins(monkeypatch):
+    """Each capture runs a full ``gc.collect()`` after the warm-up and
+    before the capture begins, so that the collector cannot free a graph
+    (held by a dropped owner's reference cycle) during the capture, which
+    would invalidate it; the step's stats time each part."""
+    order = []
+    standin = _StandIn([])
+    _install(monkeypatch, standin)
+    enter = standin.graph
+
+    @contextlib.contextmanager
+    def graph(g, **kw):
+        order.append("capture")
+        with enter(g, **kw):
+            yield
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(graphs.gc, "collect", lambda: order.append("gc"))
+    step = graphs.CapturedStep(lambda: order.append("body"), "cuda", capture=True)
+    step(key=1)
+    assert order == ["body", "gc", "capture", "body"]
+    step(key=1)
+    assert order == ["body", "gc", "capture", "body"]  # a replay collects nothing
+    st = step.stats()
+    assert all(st[k] >= 0.0 for k in ("warm_up_s", "gc_s", "empty_cache_s", "capture_s"))
+
+
 def test_recorded_launches_go_to_the_capture_streams_record(monkeypatch):
     """A launch counted while its stream is captured goes to that stream's
     record, from any thread; one counted on another stream, or with no
@@ -345,6 +372,6 @@ def test_sampler_bucket_path_equals_the_eager_pass(model):
                 out = sample(gen, zp, lp).reshape(-1, 32, 32, 3)
             want.append(out.numpy()[:len(lc)])
         assert np.array_equal(got, np.concatenate(want)), (model, n)
-    assert sorted(sampler._passes_at) == [1, 3, 8]
+    assert sorted(dict(shapes)["labels"][0] for _, shapes in sampler._passes.programs) == [1, 3, 8]
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         Sampler(gen, buckets=(1,), graphs=True)

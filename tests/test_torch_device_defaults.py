@@ -12,7 +12,7 @@ from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig, MnistGAN
 from rcgan_tpu_torch.apps import cifar_app, mnist_app, pggan_app
 from rcgan_tpu_torch.data.confusion import build_confusion
 from rcgan_tpu_torch.entry import EntryForward
-from rcgan_tpu_torch.evals import calibrate_inception, inception_v3
+from rcgan_tpu_torch.evals import calibrate_inception, inception, inception_v3
 from rcgan_tpu_torch.evals.classifier import cifar_classifier, mnist_classifier
 from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig
@@ -86,6 +86,9 @@ CALLS = {
     "Sampler.from_checkpoint cifar": lambda: serving.Sampler.from_checkpoint("cifar",
                                                                               "/nonexistent"),
     "inception_v3.make_logits_fn": lambda: inception_v3.make_logits_fn({}),
+    "inception_score": lambda: inception.InceptionScore(lambda s, b: None, lambda x: x, batch=2),
+    "real_data_score": lambda: inception.real_data_score(np.zeros((4, 4), np.float32),
+                                                         lambda x: x, batch=2),
     "calibrate_inception.main": lambda: calibrate_inception.main(["--data_dir",
                                                                   "/nonexistent"]),
 }

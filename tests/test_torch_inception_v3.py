@@ -137,7 +137,7 @@ def test_make_logits_fn_takes_the_flat_cifar_layout():
 def test_cifar_app_scores_with_inception_v3_where_its_weights_lie(tmp_path, monkeypatch):
     """With ``inception_v3.npz`` in the data dir the app logs the
     Inception-v3 route and scores with its logits: the ``logits_fn`` it
-    hands ``inception_score`` gives the 1000-way logits of the weights in
+    hands ``InceptionScore`` gives the 1000-way logits of the weights in
     the file (the estimator is cut to 10 samples here)."""
     monkeypatch.setenv("RCGAN_SYNTH_CACHE", str(tmp_path / "synth"))
     monkeypatch.setattr(cifar_app, "cifar_classifier",
@@ -146,13 +146,16 @@ def test_cifar_app_scores_with_inception_v3_where_its_weights_lie(tmp_path, monk
     data.mkdir()
     np.savez(data / "inception_v3.npz", **iv3.random_weights(2))
     seen = {}
-    real = cifar_app.inception_score
 
-    def small(sample_fn, logits_fn, n, batch):
-        seen["logits_fn"] = logits_fn
-        return real(sample_fn, logits_fn, n=10, batch=5, splits=2)
+    class Small(cifar_app.InceptionScore):
+        def __init__(self, sample_fn, logits_fn, batch, **kw):
+            seen["logits_fn"] = logits_fn
+            super().__init__(sample_fn, logits_fn, batch=5, **kw)
 
-    monkeypatch.setattr(cifar_app, "inception_score", small)
+        def __call__(self, state, n):
+            return super().__call__(state, n=10, splits=2)
+
+    monkeypatch.setattr(cifar_app, "InceptionScore", Small)
     log_file = str(tmp_path / "log.txt")
     cifar_app.main(["--algorithm", "rcgan", "--alpha", "0.6", "--parent_dir", str(tmp_path),
                     "--expt_dir", "x", "--log_file", log_file, "--niters", "1",
