@@ -46,8 +46,11 @@ and the CIFAR app's Inception-v3 scorer:
    CUDA graphs (FFMA against cuDNN float32 and the bound, and the ragged
    call on cuDNN), the projection in
    CUDA graphs and issued alone against ``torch.addmm``, with a host-time
-   breakdown of one projection call, the generator forward per bucket,
-   ``/sample`` latency and its host stages at 100 images; and a
+   breakdown of one projection call, the dispatcher's host cost on a
+   bucket-100 G pass's seven cond-BN and six FFMA conv3x3 calls issued
+   alone (each through its wrapper, through its ``torch.library`` op and as
+   the op's CUDA implementation called directly), the generator forward per
+   bucket, ``/sample`` latency and its host stages at 100 images; and a
    ``torch.profiler`` trace of the forward at buckets 1 and 100 for the
    device's busy share and the time by kernel (at bucket 100 no ReLU
    kernel may remain: the generator's seven run inside cond-BN);
@@ -205,12 +208,29 @@ and the CIFAR app's Inception-v3 scorer:
    MB, also as the line ``{"compiled_evals": ...}``; and what the full
    ``gc.collect()`` that each capture runs first costs the process there.
    PGGAN's trainer, the evals and recovery capture by default on the
-   card, so phases 8 to 11 run them captured.
+   card, so phases 8 to 11 run them captured;
+15. the exported sampler and MS-SSIM: ``torch.library.opcheck`` of
+   ``rcgan::conv3x3`` and ``rcgan::cond_batchnorm`` on the card (schema,
+   fake implementation against the CUDA one), float32 and bf16; the
+   full-width CIFAR sampler exported (``Sampler.export_sampler``) at
+   buckets 1 and 100 on the card and at bucket 1 on the CPU, the PGGAN
+   sampler at its app's defaults at bucket 8; one fresh interpreter that
+   imports only ``rcgan_tpu_torch.ops.kernels`` and the loader loads each
+   file onto the card (``exported.load_exported``): each output against the
+   live sampler's eager pass (1e-4 of scale, bit-equality printed), one
+   call's launches exactly (CIFAR 6 FFMA + 1 cuDNN-route conv3x3 and 7
+   cond-BN, PGGAN 8 and 8), ms a call beside the live eager and captured
+   pass, export and load seconds, MB; ``msssim_pairs`` on 2 000 pairs, card
+   against CPU; a full-width ``CifarTrainer`` state saved as the CIFAR app
+   saves it, exported by the CLI (``python -m rcgan_tpu_torch.serving
+   --export``) and held against its live pass, and ``python -m
+   rcgan_tpu_torch.evals.msssim_report`` on it at its defaults.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
 PyTorch call computing the same function where there is one
-(``library_ms``); conv3x3's row is its FFMA kernel (``conv3x3.cu``) on the
+(``library_ms``), ``launches`` summed over every phase's counted runs
+(phase 15's exported programs included); conv3x3's row is its FFMA kernel (``conv3x3.cu``) on the
 six hand-written calls of a float32 generator pass at batch 100, as in
 earlier runs, and adds the calls split by route (``variants``), each
 kernel's own row (``by_variant``: wgmma on the rcgan cycle's bf16 convs,
@@ -222,7 +242,8 @@ bucket (``g_pass_f32``) and the cycle's bf16 convs together
 [64, 3072] in CUDA graphs, issued alone beside it; cond_bn's and sn's rows are device times in
 CUDA graphs (a float32 generator pass's seven calls at batch 100 with the
 ReLU fused; the two launches of a D pass), with the same calls issued
-alone beside them (``alone_ms``, ``plain_alone_ms``), and sn's adds
+alone beside them (``alone_ms``, ``plain_alone_ms``; cond_bn's and
+conv3x3's rows add ``dispatcher``, phase 5's host cost of the op), and sn's adds
 MNIST's group (``mnist_group``); conv3x3's, cond_bn's and sn's rows add
 ``pggan``: the launches per iteration by stage and the times at PGGAN's
 shapes (conv3x3's also the stage-4 iteration's times); the projection's
@@ -682,6 +703,49 @@ def cond_bn_times(torch, inputs) -> dict:
         print(f"    bucket {b}: kernel {r['kernel']:.4f} ms, plain {r['plain']:.4f} ms "
               f"({r['plain'] / r['kernel']:.1f}x), bound {r['bound']:.4f} ms ({r['bound_by']}): "
               f"kernel {r['bound'] / r['kernel']:.1%} of it", flush=True)
+    return out
+
+
+def dispatcher_cost(torch, inputs, ffma_shapes, b: int = 100) -> dict:
+    """The dispatcher's host cost on a float32 generator pass at batch
+    ``b``, its calls issued alone (CUDA events around single eager calls,
+    which read the host's issue time when it exceeds the kernel's): the
+    seven cond-BN calls (ReLU fused) and the FFMA conv3x3 calls, each
+    through the wrapper (autograd function, then op), through the op
+    (``torch.ops.rcgan.*``) and as the op's CUDA implementation called
+    directly, the three in alternation; medians of three, summed over the
+    pass.  ``dispatch_ms`` is the op's time minus the direct call's."""
+    from rcgan_tpu_torch.ops.kernels import conv_kernel as ck
+    from rcgan_tpu_torch.ops.kernels import norm_kernel as nk
+
+    kinds = {
+        "cond_bn": (COND_BN_SHAPES, "cond_bn",
+                    {"wrapper": lambda a: nk.cond_batchnorm(*a, relu=True),
+                     "op": lambda a: nk.cond_batchnorm_op(*a, 1e-5, True),
+                     "direct": lambda a: nk.cond_batchnorm_cuda(*a, 1e-5, True)}),
+        "conv3x3": (ffma_shapes, "conv3x3",
+                    {"wrapper": lambda a: ck.conv3x3(*a), "op": lambda a: ck.conv3x3_op(*a),
+                     "direct": lambda a: ck.conv3x3_cuda(*a)}),
+    }
+    out = {}
+    for kind, (shapes, tag, ways) in kinds.items():
+        sums = dict.fromkeys(ways, 0.0)
+        for key in sorted(set(shapes)):
+            a = inputs[(tag, b, *key)]
+            runs = {w: [] for w in ways}
+            for _ in range(3):
+                for w, f in ways.items():
+                    runs[w].append(event_ms(torch, lambda: f(a)))
+            for w in ways:
+                sums[w] += shapes.count(key) * statistics.median(runs[w])
+        row = {f"{w}_ms": v for w, v in sums.items()}
+        row.update(calls=len(shapes), dispatch_ms=sums["op"] - sums["direct"])
+        out[kind] = row
+        print(f"  {kind}, a float32 generator pass's {len(shapes)} calls at batch {b}, each "
+              f"issued alone: through the wrapper {sums['wrapper']:.4f} ms, the op "
+              f"{sums['op']:.4f} ms, the CUDA implementation directly {sums['direct']:.4f} ms; "
+              f"the dispatcher's host cost {row['dispatch_ms'] * 1e3:.1f} us a pass "
+              f"({row['dispatch_ms'] * 1e3 / len(shapes):.1f} us a call)", flush=True)
     return out
 
 
@@ -1167,8 +1231,9 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
         ms = event_ms(torch, lambda: f(zz, ll), reps=20)
         print(f"  entry() forward, {dt_name}: {ms:.3f} ms ({batch / ms * 1e3:.1f} images/s)",
               flush=True)
-    # the host's cost of the autograd function around a no-grad conv:
-    # conv3x3 (through Conv3x3Fn) against the bare launch it wraps, D's 8x8
+    # the host's cost of the autograd function and the dispatcher around a
+    # no-grad conv: conv3x3 (through Conv3x3Fn and rcgan::conv3x3) against
+    # the op's CUDA implementation called directly (the bare launch), D's 8x8
     # conv at batch 64 in bf16, alternating, each call issued alone
     xs = torch.randn(batch, 8, 8, 128, device=dev).to(torch.bfloat16)
     ws = (torch.randn(3, 3, 128, 128, device=dev) * 0.04).to(torch.bfloat16)
@@ -1176,7 +1241,7 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
     with torch.no_grad():
         for _ in range(3):
             via_fn.append(event_ms(torch, lambda: conv_kernel.conv3x3(xs, ws)))
-            bare.append(event_ms(torch, lambda: conv_kernel._forward(xs, ws)))
+            bare.append(event_ms(torch, lambda: conv_kernel.conv3x3_cuda(xs, ws)))
     print(f"  conv3x3 [{batch},8,8,128]x[3,3,128,128] bf16, no grad, one call issued alone: "
           f"through Conv3x3Fn {statistics.median(via_fn) * 1e3:.1f} us, bare launch "
           f"{statistics.median(bare) * 1e3:.1f} us (medians of 3 alternating medians)", flush=True)
@@ -3902,6 +3967,297 @@ def compiled_evals_slice(torch, dev, seed: int, card: str) -> dict:
     return {"counts": totals, "variants": var_totals, "rows": rows}
 
 
+# Phase 15, the exported sampler (``Sampler.export_sampler`` ->
+# ``torch.export`` program -> ``exported.load_exported``) and MS-SSIM.  The
+# full-width CIFAR sampler (``ResnetGANConfig()``, the seed's weights as in
+# phase 4) is exported at buckets 1 and 100 on the card and at bucket 1 on
+# the CPU, the PGGAN sampler at its app's defaults (64x64, ``max_stage`` 4,
+# dim 128) at bucket 8; one fresh interpreter that imports only
+# ``rcgan_tpu_torch.ops.kernels`` and the loader (``EXPORT_LOADER``) loads
+# each file onto the card, counts one call's launches, times 12 calls (numpy
+# in, numpy out, as ``sample_with_z``) and writes the images back; each is
+# held against the live sampler's eager pass on the same z and labels.
+# Then ``msssim_pairs`` on 2 000 pairs of 32x32x3, card against CPU; a
+# full-width ``CifarTrainer`` state from the seed written as the CIFAR app
+# writes it (``<run>/checkpoint`` and the run's flags as ``config.json``),
+# exported through the CLI (``python -m rcgan_tpu_torch.serving --export``)
+# and reported on by ``python -m rcgan_tpu_torch.evals.msssim_report`` at
+# its defaults.  Launches a call of each exported program, exactly:
+EXPORT_COUNTS = {"cifar": ({"cond_bn": 7, "conv3x3": 6},
+                           {"wgmma": 0, "ffma": 6, "cudnn": 1}),
+                 "pggan": ({"cond_bn": 8, "conv3x3": 8},
+                           {"wgmma": 0, "ffma": 8, "cudnn": 0})}
+EXPORT = {"cifar_buckets": (1, 100), "pggan_bucket": 8, "pggan_max_stage": 4, "reps": 12,
+          "msssim_pairs": 2000, "msssim_tol": 1e-5, "timeout": 300}
+
+# What the fresh interpreter runs: argv[1] is a JSON list of [name, path,
+# inputs.npz, output.npy]; it prints one JSON object of per-file results
+# and the port modules it imported besides the kernels and the loader.
+EXPORT_LOADER = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+import rcgan_tpu_torch.ops.kernels
+from rcgan_tpu_torch.exported import load_exported
+from rcgan_tpu_torch.ops.kernels import runtime
+
+out, totals = {}, dict.fromkeys(runtime.KERNELS, 0)
+vtotals = dict.fromkeys(runtime.VARIANTS["conv3x3"], 0)
+for name, path, inputs, dest in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    fn = load_exported(path)
+    load_s = time.perf_counter() - t0
+    d = np.load(inputs)
+    z, labels = d["z"], d["labels"]
+    runtime.reset_launch_counts()
+    fn(z, labels).cpu()
+    first, vfirst = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+    runtime.reset_launch_counts()
+    img = fn(z, labels).cpu().numpy()
+    counts, variants = runtime.launch_counts(), runtime.variant_counts("conv3x3")
+    np.save(dest, img)
+    times = []
+    for _ in range(int(sys.argv[2])):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(z, labels).cpu()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    for k, n in runtime.launch_counts().items():
+        totals[k] += n + first[k]
+    for k, n in runtime.variant_counts("conv3x3").items():
+        vtotals[k] += n + vfirst[k]
+    out[name] = {"load_s": load_s, "counts": counts, "variants": variants,
+                 "ms": statistics.median(times), "meta": fn.meta}
+out["_totals"], out["_variants"] = totals, vtotals
+out["_modules"] = sorted(m for m in sys.modules if m.startswith(
+    ("rcgan_tpu_torch.models", "rcgan_tpu_torch.serving", "rcgan_tpu_torch.train", "rcgan_tpu.",
+     "jax")) or m == "rcgan_tpu")
+print(json.dumps(out))
+"""
+
+
+def write_cifar_checkpoint(run: str, dev, seed: int) -> str:
+    """A fresh ``CifarTrainer`` state from ``seed`` saved as the CIFAR app
+    saves it: the configs its flags build (``--algorithm rcgan``, the rest
+    at their defaults), checkpoint 0 under ``<run>/checkpoint``, the flags
+    as ``<run>/config.json``; returns the checkpoint directory."""
+    import os
+
+    import torch
+
+    from rcgan_tpu_torch import config as flagslib
+    from rcgan_tpu_torch.apps.cifar_app import build_configs
+    from rcgan_tpu_torch.data.confusion import one_coin_matrix
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainer
+
+    flags = flagslib.parse(flagslib.cifar_flags(), ["--algorithm", "rcgan"])
+    cfg, acfg, tcfg, _, _ = build_configs(flags, 1)
+    trainer = CifarTrainer(cfg, acfg, tcfg, one_coin_matrix(0.6, 10), device=dev,
+                           compute_dtype=torch.bfloat16)
+    os.makedirs(run, exist_ok=True)
+    ckpt = os.path.join(run, "checkpoint")
+    Checkpointer(ckpt).save(0, trainer.init(seed), wait=True)
+    with open(os.path.join(run, "config.json"), "w") as f:
+        json.dump(vars(flags), f, indent=2, default=str)
+    return ckpt
+
+
+def export_slice(torch, dev, seed: int, card: str) -> dict:
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+
+    from rcgan_tpu_torch.evals import msssim_report
+    from rcgan_tpu_torch.evals.msssim import msssim_pairs
+    from rcgan_tpu_torch.exported import load_exported
+    from rcgan_tpu_torch.models import pggan
+    from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.serving import Sampler
+
+    from rcgan_tpu_torch.ops.kernels import conv_kernel, norm_kernel
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # ---- the two ops' schemas and fake implementations against their CUDA
+    # implementations (shapes, dtypes, strides), before the counted run
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(4, 8, 8, 64, generator=g, device=dev).to(dt)
+        w = (torch.randn(3, 3, 64, 128, generator=g, device=dev) * 0.05).to(dt)
+        xs = torch.randn(4, 64, 128, generator=g, device=dev).to(dt)
+        labels = torch.arange(4, device=dev) % 10
+        tables = [torch.randn(10, 128, generator=g, device=dev) for _ in range(2)]
+        utils = ("test_schema", "test_faketensor")
+        res = [torch.library.opcheck(conv_kernel.conv3x3_op, (x, w), test_utils=utils),
+               torch.library.opcheck(norm_kernel.cond_batchnorm_op,
+                                     (xs, labels, *tables, 1e-5, True), test_utils=utils)]
+        check(all(v == "SUCCESS" for r in res for v in r.values()),
+              f"torch.library.opcheck on the card, {dt}: rcgan::conv3x3 {res[0]}, "
+              f"rcgan::cond_batchnorm {res[1]}")
+    runtime.reset_launch_counts()
+    rs = np.random.RandomState(seed + 15)
+    rows, files, live = {}, [], {}
+
+    def inputs(name: str, b: int, z_dim: int):
+        z = rs.standard_normal((b, z_dim)).astype(np.float32)
+        labels = np.arange(b) % 10
+        np.savez(os.path.join(root, f"{name}_in.npz"), z=z, labels=labels)
+        return z, labels
+
+    def export(name: str, sampler, bucket: int):
+        path = os.path.join(root, f"{name}.pt2")
+        t = time.perf_counter()
+        sampler.export_sampler(path, bucket)
+        rows[name] = {"export_s": time.perf_counter() - t,
+                      "mb": os.path.getsize(path) / 2 ** 20}
+        files.append([name, path, os.path.join(root, f"{name}_in.npz"),
+                      os.path.join(root, f"{name}_out.npy")])
+
+    # ---- export: CIFAR at buckets 1 and 100 on the card, bucket 1 on the CPU
+    gen = Generator(ResnetGANConfig(), seed, device=dev)
+    s_eager, s_graph = Sampler(gen, BUCKETS, graphs=False), Sampler(gen, BUCKETS)
+    for b in EXPORT["cifar_buckets"]:
+        name = f"cifar_b{b}"
+        z, labels = inputs(name, b, 128)
+        live[name] = ("cifar", s_eager.sample_with_z(z, labels))
+        export(name, s_eager, b)
+        rows[name]["eager_ms"] = event_ms(torch, lambda: s_eager.sample_with_z(z, labels),
+                                          reps=EXPORT["reps"], warmup=1)
+        rows[name]["captured_ms"] = event_ms(torch, lambda: s_graph.sample_with_z(z, labels),
+                                             reps=EXPORT["reps"], warmup=2)
+    cpu_gen = Generator(ResnetGANConfig(), device="cpu")
+    cpu_gen.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()})
+    z, labels = inputs("cifar_cpu_b1", 1, 128)
+    live["cifar_cpu_b1"] = ("cifar", s_eager.sample_with_z(z, labels))
+    export("cifar_cpu_b1", Sampler(cpu_gen, (1,)), 1)
+    # ---- PGGAN at the app's defaults
+    pcfg = pggan.PGGANConfig(**PG_WIDTH, max_stage=EXPORT["pggan_max_stage"])
+    pgen = pggan.Generator(pcfg, ResnetGANConfig(dim_g=pcfg.dim, dim_d=pcfg.dim,
+                                                 z_dim=pcfg.z_dim), seed).to(dev)
+    pb = EXPORT["pggan_bucket"]
+    ps_eager, ps_graph = Sampler(pgen, (pb,), graphs=False), Sampler(pgen, (pb,))
+    z, labels = inputs("pggan_b8", pb, pcfg.z_dim)
+    live["pggan_b8"] = ("pggan", ps_eager.sample_with_z(z, labels))
+    export("pggan_b8", ps_eager, pb)
+    rows["pggan_b8"]["eager_ms"] = event_ms(torch, lambda: ps_eager.sample_with_z(z, labels),
+                                            reps=EXPORT["reps"], warmup=1)
+    rows["pggan_b8"]["captured_ms"] = event_ms(torch, lambda: ps_graph.sample_with_z(z, labels),
+                                               reps=EXPORT["reps"], warmup=2)
+    del s_graph, ps_graph
+    torch.cuda.synchronize()
+
+    # ---- load and run each file in a fresh interpreter
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, json.dumps(files),
+                           str(EXPORT["reps"])], capture_output=True, text=True, cwd=here,
+                          timeout=EXPORT["timeout"])
+    loader_s = time.perf_counter() - t
+    loaded = {}
+    if check(proc.returncode == 0, f"the exported programs loaded and ran in a fresh interpreter "
+                                   f"({loader_s:.1f} s): exit {proc.returncode} "
+                                   f"{proc.stderr[-2000:] if proc.returncode else ''}"):
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(loaded["_modules"] == [], f"the fresh interpreter imported only the kernels "
+                                        f"package and the loader of the port (also: "
+                                        f"{loaded['_modules']})")
+    for name, _, _, dest in files:
+        if name not in loaded:
+            continue
+        model, ref = live[name]
+        got, r = np.load(dest), loaded[name]
+        err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+        scale = float(np.abs(ref).max())
+        want_counts, want_variants = EXPORT_COUNTS[model]
+        want = {**dict.fromkeys(runtime.KERNELS, 0), **want_counts}
+        check(got.shape == ref.shape and bool(np.isfinite(got).all()) and err <= 1e-4 * scale,
+              f"exported {name} on the card against the live sampler's eager pass "
+              f"{list(ref.shape)}: max abs err {err:.3e} (limit 1e-4 of scale {scale:.3f}), "
+              f"bit-equal {bool(np.array_equal(got, ref))}")
+        check(r["counts"] == want and r["variants"] == want_variants,
+              f"exported {name}: one call's launches {r['counts']}, conv3x3 by route "
+              f"{r['variants']} (want {want}, {want_variants})")
+        rows[name].update(ms=r["ms"], load_s=r["load_s"], bit_equal=bool(np.array_equal(got, ref)),
+                          max_abs_err=err)
+        extra = (f"; live sampler eager {rows[name]['eager_ms']:.3f} ms, captured "
+                 f"{rows[name]['captured_ms']:.3f} ms" if "eager_ms" in rows[name] else "")
+        print(f"  exported {name} on {card}: {r['ms']:.3f} ms a call (median of "
+              f"{EXPORT['reps']}, CUDA events, numpy in and out){extra}; export "
+              f"{rows[name]['export_s']:.2f} s, {rows[name]['mb']:.1f} MB, load "
+              f"{r['load_s']:.2f} s", flush=True)
+
+    # ---- MS-SSIM on the card against the CPU
+    n = EXPORT["msssim_pairs"]
+    a = rs.uniform(0, 255, (n, 32, 32, 3)).astype(np.float32)
+    b = np.clip(a + rs.normal(0, 40, a.shape), 0, 255).astype(np.float32)
+    on_card = msssim_pairs(a, b).cpu().numpy()
+    t = time.perf_counter()
+    on_cpu = msssim_pairs(a, b, device="cpu").numpy()
+    cpu_s = time.perf_counter() - t
+    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    card_ms = event_ms(torch, lambda: msssim_pairs(at, bt), reps=EXPORT["reps"], warmup=1)
+    err = float(np.abs(on_card - on_cpu).max())
+    check(bool(np.isfinite(on_card).all()) and err <= EXPORT["msssim_tol"],
+          f"msssim_pairs on {n} pairs of 32x32x3, card against CPU: max abs err {err:.2e} "
+          f"(limit {EXPORT['msssim_tol']}), mean {on_card.mean():.4f}")
+    rows["msssim_pairs"] = {"pairs": n, "card_ms": card_ms, "cpu_s": cpu_s, "max_abs_err": err}
+    print(f"  msssim_pairs, {n} pairs of 32x32x3 on {card}: {card_ms:.3f} ms (CUDA events, "
+          f"median of {EXPORT['reps']}); on this host's CPU {cpu_s:.2f} s", flush=True)
+
+    # ---- the CLI's export and the diversity report on a checkpoint of the app's layout
+    run = os.path.join(root, "run")
+    ckpt = write_cifar_checkpoint(run, dev, seed)
+    cli_path = os.path.join(root, "cli.pt2")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rcgan_tpu_torch.serving", "--model", "cifar",
+                           "--checkpoint_dir", ckpt, "--export", cli_path], capture_output=True,
+                          text=True, cwd=here, timeout=EXPORT["timeout"])
+    cli_s = time.perf_counter() - t
+    said = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    if check(proc.returncode == 0 and said == f"exported bucket-100 sampler to {cli_path}",
+             f"python -m rcgan_tpu_torch.serving --model cifar --export on the app's checkpoint "
+             f"({cli_s:.1f} s): exit {proc.returncode}, said {said!r} "
+             f"{proc.stderr[-2000:] if proc.returncode else ''}"):
+        ck_gen = Sampler.from_checkpoint("cifar", ckpt, device=dev).generator
+        z, labels = rs.standard_normal((100, 128)).astype(np.float32), np.arange(100) % 10
+        ref = Sampler(ck_gen, BUCKETS, graphs=False).sample_with_z(z, labels)
+        got = load_exported(cli_path)(z, labels).cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        check(err <= 1e-4 * float(np.abs(ref).max()),
+              f"the CLI's artifact against the checkpoint's live eager pass at bucket 100: max "
+              f"abs err {err:.3e}, bit-equal {bool(np.array_equal(got, ref))}")
+    os.environ["RCGAN_SYNTH_CACHE"] = "0"
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = msssim_report.main(["--model", "cifar", "--checkpoint_dir", ckpt,
+                                     "--out", os.path.join(root, "msssim.json")])
+    report_s = time.perf_counter() - t
+    os.environ.pop("RCGAN_SYNTH_CACHE", None)
+    check(all(0.0 <= report[k] <= 1.0 for k in ("generated_mean", "real_mean"))
+          and os.path.exists(os.path.join(root, "msssim.json")),
+          f"msssim_report at its defaults (--per_class 32 --pairs 200) on the checkpoint: "
+          f"generated {report['generated_mean']:.4f}, real {report['real_mean']:.4f}, max class "
+          f"gap {report['max_class_gap']:.4f}")
+    rows["cli_export_s"], rows["msssim_report_s"] = cli_s, report_s
+    print(f"  CLI export {cli_s:.1f} s (a fresh interpreter: imports, restore, trace, write); "
+          f"msssim_report {report_s:.1f} s", flush=True)
+    counts = runtime.launch_counts()
+    variants = runtime.variant_counts("conv3x3")
+    for k, v in loaded.get("_totals", {}).items():
+        counts[k] += v
+    for k, v in loaded.get("_variants", {}).items():
+        variants[k] += v
+    shutil.rmtree(root, ignore_errors=True)
+    return {"counts": counts, "variants": variants, "rows": rows}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint_dir", default=None,
@@ -4254,6 +4610,7 @@ def main(argv=None) -> int:
     print(f"  conv3x3 per generator pass at batch 100, its {len(ffma_shapes)} FFMA calls on cuDNN "
           f"float32: {conv_library_ms:.4f} ms", flush=True)
     cbn = cond_bn_times(torch, inputs)
+    dispatch = dispatcher_cost(torch, inputs, ffma_shapes)
     g_pass = g_pass_conv_times(torch, inputs)
     proj = projection_times(torch, inputs[("projection", 64)])
     proj_library_ms = proj["addmm_alone"]
@@ -4334,6 +4691,11 @@ def main(argv=None) -> int:
     lap("phase 14")
     print(json.dumps({"compiled_evals": compiled_evals["rows"]}), flush=True)
 
+    # ------------------------------- 15. the exported sampler and MS-SSIM
+    exported = export_slice(torch, dev, args.seed, card)
+    lap("phase 15")
+    print(json.dumps({"exported": exported["rows"]}), flush=True)
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -4385,7 +4747,8 @@ def main(argv=None) -> int:
         row = dict(name=k, **KERNEL_INFO[k],
                    launches=(counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k]
                              + mnist["counts"][k] + pggan["counts"][k] + dp["counts"][k]
-                             + compiled["counts"][k] + compiled_evals["counts"][k]),
+                             + compiled["counts"][k] + compiled_evals["counts"][k]
+                             + exported["counts"][k]),
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":
@@ -4396,7 +4759,7 @@ def main(argv=None) -> int:
                        plain_alone_ms=per_pass["cond_bn"][100][1],
                        alone_ms_is="the same seven calls, each issued alone (host included), "
                                    "CUDA events",
-                       launches_per_call=1,
+                       launches_per_call=1, dispatcher=dispatch["cond_bn"],
                        g_pass_f32={str(b): {"ms": r["kernel"], "plain_ms": r["plain"],
                                             "bound_ms": r["bound"]} for b, r in cbn.items()})
         if k == "sn":
@@ -4426,7 +4789,8 @@ def main(argv=None) -> int:
             row["variants"] = {v: serve_variants[v] + d_variants[v] + t_res["variants"][v]
                                + app["variants"][v] + pggan["variants"][v]
                                + compiled["variants"][v] + compiled_evals["variants"][v]
-                               for v in runtime.VARIANTS[k]}
+                               + exported["variants"][v] for v in runtime.VARIANTS[k]}
+            row["dispatcher"] = dispatch["conv3x3"]
             row["ms_is"] = (f"the FFMA kernel on one float32 generator pass at batch 100 "
                             f"({len(ffma_shapes)} convs; G's 256 -> 3 conv is on cuDNN), eager, "
                             f"CUDA events")

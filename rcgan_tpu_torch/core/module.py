@@ -141,11 +141,14 @@ def scoped_modules(module: nn.Module) -> Dict[str, Scoped]:
 
 
 def param_tree(module: nn.Module) -> Params:
-    """Flat ``{scope: {var: tensor}}`` view of a module's parameters."""
-    return {
+    """Flat ``{scope: {var: tensor}}`` view of a module's parameters (a
+    scope that holds only state, such as a depthwise filter's spectral-norm
+    ``u``, is left out, as JAX's tree has no empty layer)."""
+    tree = {
         scope: {name: p.detach() for name, p in m.named_parameters(recurse=False)}
         for scope, m in scoped_modules(module).items()
     }
+    return {k: v for k, v in tree.items() if v}
 
 
 def state_tree(module: nn.Module) -> Params:

@@ -99,7 +99,7 @@ def _sn_group_by(fn):
 def _cond_bn_plain(x, labels, scale_table, offset_table, eps, relu=False):
     mean, inv = norm_kernel._moments_plain(x, eps)
     out = norm_kernel._apply_plain(x, labels, scale_table, offset_table, mean, inv, relu)
-    return out, mean, inv
+    return out, torch.stack((mean, inv))
 
 
 def _cond_bn64(x, labels, scale_table, offset_table, eps, relu=False):
@@ -109,7 +109,7 @@ def _cond_bn64(x, labels, scale_table, offset_table, eps, relu=False):
     inv = torch.rsqrt(torch.clamp((x64 * x64).mean(dim=(0, 1)) - mean * mean, min=0.0) + eps)
     out = (x64 - mean) * inv * scale_table.double()[labels][:, None, :] \
         + offset_table.double()[labels][:, None, :]
-    return (torch.relu(out) if relu else out).to(x.dtype), mean.float(), inv.float()
+    return (torch.relu(out) if relu else out).to(x.dtype), torch.stack((mean, inv)).float()
 
 
 SHIPPED = {"ffma_geometry": conv_kernel.ffma_geometry, "_launch_ffma": conv_kernel._launch_ffma,

@@ -16,11 +16,11 @@ load by name (``rcgan_tpu_torch/bridge.py``).  Every layer casts to its
 ``compute_dtype`` at a conv or matmul (``set_compute_dtype``); parameters
 and SN state stay float32.
 
-``normalize``'s routes: cond-BN, or the zero-debiased ``batch_norm`` where
-a ``G.`` scope sees no labels (an unconditional generator, and the PGGAN
-critic, whose ``PG.D.*`` scopes hold ``G.``).  Not ported yet (ROADMAP.md,
-Queue 1): the ``layer_norm`` branch (``normalization_d``), off in
-``ResnetGANConfig()``; asking for it raises ``NotImplementedError``.
+``normalize``'s routes: ``layer_norm`` for a ``D.`` scope with
+``normalization_d`` (off in ``ResnetGANConfig()``), cond-BN, or the
+zero-debiased ``batch_norm`` where a ``G.`` scope sees no labels (an
+unconditional generator, and the PGGAN critic, whose ``PG.D.*`` scopes hold
+``G.``).
 """
 
 from __future__ import annotations
@@ -36,10 +36,8 @@ from rcgan_tpu_torch.ops.conv import Conv2dLib, mean_pool, upsample_depth_to_spa
 from rcgan_tpu_torch.ops.kernels.projection_kernel import all_label_projection_logits
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.ops.linear import Embedding, LinearLib
-from rcgan_tpu_torch.ops.norm import BatchNorm, CondBatchNorm
+from rcgan_tpu_torch.ops.norm import BatchNorm, CondBatchNorm, LayerNorm
 from rcgan_tpu_torch.ops.sn import clear_prepared, prepare_spectral_norms, sn_layers
-
-_NOT_PORTED = "not ported yet: see ROADMAP.md, Queue 1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +76,8 @@ class Normalize(nn.Module):
     it; the port decides at construction, so the caller says whether the
     layer will be called with labels (``labeled``):
 
+    - a ``D.`` scope with ``normalization_d``: :class:`LayerNorm` (``ln``),
+      whether or not labels reach it, as JAX checks it first;
     - a ``G.`` scope with ``normalization_g``: conditional BN (``cbn``)
       where labels reach it (``labeled``, a conditional config, and not an
       acgan ``D.`` scope), else the zero-debiased :class:`BatchNorm`
@@ -91,9 +91,10 @@ class Normalize(nn.Module):
         super().__init__()
         self.cbn: Optional[CondBatchNorm] = None
         self.bn: Optional[BatchNorm] = None
+        self.ln: Optional[LayerNorm] = None
         if "D." in name and cfg.normalization_d:
-            raise NotImplementedError(f"layer_norm for {name}: {_NOT_PORTED}")
-        if "G." in name and cfg.normalization_g:
+            self.ln = LayerNorm(channels, name, seed=seed)
+        elif "G." in name and cfg.normalization_g:
             labeled = labeled and cfg.conditional and not (cfg.acgan and "D." in name)
             if labeled:
                 self.cbn = CondBatchNorm(cfg.vocab_size, channels, name, seed)
@@ -101,6 +102,8 @@ class Normalize(nn.Module):
                 self.bn = BatchNorm(channels, name, zero_debias=True, seed=seed)
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.ln is not None:
+            return self.ln(x)
         if self.cbn is not None:
             return self.cbn(x, labels)
         if self.bn is not None:

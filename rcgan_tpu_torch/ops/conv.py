@@ -1,8 +1,10 @@
 """Convolutions (NHWC activations, HWIO filters), ported from
-``rcgan_tpu/ops/conv.py``: ``_conv``, ``conv2d_lib`` with
-``conv_type="conv2d"`` and optional spectral norm, ``mean_pool``,
-``upsample_depth_to_space``, and the MNIST stack's DCGAN ops ``conv2d``
-(5x5, stride 2, optional spectral norm), ``deconv2d``,
+``rcgan_tpu/ops/conv.py``: ``_conv``, ``conv2d_lib`` (:class:`Conv2dLib`:
+``conv_type`` "conv2d", "depthwise_conv2d" and "separable_conv2d", any
+stride, SAME or VALID padding, optional spectral norm, weight norm and
+PixelCNN masks), ``conv1d_lib`` (:class:`Conv1dLib`, with its causal mask),
+``mean_pool``, ``upsample_depth_to_space``, and the MNIST stack's DCGAN
+ops ``conv2d`` (5x5, stride 2, optional spectral norm), ``deconv2d``,
 ``conv_cond_concat`` and ``lrelu``.
 
 Every 3x3 / stride 1 / SAME call goes to
@@ -18,12 +20,15 @@ rest after, which is asymmetric for a 5x5 conv at stride 2 on 28, 14 and 4
 padded by the forward conv's leading pad, then cropped to ``stride`` times
 the input.
 ``x`` and the filter are cast to the layer's ``compute_dtype`` at the conv,
-and the bias to the conv's output dtype, as in JAX.  Weight norm, PixelCNN
-masks and the depthwise/separable variants are not ported yet.
+and the bias to the conv's output dtype, as in JAX.  A depthwise filter
+``[k, k, C, M]`` is applied as JAX applies it: transposed to ``[k, k, M,
+C]``, reshaped to ``[k, k, 1, M*C]`` and run with C groups, so that output
+channel ``m*C + c`` belongs to group ``(m*C + c) // M``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -40,19 +45,31 @@ def same_padding(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """SAME conv: ``x [B,H,W,C]`` (*) ``w [kh,kw,C,O]`` at ``stride`` →
-    ``[B,ceil(H/stride),ceil(W/stride),O]``."""
+def _pads(sizes, kernel, stride: int, padding: str):
+    """``[(before, after), ...]`` per spatial dim: TF's SAME, or none for
+    VALID."""
+    if padding == "VALID":
+        return [(0, 0)] * len(sizes)
+    if padding != "SAME":
+        raise ValueError(f"padding must be SAME or VALID; got {padding!r}")
+    return [same_padding(n, k, stride) for n, k in zip(sizes, kernel)]
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME",
+          groups: int = 1) -> torch.Tensor:
+    """Conv of ``x [B,H,W,C]`` with ``w [kh,kw,C/groups,O]`` at ``stride``
+    (TF's SAME, or VALID) → ``[B,H',W',O]``.  3x3, stride 1, SAME, ungrouped
+    calls go to :func:`conv3x3`."""
     kh, kw = w.shape[:2]
-    if (kh, kw, stride) == (3, 3, 1):
+    if (kh, kw, stride, padding, groups) == (3, 3, 1, "SAME", 1):
         return conv3x3(x.contiguous(), w.contiguous())
-    (ht, hb), (wl, wr) = same_padding(x.shape[1], kh, stride), same_padding(x.shape[2], kw, stride)
+    (ht, hb), (wl, wr) = _pads(x.shape[1:3], (kh, kw), stride, padding)
     xc = x.permute(0, 3, 1, 2)
     if (ht, wl) == (hb, wr):
         pad = (ht, wl)
     else:  # TF's asymmetric SAME: pad first, then an unpadded conv
         xc, pad = F.pad(xc, (wl, wr, ht, hb)), (0, 0)
-    out = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad)
+    out = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride, padding=pad, groups=groups)
     return out.permute(0, 2, 3, 1).contiguous()
 
 
@@ -73,18 +90,160 @@ def conv_transpose_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.
     return out[:, :, :h * stride, :wd * stride].permute(0, 2, 3, 1).contiguous()
 
 
+def pixelcnn_mask(mask_type, filter_size: int, input_dim: int, output_dim: int,
+                  spatial_dims: int = 2) -> np.ndarray:
+    """PixelCNN causal mask (``conv2d.py:63-81``, ``conv1d.py``), float32 in
+    the filter's shape: taps after the centre are cut, and at the centre
+    ``mask_type = ("a" | "b", n)`` cuts input group i to output group j
+    where i >= j ("a") or i > j ("b"), groups interleaved with stride n."""
+    kind, n = mask_type
+    shape = (filter_size,) * spatial_dims + (input_dim, output_dim)
+    mask = np.ones(shape, np.float32)
+    c = filter_size // 2
+    mask[c + 1:] = 0.0
+    centre = (c,) * spatial_dims
+    if spatial_dims == 2:
+        mask[c, c + 1:] = 0.0
+    for i in range(n):
+        for j in range(n):
+            if (kind == "a" and i >= j) or (kind == "b" and i > j):
+                mask[centre + (slice(i, None, n), slice(j, None, n))] = 0.0
+    return mask
+
+
+def weight_normed(w: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
+    """``W * g / ||W||``, the norm over ``dims`` per output channel
+    (``conv2d.py:152-162``, ``linear.py:143-155``)."""
+    return w * (g / torch.sqrt(torch.sum(torch.square(w), dim=dims)))
+
+
+def add_weight_norm(layer: Scoped, weight: str, dims) -> None:
+    """The trainable per-output-channel ``g`` of ``layer.<weight>``,
+    initialised to the norms of the weight's initial value over ``dims``,
+    so that the layer starts as it would without weight norm."""
+    w = getattr(layer, weight).detach()
+    layer.add_param("g", (w.shape[-1],),
+                    lambda gen, shape, dtype: torch.sqrt(torch.sum(torch.square(w), dim=dims))
+                    .to(dtype))
+
+
+class _SNState(Scoped):
+    """The spectral-norm ``u`` of one filter of a depthwise or separable
+    conv, under JAX's scope for it (``<name>.dw``, ``<name>.pw``)."""
+
+    def __init__(self, scope: str, cout: int, seed: int):
+        super().__init__(scope, seed)
+        self.add_stat("u", (1, cout), inits.truncated_normal(1.0))
+
+
 class Conv2dLib(Scoped):
-    """GAN_Lib Conv2D (``conv_type="conv2d"``, stride 1, SAME padding — the
-    only form any ``conv2d_lib`` caller uses): he/Glorot-uniform HWIO
-    ``Filters``, optionally spectral-normed (with its ``u`` buffer), and an
-    optional ``Biases`` added after the conv."""
+    """GAN_Lib Conv2D (JAX ``conv2d_lib``): he/Glorot-uniform filters,
+    ``Biases`` added after the conv when ``biases``.
+
+    - ``conv_type="conv2d"``: HWIO ``Filters``, through weight norm
+      (``weightnorm``: ``g``), then the PixelCNN mask (``mask_type``), then
+      spectral norm (its ``u``), the reference's order;
+    - ``"depthwise_conv2d"``: ``depthwise_filters [k, k, C, M]``, output
+      ``C * M`` channels (``output_dim`` is not read);
+    - ``"separable_conv2d"``: the depthwise conv, then a 1x1 conv by
+      ``pointwise_filters [1, 1, C * M, output_dim]``.
+
+    With ``spectral_normed`` the depthwise and pointwise filters each have
+    their own ``u`` under the scopes ``<scope>.dw`` and ``<scope>.pw``, as in
+    JAX."""
 
     def __init__(self, input_dim: int, output_dim: int, filter_size: int, scope: str,
                  he_init: bool = True, biases: bool = True, gain: float = 1.0,
-                 seed: int = 0, spectral_normed: bool = False):
+                 seed: int = 0, spectral_normed: bool = False, stride: int = 1,
+                 padding: str = "SAME", conv_type: str = "conv2d", channel_multiplier: int = 0,
+                 mask_type=None, weightnorm: bool = False):
         super().__init__(scope, seed)
-        self.add_param("Filters", (filter_size, filter_size, input_dim, output_dim),
-                       inits.conv_uniform(he=he_init, gain=gain))
+        init = inits.conv_uniform(stride=stride, he=he_init, gain=gain)
+        self.stride, self.padding, self.conv_type = stride, padding, conv_type
+        self.spectral_normed = spectral_normed and conv_type == "conv2d"
+        self.weightnorm = weightnorm and conv_type == "conv2d"
+        self.mask = None
+        k = filter_size
+        if conv_type == "conv2d":
+            self.add_param("Filters", (k, k, input_dim, output_dim), init)
+            if self.weightnorm:
+                add_weight_norm(self, "Filters", (0, 1, 2))
+            if mask_type is not None:  # a constant, not state: kept out of the trees
+                self.mask = torch.from_numpy(pixelcnn_mask(mask_type, k, input_dim, output_dim))
+            if self.spectral_normed:
+                add_sn_state(self, output_dim, "Filters")
+        elif conv_type in ("depthwise_conv2d", "separable_conv2d"):
+            if channel_multiplier <= 0:
+                raise ValueError(f"{conv_type} needs channel_multiplier > 0")
+            self.add_param("depthwise_filters", (k, k, input_dim, channel_multiplier), init)
+            self.sn_dw = _SNState(scope + ".dw", channel_multiplier, seed) \
+                if spectral_normed else None
+            self.sn_pw = None
+            if conv_type == "separable_conv2d":
+                self.add_param("pointwise_filters",
+                               (1, 1, input_dim * channel_multiplier, output_dim), init)
+                if spectral_normed:
+                    self.sn_pw = _SNState(scope + ".pw", output_dim, seed)
+            else:
+                output_dim = input_dim * channel_multiplier
+        else:
+            raise NotImplementedError(conv_type)
+        if biases:
+            self.add_param("Biases", (output_dim,), inits.zeros)
+        else:
+            self.register_parameter("Biases", None)
+
+    def _depthwise(self, x: torch.Tensor) -> torch.Tensor:
+        dw = self.depthwise_filters
+        if self.sn_dw is not None:
+            dw = spectral_normed_weight(self.sn_dw, dw)
+        k, _, cin, mult = dw.shape
+        w = dw.permute(0, 1, 3, 2).reshape(k, k, 1, cin * mult)
+        return _conv(x.to(self.compute_dtype), w.to(self.compute_dtype), self.stride,
+                     self.padding, groups=cin)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_type == "conv2d":
+            w = self.Filters
+            if self.weightnorm:
+                w = weight_normed(w, self.g, (0, 1, 2))
+            if self.mask is not None:
+                w = w * self.mask.to(w.device)
+            if self.spectral_normed:
+                w = spectral_normed_weight(self, w)
+            out = _conv(x.to(self.compute_dtype), w.to(self.compute_dtype), self.stride,
+                        self.padding)
+        else:
+            out = self._depthwise(x)
+            if self.conv_type == "separable_conv2d":
+                pw = self.pointwise_filters
+                if self.sn_pw is not None:
+                    pw = spectral_normed_weight(self.sn_pw, pw)
+                out = _conv(out, pw.to(self.compute_dtype), 1, "SAME")
+        if self.Biases is not None:
+            out = out + self.Biases.to(out.dtype)
+        return out
+
+
+class Conv1dLib(Scoped):
+    """GAN_Lib Conv1D (JAX ``conv1d_lib``): ``x [B, W, C]``, ``Filters [k,
+    C, O]`` (he/Glorot uniform, drawn as a ``[1, k, C, O]`` conv filter),
+    optional PixelCNN causal mask and spectral norm, TF's SAME or VALID
+    padding at ``stride``, optional ``Biases``."""
+
+    def __init__(self, input_dim: int, output_dim: int, filter_size: int, scope: str,
+                 stride: int = 1, padding: str = "SAME", mask_type=None,
+                 spectral_normed: bool = False, he_init: bool = True, biases: bool = True,
+                 gain: float = 1.0, seed: int = 0):
+        super().__init__(scope, seed)
+        init = inits.conv_uniform(stride=stride, he=he_init, gain=gain)
+        self.stride, self.padding = stride, padding
+        self.add_param("Filters", (filter_size, input_dim, output_dim),
+                       lambda gen, shape, dtype: init(gen, (1, *shape), dtype)[0])
+        self.mask = None
+        if mask_type is not None:  # a constant, not state: kept out of the trees
+            self.mask = torch.from_numpy(
+                pixelcnn_mask(mask_type, filter_size, input_dim, output_dim, spatial_dims=1))
         self.spectral_normed = spectral_normed
         if spectral_normed:
             add_sn_state(self, output_dim, "Filters")
@@ -95,9 +254,14 @@ class Conv2dLib(Scoped):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.Filters
+        if self.mask is not None:
+            w = w * self.mask.to(w.device)
         if self.spectral_normed:
             w = spectral_normed_weight(self, w)
-        out = _conv(x.to(self.compute_dtype), w.to(self.compute_dtype))
+        ((left, right),) = _pads(x.shape[1:2], w.shape[:1], self.stride, self.padding)
+        xc = F.pad(x.to(self.compute_dtype).permute(0, 2, 1), (left, right))
+        out = F.conv1d(xc, w.to(self.compute_dtype).permute(2, 1, 0), stride=self.stride)
+        out = out.permute(0, 2, 1)
         if self.Biases is not None:
             out = out + self.Biases.to(out.dtype)
         return out

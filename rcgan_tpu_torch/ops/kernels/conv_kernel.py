@@ -28,6 +28,14 @@ its variant; a ``"cudnn"`` call counts under its variant only
 (``runtime.variant_counts("conv3x3")``).  Both kernels are bound by
 arithmetic on the H100; the source notes say how each answers it.
 
+The forward is the ``torch.library`` op ``rcgan::conv3x3(x, w) -> Tensor``
+(:data:`conv3x3_op`), so that the dispatcher routes it by device and
+``torch.export`` keeps it as one node: its ``CPU`` implementation is
+:func:`conv3x3_plain`, its ``CUDA`` implementation :func:`conv3x3_cuda`
+(the route above, counted where it launches), and its fake implementation
+gives the output's shape and dtype only, so that tracing runs no kernel
+and counts nothing.
+
 Autograd: :class:`Conv3x3Fn` is the route on both devices, the counterpart
 of ``conv3x3_fused``'s ``custom_vjp``.  Its backward is the TPU kernel's
 ``_bwd``: the input grad is another 3x3/s1/SAME conv, of the cotangent with
@@ -229,17 +237,36 @@ def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return _launch(x, w) if runtime.on_cuda(x, w) else conv3x3_plain(x, w)
+def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: the route :func:`conv3x3_variant`
+    names, on the current stream, or an error; tensors that are not all on
+    one CUDA device raise (``runtime.on_cuda``)."""
+    if not runtime.on_cuda(x, w):
+        raise ValueError("conv3x3's CUDA implementation takes CUDA tensors")
+    return _launch(x, w)
+
+
+def _conv3x3_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check(x, w)
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+_lib = torch.library.Library("rcgan", "FRAGMENT")
+_lib.define("conv3x3(Tensor x, Tensor w) -> Tensor")
+_lib.impl("conv3x3", conv3x3_plain, "CPU")
+_lib.impl("conv3x3", conv3x3_cuda, "CUDA")
+torch.library.register_fake("rcgan::conv3x3", _conv3x3_fake, lib=_lib)
+conv3x3_op = torch.ops.rcgan.conv3x3.default
 
 
 class Conv3x3Fn(torch.autograd.Function):
-    """``(x, w) → conv``: a CUDA kernel or cuDNN by shape on the card,
-    :func:`conv3x3_plain` on the CPU.  Backward as the module note says."""
+    """``(x, w) → conv`` through :data:`conv3x3_op`: a CUDA kernel or cuDNN by
+    shape on the card, :func:`conv3x3_plain` on the CPU.  Backward as the
+    module note says."""
 
     @staticmethod
     def forward(ctx, x, w):
-        out = _forward(x, w)
+        out = conv3x3_op(x, w)
         ctx.save_for_backward(x, w)
         return out
 

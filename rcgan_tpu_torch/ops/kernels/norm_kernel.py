@@ -23,6 +23,18 @@ note says more.  :func:`geometry` is the launch's shape, computed here.
 The TPU's VMEM tiling rules (``_tiles``, ``_MIN_FUSED_BYTES``) have no
 counterpart here: every generator map goes through the kernel.
 
+The forward is the ``torch.library`` op ``rcgan::cond_batchnorm(x,
+labels, scale_table, offset_table, eps, relu) -> (out, moments)``
+(:data:`cond_batchnorm_op`), ``moments`` the float32 ``[2, C]`` rows
+``mean`` and ``rsqrt(var + eps)``; the dispatcher routes it by device and
+``torch.export`` keeps it as one node: its ``CPU`` implementation is the
+plain version, its ``CUDA`` implementation :func:`cond_batchnorm_cuda`
+(the launch, counted there; ``moments`` is the first two rows of the
+launch's statistics buffer, one output rather than two that would alias),
+and its fake implementation gives shapes and dtypes only.  The op reads no
+label's value: labels are checked on the host before it
+(``serving.py::check_labels``).
+
 Autograd: :class:`CondBatchNormFn` is the route on both devices, the
 counterpart of ``cond_batchnorm_fused``'s ``custom_vjp`` together with the
 autodiff of the table gather in ``cond_batchnorm_bhwc``.  The forward keeps
@@ -157,7 +169,8 @@ def _max_blocks(device_index: int, dtype_code: int, vec: int) -> int:
 
 
 def _launch(x, labels, scale_table, offset_table, eps, relu=False):
-    """The one cooperative launch; returns ``(out, mean, inv)``."""
+    """The one cooperative launch; returns ``(out, moments)``, ``moments``
+    the rows ``mean`` and ``inv`` of the statistics buffer."""
     _check(x, labels, scale_table, offset_table)
     b, s, c = x.shape
     out = torch.empty_like(x)
@@ -181,21 +194,48 @@ def _launch(x, labels, scale_table, offset_table, eps, relu=False):
         geo.smem_bytes, float(eps), int(relu))
     runtime.check_cuda_status(lib, "cond_bn_error_string", status, "cond_bn launch")
     runtime.count_launch("cond_bn")
-    return out, stats[0], stats[1]
+    return out, stats[:2]
+
+
+def _cond_batchnorm_cpu(x, labels, scale_table, offset_table, eps, relu):
+    """The op's CPU implementation: the plain version, with its moments."""
+    mean, inv = _moments_plain(x, eps)
+    out = _apply_plain(x, labels, scale_table, offset_table, mean, inv, relu)
+    return out, torch.stack((mean, inv))
+
+
+def cond_batchnorm_cuda(x, labels, scale_table, offset_table, eps, relu):
+    """The op's CUDA implementation: the one cooperative launch on the
+    current stream, or an error; tensors that are not all on one CUDA
+    device raise (``runtime.on_cuda``)."""
+    if not runtime.on_cuda(x, labels, scale_table, offset_table):
+        raise ValueError("cond_batchnorm's CUDA implementation takes CUDA tensors")
+    return _launch(x, labels, scale_table, offset_table, eps, relu)
+
+
+def _cond_batchnorm_fake(x, labels, scale_table, offset_table, eps, relu):
+    _check(x, labels, scale_table, offset_table)
+    return torch.empty_like(x), x.new_empty((2, x.shape[2]), dtype=torch.float32)
+
+
+_lib = torch.library.Library("rcgan", "FRAGMENT")
+_lib.define("cond_batchnorm(Tensor x, Tensor labels, Tensor scale_table, Tensor offset_table, "
+            "float eps, bool relu) -> (Tensor, Tensor)")
+_lib.impl("cond_batchnorm", _cond_batchnorm_cpu, "CPU")
+_lib.impl("cond_batchnorm", cond_batchnorm_cuda, "CUDA")
+torch.library.register_fake("rcgan::cond_batchnorm", _cond_batchnorm_fake, lib=_lib)
+cond_batchnorm_op = torch.ops.rcgan.cond_batchnorm.default
 
 
 class CondBatchNormFn(torch.autograd.Function):
-    """``(x, labels, scale_table, offset_table, eps, relu) → out``: the CUDA
-    kernel on the card, the plain version on the CPU.  Backward as the
-    module note says."""
+    """``(x, labels, scale_table, offset_table, eps, relu) → out`` through
+    :data:`cond_batchnorm_op`: the CUDA kernel on the card, the plain
+    version on the CPU.  Backward as the module note says."""
 
     @staticmethod
     def forward(ctx, x, labels, scale_table, offset_table, eps, relu=False):
-        if runtime.on_cuda(x, labels, scale_table, offset_table):
-            out, mean, inv = _launch(x, labels, scale_table, offset_table, eps, relu)
-        else:
-            mean, inv = _moments_plain(x, eps)
-            out = _apply_plain(x, labels, scale_table, offset_table, mean, inv, relu)
+        out, moments = cond_batchnorm_op(x, labels, scale_table, offset_table, eps, relu)
+        mean, inv = moments
         ctx.relu = relu
         ctx.save_for_backward(x, labels, scale_table, mean, inv, *((out,) if relu else ()))
         return out

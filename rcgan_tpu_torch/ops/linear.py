@@ -1,12 +1,12 @@
 """Dense layers and label embedding, ported from ``rcgan_tpu/ops/linear.py``
-(``linear_lib`` with optional spectral norm, ``embed_y``, and the MNIST
-stack's DCGAN ``linear`` with its max-norm clip).
+(``linear_lib`` with optional weight norm and spectral norm, ``embed_y``
+with its optional frozen table, and the MNIST stack's DCGAN ``linear``
+with its max-norm clip).
 
 ``W`` keeps the JAX layout ``[in, out]``.  The product is ``torch.matmul``
 in the layer's ``compute_dtype`` (``x`` and ``W`` cast at the matmul, the
 bias to its output dtype), as the JAX package computes it outside any
-Pallas kernel in ``ctx.compute_dtype``.  Weight norm and ``embed_y``'s
-frozen-table branch are not ported yet.
+Pallas kernel in ``ctx.compute_dtype``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 
 from rcgan_tpu_torch.core import initializers as inits
 from rcgan_tpu_torch.core.module import Scoped
+from rcgan_tpu_torch.ops.conv import add_weight_norm, weight_normed
 from rcgan_tpu_torch.ops.sn import add_sn_state, spectral_normed_weight
 
 
@@ -30,14 +31,19 @@ def linear_lib(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) 
 
 
 class LinearLib(Scoped):
-    """GAN_Lib Linear: ``W`` from the reference init zoo, optionally
-    spectral-normed (with its ``u`` buffer), optional bias ``b``."""
+    """GAN_Lib Linear: ``W`` from the reference init zoo, through weight
+    norm (``weightnorm``: a per-column ``g``, initialised to the initial
+    columns' norms) and then spectral norm (with its ``u`` buffer), the
+    reference's order; optional bias ``b``."""
 
     def __init__(self, input_dim: int, output_dim: int, scope: str, biases: bool = True,
                  initialization=None, gain: float = 1.0, seed: int = 0,
-                 spectral_normed: bool = False):
+                 spectral_normed: bool = False, weightnorm: bool = False):
         super().__init__(scope, seed)
         self.add_param("W", (input_dim, output_dim), inits.linear_uniform(initialization, gain))
+        self.weightnorm = weightnorm
+        if weightnorm:
+            add_weight_norm(self, "W", (0,))
         self.spectral_normed = spectral_normed
         if spectral_normed:
             add_sn_state(self, output_dim, "W")
@@ -48,6 +54,8 @@ class LinearLib(Scoped):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.W
+        if self.weightnorm:
+            w = weight_normed(w, self.g, (0,))
         if self.spectral_normed:
             w = spectral_normed_weight(self, w)
         return linear_lib(x.to(self.compute_dtype), w.to(self.compute_dtype), self.b)
@@ -55,13 +63,26 @@ class LinearLib(Scoped):
 
 class Embedding(Scoped):
     """``embed_y``: a trainable ``embedding_map [vocab, emb]`` table,
-    uniform(±0.08), gathered by integer label."""
+    uniform(±0.08), gathered by integer label; or, given ``frozen_table``
+    (pretrained embeddings, the reference's ``word2vec_file``), that table
+    as state (``embedding_map_frozen``, a buffer, as JAX keeps it in
+    ``ctx.stat``) that no gradient reaches."""
 
-    def __init__(self, vocab_size: int, embedding_dim: int, scope: str, seed: int = 0):
+    def __init__(self, vocab_size: int, embedding_dim: int, scope: str, seed: int = 0,
+                 frozen_table=None):
         super().__init__(scope, seed)
-        self.add_param("embedding_map", (vocab_size, embedding_dim), inits.uniform_range(0.08))
+        self.frozen = frozen_table is not None
+        if self.frozen:
+            table = torch.as_tensor(frozen_table, dtype=torch.float32)
+            self.add_stat("embedding_map_frozen", table.shape,
+                          lambda gen, shape, dtype: table.to(dtype).clone())
+        else:
+            self.add_param("embedding_map", (vocab_size, embedding_dim),
+                           inits.uniform_range(0.08))
 
     def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        if self.frozen:
+            return self.embedding_map_frozen.detach()[labels]
         return self.embedding_map[labels]
 
 

@@ -1,7 +1,11 @@
 """Normalizations, ported from ``rcgan_tpu/ops/norm.py``: the conditional
 batch-norm of the CIFAR and PGGAN generators (``cond_batchnorm``), the
 ``batch_norm`` with moving statistics (:class:`BatchNorm`) of the MNIST
-stack and of the PGGAN critic, and PGGAN's ``pixel_norm``.
+stack and of the PGGAN critic, PGGAN's ``pixel_norm``, and the
+``layer_norm`` (:class:`LayerNorm`, the discriminator's with
+``normalization_d``) and ``instance_norm`` (:class:`InstanceNorm`) of the
+library: float32 moments, then the per-channel ``gamma``/``beta`` affine,
+cast back to the input's dtype.
 
 ``cond_batchnorm``:
 
@@ -11,7 +15,6 @@ that is the reference's semantics (``normalization.py:47-58``), and an
 ``scale``/``offset`` come from ``[n_labels, C]`` tables.  The computation
 is the hand-written kernel's
 (:func:`rcgan_tpu_torch.ops.kernels.norm_kernel.cond_batchnorm`).
-``layer_norm`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +45,60 @@ def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     x32 = x.float()
     alpha = torch.rsqrt(torch.mean(x32 * x32, dim=3, keepdim=True) + eps)
     return (x32 * alpha).to(x.dtype)
+
+
+def _moments(x32: torch.Tensor, dims):
+    """float32 mean and (biased) variance over ``dims``, kept for
+    broadcasting, as JAX's ``_moments``."""
+    mean = x32.mean(dim=dims, keepdim=True)
+    return mean, torch.square(x32 - mean).mean(dim=dims, keepdim=True)
+
+
+def _normalized(x: torch.Tensor, dims, gamma: torch.Tensor, beta: torch.Tensor,
+                epsilon: float) -> torch.Tensor:
+    x32 = x.float()
+    mean, var = _moments(x32, dims)
+    return ((x32 - mean) * torch.rsqrt(var + epsilon) * gamma + beta).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               epsilon: float = 1e-12) -> torch.Tensor:
+    """Layer norm over every non-batch dim of ``x``, with per-channel
+    (last dim) ``gamma``/``beta``: TF contrib's defaults
+    (``begin_norm_axis=1``, ``begin_params_axis=-1``)."""
+    return _normalized(x, tuple(range(1, x.dim())), gamma, beta, epsilon)
+
+
+def instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  epsilon: float = 1e-6) -> torch.Tensor:
+    """Per-example, per-channel normalization over the spatial dims of
+    NHWC ``x``."""
+    return _normalized(x, (1, 2), gamma, beta, epsilon)
+
+
+class LayerNorm(Scoped):
+    """JAX ``layer_norm``: ``gamma`` (ones) and ``beta`` (zeros) per
+    channel."""
+
+    def __init__(self, channels: int, scope: str, epsilon: float = 1e-12, seed: int = 0):
+        super().__init__(scope, seed)
+        self.epsilon = epsilon
+        self.add_param("gamma", (channels,), inits.ones)
+        self.add_param("beta", (channels,), inits.zeros)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.gamma, self.beta, self.epsilon)
+
+
+class InstanceNorm(LayerNorm):
+    """JAX ``instance_norm``: ``gamma`` (ones) and ``beta`` (zeros) per
+    channel, epsilon 1e-6."""
+
+    def __init__(self, channels: int, scope: str, epsilon: float = 1e-6, seed: int = 0):
+        super().__init__(channels, scope, epsilon, seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x, self.gamma, self.beta, self.epsilon)
 
 
 class CondBatchNorm(Scoped):

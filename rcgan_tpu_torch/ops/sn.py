@@ -18,6 +18,12 @@ discriminator) calls :func:`prepare_spectral_norms` on them at its start,
 which does every layer's step at once and leaves each layer its ``W / σ``
 in a slot that the layer's own :func:`spectral_normed_weight` call then
 takes; a layer called without a prepared slot does its own group of one.
+
+``num_iters > 1`` runs the power iteration in plain PyTorch on both
+devices, as JAX runs its ``fori_loop`` outside the Pallas kernel (taken
+only at ``num_iters == 1``); the gradient flows through the iterations, as
+JAX differentiates its loop.  :func:`exact_sigma` is the SVD's largest
+singular value, the test oracle.
 """
 
 from __future__ import annotations
@@ -84,14 +90,47 @@ def clear_prepared(layers: Iterable[Scoped]) -> None:
         layer.__dict__.pop(_SLOT, None)
 
 
+def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / (torch.sum(v**2) ** 0.5 + eps)
+
+
+def _power_iterations(layer: Scoped, w: torch.Tensor, num_iters: int):
+    """JAX's loop branch: ``num_iters`` steps from ``layer.u`` in float32,
+    ``σ = v W uᵀ``; advances ``layer.u`` when its ``update_sn`` is on;
+    returns ``(W/σ, σ)`` with ``W/σ`` in ``w``'s shape and dtype."""
+    if torch.is_inference_mode_enabled() and layer.update_sn:
+        raise RuntimeError(f"{layer.scope}: spectral-norm u update under torch.inference_mode; "
+                           "use torch.no_grad(), or sn_updates(module, False)")
+    w_mat = w.float().reshape(-1, w.shape[-1])
+    u, v = layer.u.float(), torch.zeros((1, w_mat.shape[0]), device=w.device)
+    for _ in range(num_iters):
+        v = _l2normalize(u @ w_mat.T)
+        u = _l2normalize(v @ w_mat)
+    sigma = (v @ w_mat @ u.T)[0, 0]
+    if layer.update_sn:
+        layer.u = u.detach()
+    return (w_mat / sigma).reshape(w.shape).to(w.dtype), sigma
+
+
 def spectral_normed_weight(layer: Scoped, w: torch.Tensor, num_iters: int = 1,
                            with_sigma: bool = False):
-    """``w / σ_max(w)`` estimated by one power-iteration step from
-    ``layer.u``; writes the new u to ``layer.u`` when ``layer.update_sn``.
-    Takes the layer's prepared result when there is one."""
-    if num_iters != 1:
-        raise NotImplementedError("spectral norm with num_iters > 1 has no caller on the "
-                                  "ported paths: see ROADMAP.md, Queue 1")
+    """``w / σ_max(w)`` estimated by ``num_iters`` power-iteration steps
+    from ``layer.u``; writes the new u to ``layer.u`` when
+    ``layer.update_sn``.  One step takes the layer's prepared result when
+    there is one, else a group of one (the kernel on the card); more steps
+    run the plain loop."""
     prepared = layer.__dict__.pop(_SLOT, None)
-    w_bar, sigma = prepared if prepared is not None else _steps([layer], [w])[0]
+    if num_iters != 1:
+        if prepared is not None:
+            raise ValueError(f"{layer.scope}: a prepared one-step result cannot serve "
+                             f"num_iters={num_iters}")
+        w_bar, sigma = _power_iterations(layer, w, num_iters)
+    else:
+        w_bar, sigma = prepared if prepared is not None else _steps([layer], [w])[0]
     return (w_bar, sigma) if with_sigma else w_bar
+
+
+def exact_sigma(w: torch.Tensor) -> torch.Tensor:
+    """The largest singular value of the weight flattened to ``[-1, cout]``,
+    float32, by SVD (JAX's test oracle)."""
+    return torch.linalg.svdvals(w.float().reshape(-1, w.shape[-1]))[0]

@@ -29,7 +29,11 @@ What differs:
 - the PGGAN sampler runs G at the schedule's last stage
   (``4 * 2**max_stage`` pixels, NHWC), cond-BN on the bucket's batch
   statistics, as the CIFAR sampler;
-- ``--export`` (``jax.export``) is not ported (ROADMAP.md);
+- **AOT export** is ``torch.export``: :meth:`Sampler.export_sampler` writes
+  one bucket's eager generator pass, weights included, as a ``.pt2``
+  program, and :func:`load_exported` (``rcgan_tpu_torch/exported.py``)
+  runs it on the card or the CPU with no model code; the conv3x3 and
+  cond-BN kernels are ``torch.library`` ops, so the program keeps them;
 - PNGs are encoded with the standard library (``zlib`` + ``struct``,
   ``utils/images.py::encode_png``);
 - labels outside ``[0, n_labels)`` are refused (HTTP 400) before they
@@ -48,7 +52,8 @@ cuBLAS matmuls), so float32 serving is float32 throughout, as it is in
 JAX.
 
 CLI:  python -m rcgan_tpu_torch.serving --model {cifar,mnist,pggan} --checkpoint_dir D \\
-        [--algorithm A] [--labels 0,1,2 --n 100 --out grid.png] [--serve --port 8321] \\
+        [--algorithm A] [--labels 0,1,2 --n 100 --out grid.png] [--export path.pt2] \\
+        [--serve --port 8321] \\
         [--register name=cifar:dir ...] [--auth_token TOK] \\
         [--coalesce_wait_ms 4] [--device cuda]
 """
@@ -68,6 +73,8 @@ import torch
 
 from rcgan_tpu_torch.bridge import generator_from_jax, load_npz
 from rcgan_tpu_torch.core.module import float32_policy
+# load_exported belongs to serving's interface, as in JAX's serving module
+from rcgan_tpu_torch.exported import load_exported, save_program  # noqa: F401
 from rcgan_tpu_torch.models import dcgan, pggan
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
 from rcgan_tpu_torch.train.graphs import Passes
@@ -304,6 +311,25 @@ class Sampler:
         return self._run_chunks(labels, lambda i, n, bucket: np.concatenate(
             [z[i : i + n], np.zeros((bucket - n, self.z_dim), np.float32)]))
 
+    # ---------------------------------------------------------- AOT export
+    def export_sampler(self, path: str, bucket: Optional[int] = None) -> int:
+        """Write the eager generator pass at one bucket size (the largest by
+        default, as JAX's ``export_sampler``) to ``path`` with
+        ``torch.export``, the weights in the program: CIFAR's output as
+        ``[B, 32, 32, 3]``, MNIST's one-hot inside, PGGAN at the schedule's
+        last stage.  Reload it with :func:`load_exported`, which needs no
+        model code or checkpoint.  Tracing runs the ops' fake
+        implementations only: no kernel is launched or counted.  Returns
+        the bucket."""
+        b = bucket or self.buckets[-1]
+        args = (torch.zeros((b, self.z_dim), dtype=torch.float32, device=self.device),
+                torch.zeros((b,), dtype=torch.int64, device=self.device))
+        with torch.no_grad():
+            program = torch.export.export(_BucketPass(self), args, strict=False)
+        save_program(program, path, {"model": self.model, "bucket": b, "z_dim": self.z_dim,
+                                     "n_labels": self.n_labels})
+        return b
+
     def sample(self, labels: Sequence[int],
                generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Generate one image per label: ``[N, 32, 32, 3]`` in [-1, 1]
@@ -321,6 +347,24 @@ class Sampler:
             return torch.randn((bucket, self.z_dim), generator=gen)
 
         return self._run_chunks(self.check_labels(labels), z_for)
+
+
+class _BucketPass(torch.nn.Module):
+    """``(z, labels) -> images``: a sampler's eager bucket pass as a module
+    (the generator a submodule, so its weights go into the program), with
+    the CIFAR output shaped as ``_run_batch_z`` shapes it."""
+
+    def __init__(self, sampler: Sampler):
+        super().__init__()
+        self.generator = sampler.generator
+        self.pass_fn = sampler._pass
+        cfg = sampler.cfg
+        self.image_shape = (cfg.img_size, cfg.img_size, cfg.img_dim) \
+            if sampler.model == "cifar" else None
+
+    def forward(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        out = self.pass_fn({"z": z, "labels": labels}, self.generator)
+        return out if self.image_shape is None else out.reshape(-1, *self.image_shape)
 
 
 # ------------------------------------------------------ metrics middleware
@@ -634,6 +678,10 @@ def main(argv=None):
     p.add_argument("--n", type=int, default=100)
     p.add_argument("--out", default="samples.png")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--export", default=None,
+                   help="write the largest bucket's generator pass here as a torch.export "
+                        "program (.pt2) and exit; load it with "
+                        "rcgan_tpu_torch.exported.load_exported")
     p.add_argument("--serve", action="store_true", help="run the HTTP endpoint")
     p.add_argument("--port", type=int, default=8321)
     p.add_argument("--algorithm", default=None,
@@ -653,6 +701,11 @@ def main(argv=None):
     overrides = {} if args.algorithm is None else {"algorithm": args.algorithm}
     sampler = Sampler.from_checkpoint(args.model, args.checkpoint_dir, device=args.device,
                                       **overrides)
+
+    if args.export:
+        b = sampler.export_sampler(args.export)
+        print(f"exported bucket-{b} sampler to {args.export}")
+        return
 
     if args.serve:
         registry = {"default": sampler}

@@ -2,10 +2,10 @@
 (``merge``, ``save_images``, ``save_cifar_samples``, ``to_uint8_samples``;
 reference: ``mnist/utils.py:21-250``, ``cifar10/common/misc.py``).
 
-PNGs are encoded here with zlib and struct (:func:`encode_png`), and
-animated grey GIFs with numpy (:func:`encode_gif`), with no image library:
-the serving path, the apps' sample grids and ``utils/visualize.py`` share
-them.
+PNGs are encoded and decoded here with zlib and struct (:func:`encode_png`,
+:func:`decode_png`), and animated grey GIFs with numpy
+(:func:`encode_gif`), with no image library: the serving path, the apps'
+sample grids, ``utils/visualize.py`` and the MS-SSIM CLI share them.
 """
 
 from __future__ import annotations
@@ -57,6 +57,78 @@ def encode_png(arr: np.ndarray) -> bytes:
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + chunk(b"IEND", b""))
+
+
+# channels of the 8-bit PNG colour types decode_png takes: grey, RGB, grey
+# with alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(kind: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
+    """One scanline with its PNG filter undone (None, Sub, Up, Average,
+    Paeth), against the reconstructed ``prior`` line."""
+    if kind == 0:
+        return row
+    if kind == 2:
+        return (row + prior).astype(np.uint8)
+    if kind == 1:  # each byte adds the reconstructed byte bpp to its left
+        return np.cumsum(row.reshape(-1, bpp).astype(np.int64), axis=0).astype(np.uint8).ravel()
+    if kind not in (3, 4):
+        raise ValueError(f"PNG: unknown filter type {kind}")
+    out = bytearray(row.tobytes())
+    up = prior.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        c = up[i - bpp] if i >= bpp else 0
+        pred = (a + up[i]) >> 1 if kind == 3 else _paeth(a, up[i], c)
+        out[i] = (out[i] + pred) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """uint8 pixels of an 8-bit, non-interlaced PNG: ``[H, W]`` grey,
+    ``[H, W, 2]`` grey with alpha, ``[H, W, 3]`` RGB or ``[H, W, 4]`` RGBA
+    (the counterpart of :func:`encode_png`).  The IDAT chunks are inflated
+    with zlib and each scanline's filter (None, Sub, Up, Average, Paeth)
+    undone; other bit depths, palettes and interlacing raise."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"PNG: only 8-bit, non-interlaced grey/RGB/RGBA is decoded; got bit "
+                         f"depth {depth}, colour type {color}, interlace {interlace}")
+    bpp = _PNG_CHANNELS[color]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG: {raw.size} bytes of scanlines for {h} rows of {stride}")
+    lines = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prior = out[y] = _unfilter(int(lines[y, 0]), lines[y, 1:], prior, bpp)
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
 
 
 # A GIF's LZW code stream of literal codes only: with 8-bit pixels every

@@ -1,12 +1,15 @@
-"""Profiling hooks: ``trace``, the counterpart of
-``rcgan_tpu/utils/profiling.py::trace`` (a ``torch.profiler`` trace of a
-block, written as a Chrome trace), and :class:`PhaseClock`, the apps'
-host seconds by phase."""
+"""Profiling hooks, ported from ``rcgan_tpu/utils/profiling.py``: ``trace``
+(a ``torch.profiler`` trace of a block, written as a Chrome trace),
+:class:`StepTimer` (a rolling steps/s meter), ``annotate`` (a named region
+in the profiler's trace, ``torch.profiler.record_function`` where JAX has
+``jax.profiler.TraceAnnotation``), and :class:`PhaseClock`, the apps' host
+seconds by phase."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import Optional
 
 import torch
@@ -25,6 +28,32 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class StepTimer:
+    """Rolling steps/s meter over the last ``window`` ticks; call
+    :meth:`tick` once per step (host clock)."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self._times = []
+
+    def tick(self):
+        self._times.append(time.perf_counter())
+        if len(self._times) > self.window:
+            self._times.pop(0)
+
+    @property
+    def steps_per_sec(self) -> float:
+        if len(self._times) < 2:
+            return 0.0
+        return (len(self._times) - 1) / (self._times[-1] - self._times[0])
+
+
+def annotate(name: str):
+    """Named region for profile traces: a context manager (and decorator)
+    that the profiler records as ``name``."""
+    return torch.profiler.record_function(name)
 
 
 class PhaseClock:

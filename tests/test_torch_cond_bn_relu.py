@@ -26,6 +26,7 @@ from rcgan_tpu_torch.ops.kernels import norm_kernel, runtime
 from rcgan_tpu_torch.ops.kernels.norm_kernel import (THREADS, CondBatchNormFn, cond_batchnorm,
                                                      cond_batchnorm_plain, geometry,
                                                      vector_width)
+from torch_parity import cuda_impls_on_cpu
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -227,6 +228,7 @@ def _fake_cond_bn(monkeypatch, code=0, max_blocks=SMS):
     lib = types.SimpleNamespace(cond_bn_forward=fn, cond_bn_max_blocks=_FakeFn(max_blocks),
                                 cond_bn_error_string=_FakeFn(b"cooperative launch too large"))
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
+    cuda_impls_on_cpu(monkeypatch, "cond_batchnorm")
     monkeypatch.setattr(runtime, "cuda_library", lambda name: lib)
     monkeypatch.setattr(runtime, "on_device", lambda t, f, *args: f(*args, 7))
     monkeypatch.setattr(norm_kernel, "_max_blocks", lambda index, code, vec: max_blocks)
@@ -251,7 +253,7 @@ def test_cond_bn_wrapper_passes_pointers_geometry_and_relu(monkeypatch, dtype, r
     x = torch.randn(b, s, c).to(dtype)
     labels = torch.arange(b, dtype=torch.int32) % 10
     scale, offset = torch.ones(10, c), torch.zeros(10, c)
-    out, mean, inv = norm_kernel._launch(x, labels, scale, offset, 1e-5, relu)
+    out, (mean, inv) = norm_kernel._launch(x, labels, scale, offset, 1e-5, relu)
     assert runtime.launch_counts()["cond_bn"] == 1 and len(fn.calls) == 1
     a = fn.calls[0]
     size = x.element_size()

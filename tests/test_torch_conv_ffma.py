@@ -24,6 +24,7 @@ import torch
 
 from rcgan_tpu.ops.pallas.conv_kernel import conv3x3_fused
 from rcgan_tpu_torch.ops.kernels import conv_kernel, runtime
+from torch_parity import cuda_impls_on_cpu
 from rcgan_tpu_torch.ops.kernels.conv_kernel import (FFMA_BK, FFMA_TILES, _blocks, conv3x3,
                                                      conv3x3_plain, conv3x3_variant,
                                                      ffma_geometry, ffma_k_ranges)
@@ -168,6 +169,7 @@ def test_cudnn_route_takes_conv3x3fn_gradients_on_cuda(monkeypatch, dtype):
     equal autograd of the plain version: float32 to 1e-5, bf16 to its
     output rounding (2^-7 relative)."""
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
+    cuda_impls_on_cpu(monkeypatch, "conv3x3")
 
     def refuse(x, w):
         raise AssertionError("a ragged conv reached a hand-written kernel")

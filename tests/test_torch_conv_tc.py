@@ -33,6 +33,7 @@ from rcgan_tpu_torch.ops.kernels import conv_kernel, runtime
 from rcgan_tpu_torch.ops.kernels.conv_kernel import (_box, conv3x3, conv3x3_variant,
                                                      wgmma_geometry)
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+from torch_parity import cuda_impls_on_cpu
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -101,7 +102,7 @@ def test_route_rule_edges():
 
 
 def _recording_route(monkeypatch):
-    """Makes ``conv3x3`` take its CUDA branch on CPU tensors and replaces the
+    """Makes ``conv3x3`` take its CUDA implementation on CPU tensors and replaces the
     three routes by recorders that compute the plain version; returns the
     list of ``(variant, x shape, O)`` they see."""
     seen = []
@@ -109,6 +110,7 @@ def _recording_route(monkeypatch):
                                      if not k.startswith("__")})
     proxy.on_cuda = lambda *ts: True
     monkeypatch.setattr(conv_kernel, "runtime", proxy)
+    cuda_impls_on_cpu(monkeypatch, "conv3x3")
 
     def recorder(variant):
         def launch(x, w):
@@ -256,6 +258,7 @@ def _fake_libs(monkeypatch, wgmma_code=0, sms=132):
     monkeypatch.setattr(runtime, "cuda_library", lambda name: libs[name])
     monkeypatch.setattr(runtime, "sm_count", lambda t: sms)
     monkeypatch.setattr(runtime, "on_device", lambda t, fn, *args: fn(*args, 7))  # stream 7
+    cuda_impls_on_cpu(monkeypatch, "conv3x3")
     return libs
 
 

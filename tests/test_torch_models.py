@@ -62,12 +62,14 @@ def test_seeded_init_is_deterministic_and_order_free():
 
 
 def test_branches_not_ported_raise():
-    """layer_norm still raises; the unconditional generator's branch, once
-    refused, is JAX's zero-debiased batch_norm now."""
+    """The branches once refused build now: layer_norm for a D scope with
+    ``normalization_d`` (``tests/test_torch_ops_leftovers.py`` holds it to
+    JAX's), and the unconditional generator's zero-debiased batch_norm."""
     with pytest.raises(ValueError, match="invalid resample"):
         ResidualBlock(ResnetGANConfig(dim_g=8), 8, 8, 3, "D.Block.3", resample="sideways")
     unconditional = Normalize(ResnetGANConfig(conditional=False), "G.Block.1.N1", 8)
     assert unconditional.cbn is None and unconditional.bn.zero_debias
-    with pytest.raises(NotImplementedError, match="layer_norm"):
-        Normalize(ResnetGANConfig(normalization_d=True), "D.Block.2.N1", 8)
+    ln = Normalize(ResnetGANConfig(normalization_d=True), "D.Block.2.N1", 8)
+    assert ln.cbn is None and ln.bn is None and ln.ln.scope == "D.Block.2.N1"
+    assert ln.ln.gamma.shape == ln.ln.beta.shape == (8,)
     assert Normalize(ResnetGANConfig(normalization_g=False), "G.OutputNorm", 8).cbn is None

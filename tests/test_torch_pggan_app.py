@@ -103,7 +103,7 @@ def test_sampler_serves_the_run_as_the_trainer_samples(run):
     config: NHWC at 16x16 in [-1, 1], bit-equal to ``trainer.sample`` on the
     restored state at the same bucket; ragged requests pad to a bucket; the
     HTTP endpoint gives a PNG grid of 16-pixel tiles; the CLI writes its
-    grid."""
+    grid and, with ``--export``, its bucket-100 program."""
     root, run_dir, (ts, _, _, _), _ = run
     ckpt = os.path.join(run_dir, "ckpt")
     s = serving.Sampler.from_checkpoint("pggan", ckpt, buckets=(2, 8), device="cpu")
@@ -137,6 +137,13 @@ def test_sampler_serves_the_run_as_the_trainer_samples(run):
                   "--labels", "0,1,2,3", "--out", str(out)])
     arr = np.asarray(Image.open(out))
     assert arr.shape[:2] == (32, 32) and (arr == 0).mean() < 0.2  # tanh rescaled, not clipped
-    with pytest.raises(SystemExit):  # --export (jax.export) is not ported: no such flag
-        serving.main(["--model", "pggan", "--checkpoint_dir", ckpt, "--device", "cpu",
-                      "--export", str(root / "x.bin")])
+    # --export writes the largest bucket's pass as a torch.export program
+    from rcgan_tpu_torch.exported import load_exported
+
+    serving.main(["--model", "pggan", "--checkpoint_dir", ckpt, "--device", "cpu",
+                  "--export", str(root / "x.pt2")])
+    fn = load_exported(str(root / "x.pt2"), device="cpu")
+    assert fn.meta == {"model": "pggan", "bucket": 100, "z_dim": 8, "n_labels": 10}
+    z = np.random.RandomState(5).randn(100, 8).astype(np.float32)
+    np.testing.assert_array_equal(fn(z, np.arange(100) % 10).numpy(), serving.Sampler(
+        s.generator, buckets=(100,)).sample_with_z(z, np.arange(100) % 10))

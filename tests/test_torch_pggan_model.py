@@ -133,8 +133,9 @@ def test_wgan_gp_penalty_matches_jax():
 def test_critic_blocks_take_zero_debiased_batch_norm():
     """``PG.D.Block.{s}.N{1,2}`` hold ``G.``: with no labels they take JAX's
     zero-debiased BN, with moving statistics, ``biased_mean`` and
-    ``local_step``; the generator's blocks take cond-BN; layer-norm still
-    raises."""
+    ``local_step``; the generator's blocks take cond-BN; with
+    ``normalization_d`` a critic scope takes layer-norm, as JAX checks it
+    first."""
     base = trg.ResnetGANConfig(**BASE)
     d = trg.ResidualBlock(base, 8, 8, 3, "PG.D.Block.1", "down", spectral_normed=True,
                           labeled=False)
@@ -144,8 +145,8 @@ def test_critic_blocks_take_zero_debiased_batch_norm():
                                                      "biased_mean", "local_step"}
     g = trg.ResidualBlock(base, 8, 8, 3, "PG.G.Block.1", "up")
     assert isinstance(g.n1.cbn, CondBatchNorm) and g.n1.bn is None
-    with pytest.raises(NotImplementedError, match="layer_norm"):
-        trg.Normalize(trg.ResnetGANConfig(normalization_d=True), "PG.D.Block.1.N1", 8)
+    ln = trg.Normalize(trg.ResnetGANConfig(normalization_d=True), "PG.D.Block.1.N1", 8)
+    assert ln.cbn is None and ln.bn is None and ln.ln.scope == "PG.D.Block.1.N1"
 
 
 def _shapes(tree):

@@ -31,6 +31,7 @@ from rcgan_tpu_torch.ops.kernels.projection_kernel import (ProjectionLogitsFn,
                                                            projection_plain)
 from rcgan_tpu_torch.ops.kernels.sn_kernel import (SpectralNormGroupFn, sn_plain,
                                                    spectral_norm)
+from torch_parity import cuda_impls_on_cpu
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -168,7 +169,9 @@ def test_sn_u_update_is_refused_under_inference_mode_and_survives_backward():
 
 def test_spectral_normed_weight_with_sigma_and_num_iters():
     """with_sigma returns σ beside W/σ (JAX's with_sigma); num_iters > 1
-    has no caller on the ported paths and points at the ROADMAP."""
+    runs JAX's power-iteration loop in plain PyTorch (here against the same
+    loop in numpy; ``tests/test_torch_ops_leftovers.py`` holds it to JAX's)
+    and advances u."""
     from rcgan_tpu_torch.ops.sn import spectral_normed_weight
 
     layer = tlinear.LinearLib(8, 4, "lin", spectral_normed=True)
@@ -176,8 +179,15 @@ def test_spectral_normed_weight_with_sigma_and_num_iters():
     with torch.no_grad():
         w_bar, sigma = spectral_normed_weight(layer, layer.W, with_sigma=True)
     assert torch.equal(w_bar, want[0]) and torch.equal(sigma, want[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spectral_normed_weight(layer, layer.W, num_iters=2)
+    w, u = layer.W.detach().numpy().astype(np.float64), layer.u.numpy().astype(np.float64)
+    for _ in range(2):
+        v = u @ w.T / (np.linalg.norm(u @ w.T) + 1e-12)
+        u = v @ w / (np.linalg.norm(v @ w) + 1e-12)
+    with torch.no_grad():
+        w_bar, sigma = spectral_normed_weight(layer, layer.W, num_iters=2, with_sigma=True)
+    np.testing.assert_allclose(sigma.item(), (v @ w @ u.T)[0, 0], rtol=1e-5)
+    np.testing.assert_allclose(w_bar.numpy(), w / (v @ w @ u.T)[0, 0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(layer.u.numpy(), u, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------- projection
@@ -314,6 +324,7 @@ def test_kernels_take_grad_mode_on_cuda_through_their_functions(monkeypatch, ker
     the input-grad conv of the backward) and the gradients reach the filter
     and both tables, equal to autograd of the plain version."""
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
+    cuda_impls_on_cpu(monkeypatch, kernel)
     launches = []
     if kernel == "conv3x3":
         def launch(x, w):
@@ -329,7 +340,7 @@ def test_kernels_take_grad_mode_on_cuda_through_their_functions(monkeypatch, ker
             launches.append(x.shape)
             mean, inv = norm_kernel._moments_plain(x, eps)
             return (norm_kernel._apply_plain(x, labels, scale_table, offset_table, mean, inv,
-                                             relu), mean, inv)
+                                             relu), torch.stack((mean, inv)))
 
         monkeypatch.setattr(norm_kernel, "_launch", launch)
         args = [torch.randn(2, 4, 3, requires_grad=True), torch.tensor([0, 1]),

@@ -1,10 +1,14 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): tiny
-configurations, weight trees that both frameworks load, and numpy batches."""
+configurations, weight trees that both frameworks load, numpy batches, and
+the CUDA implementations of the ops routed to CPU tensors."""
+
+import sys
 
 import numpy as np
 import torch
 
 from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
+from rcgan_tpu_torch.ops.kernels import conv_kernel, norm_kernel
 
 # narrow widths, full 32x32 images: the CIFAR layer graph at test size
 TINY = dict(dim_g=8, dim_d=16, embedding_dim=24)
@@ -99,3 +103,21 @@ def assert_states_bit_equal(a, b, label: str):
     assert la.keys() == lb.keys(), label
     for k in la:
         np.testing.assert_array_equal(la[k], lb[k], err_msg=f"{label} {k}")
+
+
+def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
+    """Until the test ends, CPU and meta tensors reach the CUDA
+    implementations of the ``rcgan`` ops named in ``ops`` (``"conv3x3"``,
+    ``"cond_batchnorm"``), looked up at each call so that a test may patch
+    the launches under them, as tensors on a card do: with
+    ``runtime.on_cuda`` and the libraries mocked, a test drives the launch
+    path on this machine.  The overriding ``torch.library.Library`` is held
+    by ``monkeypatch``; its undo drops the last reference, and torch's
+    finalizer takes the registrations back."""
+    impls = {"conv3x3": lambda x, w: conv_kernel.conv3x3_cuda(x, w),
+             "cond_batchnorm": lambda *a: norm_kernel.cond_batchnorm_cuda(*a)}
+    lib = torch.library.Library("rcgan", "IMPL")
+    for op in ops:
+        for key in ("CPU", "Meta"):
+            lib.impl(op, impls[op], key)
+    monkeypatch.setattr(sys.modules[__name__], "_CUDA_IMPLS_ON_CPU", lib, raising=False)
