@@ -224,7 +224,21 @@ and the CIFAR app's Inception-v3 scorer:
    against CPU; a full-width ``CifarTrainer`` state saved as the CIFAR app
    saves it, exported by the CLI (``python -m rcgan_tpu_torch.serving
    --export``) and held against its live pass, and ``python -m
-   rcgan_tpu_torch.evals.msssim_report`` on it at its defaults.
+   rcgan_tpu_torch.evals.msssim_report`` on it at its defaults;
+16. GSPMD (``rcgan_tpu_torch/parallel/gspmd.py``): at ``bench.py``'s
+   configuration, a ``(1, 1)`` ``('data', 'model')`` mesh under NCCL at
+   world size 1 in this process, rcgan and rcgan-u with the perm
+   classifier, two cycles through ``gspmd_cycle`` (every kernel through
+   its ``torch.library`` op and DTensor's dispatch) against the eager
+   cycle from one state under deterministic algorithms: whole states and
+   costs bit-equal, each cycle's launches equal to the eager cycle's and to
+   ``cycle_counts``; ms per cycle beside the eager cycle without DTensor,
+   the ops through DTensor a cycle and the host cost per op; the rcgan
+   state saved (``Checkpointer`` of a DTensor state) and restored by
+   ``restore_sharded`` onto a ``(2, 2)`` mesh of four gloo ranks on the CPU
+   (bit-equal, the five tensor-parallel leaves sharded on ``model``), and
+   one full-width rcgan-u cycle there counting the bytes a rank gathers for
+   the cond-BN and sn rules.  It writes ``_smoke_gspmd/`` and removes it.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -4258,6 +4272,295 @@ def export_slice(torch, dev, seed: int, card: str) -> dict:
     return {"counts": counts, "variants": variants, "rows": rows}
 
 
+# Phase 16, GSPMD (``rcgan_tpu_torch/parallel/gspmd.py``): the single-program
+# CIFAR cycle on DTensors over a ('data', 'model') mesh.  (a) at bench.py's
+# configuration on a (1, 1) mesh under NCCL at world size 1 in this process,
+# bit-equal to the eager cycle; (c) the state (a) saved restored onto a
+# (2, 2) mesh of four gloo ranks on the CPU, then one rcgan-u cycle there at
+# full width to count the bytes the cond-BN and sn rules gather.  Ranks that
+# share the card (gloo) are not run: DTensor's collectives of CUDA tensors
+# through gloo end in a segmentation fault in the functional collectives'
+# wait (PyTorch 2.11; plain c10d collectives of the same tensors work), so a
+# multi-rank mesh on the card waits for a machine with several cards.
+GS = {"dataset": 50000, "batch": 64, "timed": 4, "bytes_batch": 2}
+GS_TIMEOUT = 600.0
+# the leaves DEFAULT_TP_RULES shards on "model"
+TP_SHARDED = ["D.Embedding_y/W", "D.Embedding_y/b", "D.Output/W", "G.Input/W", "G.Input/b"]
+
+
+@contextlib.contextmanager
+def dtensor_dispatches():
+    """Count the ops that reach DTensor's dispatch inside the block (those
+    with a DTensor argument, seen by a dispatch mode): ``[n]``."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            n[0] += any(isinstance(a, DTensor) for a in tree_leaves((args, kwargs)))
+            return func(*args, **kwargs)
+
+    with Count():
+        yield n
+
+
+@contextlib.contextmanager
+def gathered_bytes():
+    """Bytes this rank receives for the whole tensors that the cond-BN and
+    sn rules take, inside the block: ``{"cond_bn": n, "sn": n}``.  A DTensor
+    sharded over k ranks misses (k - 1) / k of itself."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from rcgan_tpu_torch.ops.kernels import runtime, sn_kernel
+
+    got = {"cond_bn": 0, "sn": 0}
+
+    def missing(ts):
+        n = 0
+        for t in ts:
+            if isinstance(t, DTensor):
+                k = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                              if isinstance(p, Shard))
+                n += t.numel() * t.element_size() * (k - 1) // k
+        return n
+
+    replicated, op = runtime.replicated, sn_kernel.sn_group_op
+
+    def count_bn(*ts):
+        got["cond_bn"] += missing(ts)
+        return replicated(*ts)
+
+    def count_sn(ws, us):
+        got["sn"] += missing(list(ws) + list(us))
+        return op(ws, us)
+
+    runtime.replicated, sn_kernel.sn_group_op = count_bn, count_sn
+    try:
+        yield got
+    finally:
+        runtime.replicated, sn_kernel.sn_group_op = replicated, op
+
+
+def gspmd_nccl_run(seed: int, ckpt_dir: str) -> dict:
+    """Phase 16 (a), in this process under NCCL at world size 1 (the caller
+    owns the group): ``bench.py``'s configuration on a resident dataset,
+    rcgan and rcgan-u with the perm classifier, two cycles (iterations 0 and
+    1) through ``gspmd_cycle`` on a (1, 1) mesh and two of the eager cycle
+    from the same state under deterministic algorithms; launches per cycle
+    of both; ms per cycle of both and DTensor's dispatches per cycle.  The
+    rcgan state after its checked cycles is saved to ``ckpt_dir`` for (c)."""
+    import numpy as np
+    import torch
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.core import rng as trng
+    from rcgan_tpu_torch.data.cifar10 import device_dataset_of
+    from rcgan_tpu_torch.data.confusion import build_confusion, corrupt_dataset_numpy
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.parallel.gspmd import (apply_shardings, gspmd_cycle, make_dp_tp_mesh,
+                                                train_state_shardings)
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    dev = torch.device("cuda", 0)
+    mesh = make_dp_tp_mesh(1, 1)
+    c_mat, c_inv = build_confusion(0.6)
+    n, b = GS["dataset"], GS["batch"]
+    rs = np.random.RandomState(seed)
+    y_real, y_gen, y_fake, inv_w = corrupt_dataset_numpy(rs, rs.randint(0, 10, n), c_mat, c_inv)
+    ds = device_dataset_of({"images": rs.randint(0, 256, (n, 3072)).astype(np.uint8),
+                            "labels": y_real, "labels_random": y_gen, "labels_biased": y_fake,
+                            "labels_inv_weights": inv_w}, dev)
+    tcfg = CifarTrainConfig()
+    out = {}
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
+        cfg = ResnetGANConfig(algorithm=alg)
+        eager = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, graphs=False)
+        meshed = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, graphs=False)
+        step = gspmd_cycle(meshed, mesh)
+        ts_e = eager.init(seed)
+        ts_m = meshed.init(seed)
+        ts_m = apply_shardings(ts_m, train_state_shardings(mesh, ts_m))
+        feeds = [(rs.randint(0, n, (tcfg.n_critic, b)), rs.randint(0, n, tcfg.gen_bs_multiple * b))
+                 for _ in range(2 + 2 * (GS["timed"] + 1) + 1)]
+        counts = []
+        with deterministic_algorithms(torch):
+            for it in range(2):
+                idx, gi = feeds[it]
+                gl = {"random": y_gen[gi], "biased": y_fake[gi]}
+                pair = []
+                for fn, ts in ((step, ts_m), (eager.step, ts_e)):
+                    runtime.reset_launch_counts()
+                    _, m = fn(ts, {"index": idx}, gl, it, trng.fold_in(seed, it))
+                    torch.cuda.synchronize()
+                    pair.append((runtime.launch_counts(), {k: float(v) for k, v in m.items()}))
+                counts.append(pair)
+            digests = (state_digest(torch, ts_m), state_digest(torch, ts_e))
+        if alg == "rcgan":
+            Checkpointer(ckpt_dir).save(ts_m.step, ts_m, wait=True)
+        state = {"it": 2}
+
+        def cycle(fn, ts):
+            def run():
+                idx, gi = feeds[state["it"]]
+                state["it"] += 1
+                return fn(ts, {"index": idx}, {"random": y_gen[gi], "biased": y_fake[gi]},
+                          state["it"], trng.fold_in(seed, state["it"]))[1]
+            return run
+
+        ms_m = event_ms(torch, cycle(step, ts_m), reps=GS["timed"], warmup=1)
+        ms_e = event_ms(torch, cycle(eager.step, ts_e), reps=GS["timed"], warmup=1)
+        with dtensor_dispatches() as disp:
+            cycle(step, ts_m)()
+        torch.cuda.synchronize()
+        out[alg] = {"counts": counts, "digests": digests, "ms": ms_m, "eager_ms": ms_e,
+                    "dispatches": disp[0]}
+    return out
+
+
+def gspmd_restore_rank(group, seed: int, ckpt_dir: str, saved_digest: str):
+    """Phase 16 (c), in a spawned gloo rank on the CPU of a (2, 2) mesh: the
+    rcgan state that (a) saved restored onto this mesh (whether its digest
+    is ``saved_digest`` and which leaves are sharded), then one rcgan-u
+    cycle (perm classifier) at full width in float32, global batch
+    ``GS["bytes_batch"]`` and one critic step, with the bytes this rank
+    gathers for the cond-BN and sn rules and the cycle's seconds."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.data.confusion import build_confusion
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.parallel.gspmd import (apply_shardings, gspmd_cycle, make_dp_tp_mesh,
+                                                train_state_shardings)
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+    from rcgan_tpu_torch.train.state import train_state_tensors
+
+    mesh = make_dp_tp_mesh(2, 2, "cpu")
+    c_mat, _ = build_confusion(0.6)
+    tr = CifarTrainer(ResnetGANConfig(algorithm="rcgan"), CifarAlgoConfig(algorithm="rcgan"),
+                      CifarTrainConfig(), c_mat, "cpu")
+    template = tr.init(seed + 1)
+    want = train_state_shardings(mesh, template)
+    restored = Checkpointer(ckpt_dir).restore_sharded(template, want)
+    placed = all(isinstance(t, DTensor) for t in train_state_tensors(restored)) and all(
+        tuple(p.placements) == want.groups[g][k] for g, ps in restored.groups.items()
+        for k, p in ps.items())
+    out = {"restored": (state_digest(torch, restored) == saved_digest, placed, sorted(
+        f"{layer}/{var}" for ps in restored.groups.values() for (layer, var), p in ps.items()
+        if any(isinstance(q, Shard) for q in p.placements)))}
+    del restored, template
+
+    tcfg = CifarTrainConfig(n_critic=1)
+    acfg = CifarAlgoConfig(algorithm="rcgan-u", perm_classifier=True, confuse_init=True)
+    tr = CifarTrainer(ResnetGANConfig(algorithm="rcgan-u"), acfg, tcfg, c_mat, "cpu")
+    ts = tr.init(seed)
+    ts = apply_shardings(ts, train_state_shardings(mesh, ts))
+    d, g = dp_cifar_feeds(seed, GS["bytes_batch"], 1, tcfg.gen_bs_multiple, 1)[0]
+    t = time.perf_counter()
+    with gathered_bytes() as got:
+        ts, m = gspmd_cycle(tr, mesh)(ts, d, g, 1, seed)
+    out["cycle"] = {"bytes": dict(got), "s": time.perf_counter() - t,
+                    "finite": all(math.isfinite(float(v)) for v in m.values())}
+    return out
+
+
+def gspmd_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 16: GSPMD (module doc, item 16).  Returns the launches of each
+    kernel over its counted runs (``counts``)."""
+    import datetime
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.parallel import launch
+    from rcgan_tpu_torch.parallel.mesh import free_port
+
+    totals = {k: 0 for k in runtime.KERNELS}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_gspmd")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "ckpt")
+
+    # ---- (a) a (1, 1) mesh under NCCL at world size 1, in this process
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=GS_TIMEOUT))
+    try:
+        nc = gspmd_nccl_run(seed, ckpt)
+    finally:
+        dist.destroy_process_group()
+    print(f"  (a) NCCL world 1: {time.perf_counter() - t:.1f} s", flush=True)
+    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
+        r = nc[alg]
+        want = [cycle_counts(alg, perm, 5, it > 0) for it in range(2)]
+        for (cm, _), _ in r["counts"]:
+            for k in totals:
+                totals[k] += cm[k]
+        check(r["digests"][0] == r["digests"][1]
+              and all(cm == ce == w for ((cm, _), (ce, _)), w in zip(r["counts"], want))
+              and all(mm == me for (_, mm), (_, me) in r["counts"]),
+              f"GSPMD (a), {alg}, (1, 1) mesh under NCCL, bf16, batch {GS['batch']}, two cycles "
+              f"(iterations 0 and 1) against the eager cycle from one state: whole states "
+              f"bit-equal ({r['digests'][0][:12]} / {r['digests'][1][:12]}), costs equal, "
+              f"launches a cycle {r['counts'][-1][0][0]} (eager {r['counts'][-1][1][0]}, want "
+              f"{want[-1]})")
+        extra = r["ms"] - r["eager_ms"]
+        print(f"  GSPMD (a) {alg}, (1, 1) mesh, bf16, batch {GS['batch']}, on {card}: "
+              f"{r['ms']:.3f} ms per cycle against {r['eager_ms']:.3f} ms eager without DTensor "
+              f"(CUDA events, median of {GS['timed']}); {r['dispatches']} ops through DTensor "
+              f"a cycle, {extra:.3f} ms more a cycle, {1e3 * extra / max(r['dispatches'], 1):.1f} "
+              f"us an op", flush=True)
+
+    # ---- (c) the saved state onto a (2, 2) mesh of gloo ranks on the CPU
+    saved = state_digest(torch, _restore_plain(torch, seed, ckpt))
+    t = time.perf_counter()
+    ranks = launch(gspmd_restore_rank, 4, backend="gloo", args=(seed, ckpt, saved),
+                   timeout=GS_TIMEOUT, cpu_threads=2)
+    print(f"  (c) four gloo ranks on the CPU: {time.perf_counter() - t:.1f} s with the spawn",
+          flush=True)
+    check(all(r["restored"][0] and r["restored"][1] and r["restored"][2] == TP_SHARDED
+              for r in ranks),
+          f"GSPMD (c): the rcgan state saved from (a)'s (1, 1) mesh on the card restored onto a "
+          f"(2, 2) mesh of gloo ranks on the CPU, bit-equal on every rank "
+          f"({[r['restored'][0] for r in ranks]}), every leaf a DTensor with the placements "
+          f"asked for; sharded on model: {ranks[0]['restored'][2]}")
+    c = [r["cycle"] for r in ranks]
+    check(all(x["finite"] for x in c) and all(x["bytes"] == c[0]["bytes"] for x in c),
+          f"GSPMD (c): one rcgan-u cycle on that mesh at full width, float32, global batch "
+          f"{GS['bytes_batch']}, one critic step: finite costs, every rank gathers "
+          f"{c[0]['bytes']} bytes for the cond-BN and sn rules")
+    print(f"  GSPMD (c) (2, 2) mesh on the CPU, rcgan-u float32 full width, global batch "
+          f"{GS['bytes_batch']} (G passes of {2 * GS['bytes_batch']} and {GS['bytes_batch']} rows), "
+          f"one critic step: a rank gathers {c[0]['bytes']['cond_bn'] / 1e6:.3f} MB for cond-BN "
+          f"and {c[0]['bytes']['sn'] / 1e6:.3f} MB for sn; {c[0]['s']:.1f} s on rank 0",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"counts": totals}
+
+
+def _restore_plain(torch, seed: int, ckpt: str):
+    """The rcgan state (a) saved, loaded whole into an unplaced train state
+    on the CPU."""
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.data.confusion import build_confusion
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.train.checkpoint import Checkpointer
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    tr = CifarTrainer(ResnetGANConfig(algorithm="rcgan"), CifarAlgoConfig(algorithm="rcgan"),
+                      CifarTrainConfig(), build_confusion(0.6)[0], "cpu")
+    return Checkpointer(ckpt).restore(tr.init(seed + 1))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint_dir", default=None,
@@ -4696,6 +4999,10 @@ def main(argv=None) -> int:
     lap("phase 15")
     print(json.dumps({"exported": exported["rows"]}), flush=True)
 
+    # -------------------------------------------------------------- 16. GSPMD
+    gspmd = gspmd_slice(torch, dev, args.seed, card)
+    lap("phase 16")
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -4748,7 +5055,7 @@ def main(argv=None) -> int:
                    launches=(counts[k] + d_counts[k] + t_res["counts"][k] + app["counts"][k]
                              + mnist["counts"][k] + pggan["counts"][k] + dp["counts"][k]
                              + compiled["counts"][k] + compiled_evals["counts"][k]
-                             + exported["counts"][k]),
+                             + exported["counts"][k] + gspmd["counts"][k]),
                    max_abs_err=max_err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=by, library_ms=library_ms)
         if k == "cond_bn":

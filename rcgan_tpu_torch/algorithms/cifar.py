@@ -33,6 +33,7 @@ from rcgan_tpu_torch.models.resnet_gan import (Discriminator, DiscriminatorProje
                                                Generator, PermClassifier, ResnetGANConfig,
                                                projection_logits)
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
+from rcgan_tpu_torch.ops.linear import take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +127,7 @@ class CifarGAN(nn.Module):
 
             feat_f, wgan_f = self.D(fake, batch["labels_random"])
             logits_all = self.projection.all_label_logits(feat_f, wgan_f)  # [b, V]
-            w = cmat[batch["labels_random"]]  # C[y_gen]
+            w = take_rows(cmat, batch["labels_random"])  # C[y_gen]
             cost = torch.mean(torch.sum(d_fake_loss(logits_all, lt, sp) * w, dim=1)) + real_l
             disc_fake = torch.sum(logits_all * w, dim=1)
         else:
@@ -178,7 +179,7 @@ class CifarGAN(nn.Module):
 
         if alg == "rcgan-u":
             logits_all = self.projection.all_label_logits(feat, wgan)  # [b, V]
-            w = cmat[labels_random_g]
+            w = take_rows(cmat, labels_random_g)
             cost = torch.mean(torch.sum(g_loss(logits_all, lt, sp) * w, dim=1))
         else:
             disc_fake = projection_logits(feat, wgan, self.projection(d_labels))

@@ -92,8 +92,16 @@ def _sn64(w: torch.Tensor, u0: torch.Tensor):
 
 
 def _sn_group_by(fn):
-    """A stand-in for ``sn_kernel._launch_group`` that runs ``fn`` per weight."""
-    return lambda pairs: [t for w, u in pairs for t in fn(w, u)]
+    """A stand-in for ``sn_kernel._launch_group`` that runs ``fn`` per weight
+    and returns the group's two output buffers, as the launch does."""
+    def group(ws, us):
+        big, small = sn_kernel._group_buffers(ws)
+        for dst, t in zip(sn_kernel._group_views(ws, big, small),
+                          [t for w, u in zip(ws, us) for t in fn(w, u)]):
+            dst.copy_(t)
+        return big, small
+
+    return group
 
 
 def _cond_bn_plain(x, labels, scale_table, offset_table, eps, relu=False):
@@ -194,14 +202,15 @@ def main(argv=None) -> int:
         worst[key] = max(worst[key], _rel(y, _conv64(x, w)))
         return y
 
-    def sn_checked(pairs):
-        out = SHIPPED["sn"](pairs)
-        for i, (w, u) in enumerate(pairs):
+    def sn_checked(ws, us):
+        buffers = SHIPPED["sn"](ws, us)
+        out = sn_kernel._group_views(ws, *buffers)
+        for i, (w, u) in enumerate(zip(ws, us)):
             ref = _sn64(w, u)
             for who, got in (("kernel", out[3 * i:3 * i + 3]), ("plain", sn_kernel.sn_plain(w, u))):
-                key = ("sn", f"w {tuple(w.shape)}, in a group of {len(pairs)}", who)
+                key = ("sn", f"w {tuple(w.shape)}, in a group of {len(ws)}", who)
                 worst[key] = max(worst[key], max(_rel(g, r) for g, r in zip(got, ref)))
-        return out
+        return buffers
 
     def cond_bn_checked(x, labels, scale_table, offset_table, eps, relu=False):
         out = SHIPPED["cond_bn"](x, labels, scale_table, offset_table, eps, relu)

@@ -278,8 +278,7 @@ class DiscriminatorProjection(nn.Module):
     def all_label_logits(self, features: torch.Tensor, wgan: torch.Tensor) -> torch.Tensor:
         """JAX ``all_label_logits``: float32 logits against every label's
         embedding, ``[B, vocab]``, through the projection kernel."""
-        labels = torch.arange(self.cfg.vocab_size, device=features.device)
-        emb = self(labels)
+        emb = self.linear(self.embedding.table())  # every label's row, in label order
         return all_label_projection_logits(features.contiguous(), emb.contiguous(),
                                            wgan.reshape(-1, 1).contiguous())
 

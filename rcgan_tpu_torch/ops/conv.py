@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from rcgan_tpu_torch.core import initializers as inits
 from rcgan_tpu_torch.core.module import Scoped
+from rcgan_tpu_torch.ops.kernels import runtime
 from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3
 from rcgan_tpu_torch.ops.sn import add_sn_state, spectral_normed_weight
 
@@ -59,10 +60,18 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAM
           groups: int = 1) -> torch.Tensor:
     """Conv of ``x [B,H,W,C]`` with ``w [kh,kw,C/groups,O]`` at ``stride``
     (TF's SAME, or VALID) → ``[B,H',W',O]``.  3x3, stride 1, SAME, ungrouped
-    calls go to :func:`conv3x3`."""
+    calls go to :func:`conv3x3`; the rest to ``F.conv2d``, on DTensors on
+    each rank's rows (``runtime.rows_local``)."""
     kh, kw = w.shape[:2]
     if (kh, kw, stride, padding, groups) == (3, 3, 1, "SAME", 1):
         return conv3x3(x.contiguous(), w.contiguous())
+    return runtime.rows_local(lambda x_, w_: _conv2d(x_, w_, stride, padding, groups), x, w)
+
+
+def _conv2d(x: torch.Tensor, w: torch.Tensor, stride: int, padding: str,
+            groups: int) -> torch.Tensor:
+    """:func:`_conv` by ``F.conv2d`` on NCHW views."""
+    kh, kw = w.shape[:2]
     (ht, hb), (wl, wr) = _pads(x.shape[1:3], (kh, kw), stride, padding)
     xc = x.permute(0, 3, 1, 2)
     if (ht, wl) == (hb, wr):

@@ -34,7 +34,9 @@ The forward is the ``torch.library`` op ``rcgan::conv3x3(x, w) -> Tensor``
 :func:`conv3x3_plain`, its ``CUDA`` implementation :func:`conv3x3_cuda`
 (the route above, counted where it launches), and its fake implementation
 gives the output's shape and dtype only, so that tracing runs no kernel
-and counts nothing.
+and counts nothing.  Its DTensor sharding rules (``register_sharding``,
+for ``parallel/gspmd.py``): the batch sharded on dim 0 with the filter
+replicated, or everything replicated.
 
 Autograd: :class:`Conv3x3Fn` is the route on both devices, the counterpart
 of ``conv3x3_fused``'s ``custom_vjp``.  Its backward is the TPU kernel's
@@ -53,6 +55,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from rcgan_tpu_torch.ops.kernels import runtime
 
@@ -227,7 +231,12 @@ def conv3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``dw [3,3,C,O]`` of a 3x3/s1/SAME conv from ``x [B,H,W,C]`` and the
     cotangent ``g [B,H,W,O]``, in ``x.dtype``: the reduction over the batch
     that JAX's ``_bwd`` hands to XLA, here ``aten.convolution_backward`` on
-    NCHW views of the NHWC tensors (cuDNN on the card)."""
+    NCHW views of the NHWC tensors (cuDNN on the card); on DTensors each
+    rank's rows, a partial sum (``runtime.rows_reduced``)."""
+    return runtime.rows_reduced(_weight_grad, x, g)
+
+
+def _weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, wd, c = x.shape
     o = g.shape[3]
     weight = x.new_empty((o, c, 3, 3))  # only its shape is read
@@ -259,6 +268,18 @@ torch.library.register_fake("rcgan::conv3x3", _conv3x3_fake, lib=_lib)
 conv3x3_op = torch.ops.rcgan.conv3x3.default
 
 
+@register_sharding(conv3x3_op)
+def _conv3x3_sharding(x, w):
+    """The batch sharded (``x`` on dim 0, the filter whole), or all
+    replicated."""
+    return [([Shard(0)], [Shard(0), Replicate()]), ([Replicate()], [Replicate(), Replicate()])]
+
+
+def _flipped_filter(w: torch.Tensor) -> torch.Tensor:
+    """``[3,3,C,O] → [3,3,O,C]``, spatially flipped: the input grad's filter."""
+    return torch.flip(w, (0, 1)).transpose(2, 3).contiguous()
+
+
 class Conv3x3Fn(torch.autograd.Function):
     """``(x, w) → conv`` through :data:`conv3x3_op`: a CUDA kernel or cuDNN by
     shape on the card, :func:`conv3x3_plain` on the CPU.  Backward as the
@@ -276,8 +297,9 @@ class Conv3x3Fn(torch.autograd.Function):
         g = g.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            w_t = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()  # [3,3,O,C]
-            dx = conv3x3(g, w_t)
+            # a DTensor filter whole on each rank, as the op takes it: DTensor
+            # has no rule for flip in every PyTorch version
+            dx = conv3x3(g, runtime.replicated_local(_flipped_filter, w))
         if ctx.needs_input_grad[1]:
             dw = conv3x3_weight_grad(x, g).to(w.dtype)
         return dx, dw

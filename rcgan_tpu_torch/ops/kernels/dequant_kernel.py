@@ -17,6 +17,12 @@ splitmix64 as in :mod:`rcgan_tpu_torch.core.rng`:
 and :func:`dequantize_plain` with :func:`row_noise` agree bit for bit, on
 the card and on the CPU.  :func:`dequantize_plain` also takes any noise
 ``u`` as an argument (a test hands in the JAX package's).
+
+The call is the ``torch.library`` op ``rcgan::dequantize(x, seeds,
+img_size, img_dim)``: a CPU implementation (:func:`dequantize_plain` with
+:func:`row_noise`), a CUDA one (the launch, counted there:
+:func:`dequantize_cuda`) and a fake one, with two DTensor sharding rules:
+rows sharded on dim 0, or everything replicated.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from rcgan_tpu_torch.core.rng import _mix_device
 from rcgan_tpu_torch.ops.kernels import runtime
@@ -84,13 +92,48 @@ def _launch(x: torch.Tensor, seeds: torch.Tensor, img_size: int, img_dim: int) -
     return out
 
 
+def _dequantize_cpu(x, seeds, img_size, img_dim):
+    """The op's CPU implementation: :func:`dequantize_plain` with
+    :func:`row_noise`, the kernel's bits."""
+    _check(x, seeds, img_size, img_dim)
+    return dequantize_plain(x, row_noise(seeds, x.shape[1]), img_size, img_dim)
+
+
+def dequantize_cuda(x, seeds, img_size, img_dim):
+    """The op's CUDA implementation: the launch on the current stream, or an
+    error; tensors that are not all on one CUDA device raise
+    (``runtime.on_cuda``)."""
+    if not runtime.on_cuda(x, seeds):
+        raise ValueError("dequantize's CUDA implementation takes CUDA tensors")
+    return _launch(x, seeds, img_size, img_dim)
+
+
+def _dequantize_fake(x, seeds, img_size, img_dim):
+    _check(x, seeds, img_size, img_dim)
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+_lib = torch.library.Library("rcgan", "FRAGMENT")
+_lib.define("dequantize(Tensor x, Tensor seeds, int img_size, int img_dim) -> Tensor")
+_lib.impl("dequantize", _dequantize_cpu, "CPU")
+_lib.impl("dequantize", dequantize_cuda, "CUDA")
+torch.library.register_fake("rcgan::dequantize", _dequantize_fake, lib=_lib)
+dequantize_op = torch.ops.rcgan.dequantize.default
+
+
+@register_sharding(dequantize_op)
+def _dequantize_sharding(x, seeds, img_size, img_dim):
+    """Rows sharded (a row's noise comes from its own seed, so a shard's
+    rows are those of the whole batch), or all replicated."""
+    return [([Shard(0)], [Shard(0), Shard(0), None, None]),
+            ([Replicate()], [Replicate(), Replicate(), None, None])]
+
+
 def dequantize(x: torch.Tensor, seeds: torch.Tensor, img_size: int = 32,
                img_dim: int = 3) -> torch.Tensor:
     """uint8 ``x [B, C*H*W]`` (CHW order), int32 per-row ``seeds [B]`` →
-    float32 ``[B, H*W*C]`` in ``[-1, 1)``, HWC order.  CUDA tensors launch
-    the CUDA kernel on the current stream (or raise); CPU tensors take
-    :func:`dequantize_plain` with :func:`row_noise`, the same bits."""
-    if runtime.on_cuda(x, seeds):
-        return _launch(x, seeds, img_size, img_dim)
-    _check(x, seeds, img_size, img_dim)
-    return dequantize_plain(x, row_noise(seeds, x.shape[1]), img_size, img_dim)
+    float32 ``[B, H*W*C]`` in ``[-1, 1)``, HWC order, through
+    :data:`dequantize_op`.  CUDA tensors launch the CUDA kernel on the
+    current stream (or raise); CPU tensors take :func:`dequantize_plain`
+    with :func:`row_noise`, the same bits."""
+    return dequantize_op(x, seeds, img_size, img_dim)

@@ -33,7 +33,10 @@ plain version, its ``CUDA`` implementation :func:`cond_batchnorm_cuda`
 launch's statistics buffer, one output rather than two that would alias),
 and its fake implementation gives shapes and dtypes only.  The op reads no
 label's value: labels are checked on the host before it
-(``serving.py::check_labels``).
+(``serving.py::check_labels``).  Its DTensor sharding rule
+(``register_sharding``, for ``parallel/gspmd.py``) replicates everything:
+the moments are the whole batch's, so a batch sharded on a mesh dimension
+is gathered before the launch.
 
 Autograd: :class:`CondBatchNormFn` is the route on both devices, the
 counterpart of ``cond_batchnorm_fused``'s ``custom_vjp`` together with the
@@ -53,6 +56,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor.experimental import register_sharding
 
 from rcgan_tpu_torch.ops.kernels import runtime
 
@@ -227,6 +232,14 @@ torch.library.register_fake("rcgan::cond_batchnorm", _cond_batchnorm_fake, lib=_
 cond_batchnorm_op = torch.ops.rcgan.cond_batchnorm.default
 
 
+@register_sharding(cond_batchnorm_op)
+def _cond_batchnorm_sharding(x, labels, scale_table, offset_table, eps, relu):
+    """Everything replicated: the moments are over the whole batch and one
+    cooperative launch takes them and applies them, so a batch sharded on
+    a mesh dimension is gathered first."""
+    return [([Replicate(), Replicate()], [Replicate()] * 4 + [None, None])]
+
+
 class CondBatchNormFn(torch.autograd.Function):
     """``(x, labels, scale_table, offset_table, eps, relu) → out`` through
     :data:`cond_batchnorm_op`: the CUDA kernel on the card, the plain
@@ -234,6 +247,8 @@ class CondBatchNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, labels, scale_table, offset_table, eps, relu=False):
+        # whole tensors on a mesh (the op's rule), gathered once for both passes
+        x, labels = runtime.replicated(x, labels)
         out, moments = cond_batchnorm_op(x, labels, scale_table, offset_table, eps, relu)
         mean, inv = moments
         ctx.relu = relu
@@ -242,25 +257,34 @@ class CondBatchNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, labels, scale_table, mean, inv = ctx.saved_tensors[:5]
-        g = g.float()
-        if ctx.relu:
-            g = g * (ctx.saved_tensors[5] > 0)
-        xhat = (x.float() - mean) * inv
-        dx = dscale = doffset = None
-        if ctx.needs_input_grad[0]:
-            dxhat = g * scale_table.float()[labels][:, None, :]
-            m1 = dxhat.mean(dim=(0, 1))
-            m2 = (dxhat * xhat).mean(dim=(0, 1))
-            dx = (inv * (dxhat - m1 - xhat * m2)).to(x.dtype)
-        idx = labels.long()
-        if ctx.needs_input_grad[2]:
-            dscale = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
-            dscale.index_add_(0, idx, (g * xhat).sum(dim=1))
-        if ctx.needs_input_grad[3]:
-            doffset = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
-            doffset.index_add_(0, idx, g.sum(dim=1))
+        # on a mesh, every tensor whole on every rank, as the op took them
+        dx, dscale, doffset = runtime.replicated_local(
+            functools.partial(_cond_batchnorm_backward, ctx.relu, ctx.needs_input_grad), g,
+            *ctx.saved_tensors)
         return dx, None, dscale, doffset, None, None
+
+
+def _cond_batchnorm_backward(relu, needs, g, x, labels, scale_table, mean, inv, out=None):
+    """``(dx, dscale, doffset)`` of :class:`CondBatchNormFn` (None where
+    ``needs`` asks for none)."""
+    g = g.float()
+    if relu:
+        g = g * (out > 0)
+    xhat = (x.float() - mean) * inv
+    dx = dscale = doffset = None
+    if needs[0]:
+        dxhat = g * scale_table.float()[labels][:, None, :]
+        m1 = dxhat.mean(dim=(0, 1))
+        m2 = (dxhat * xhat).mean(dim=(0, 1))
+        dx = (inv * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    idx = labels.long()
+    if needs[2]:
+        dscale = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
+        dscale.index_add_(0, idx, (g * xhat).sum(dim=1))
+    if needs[3]:
+        doffset = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
+        doffset.index_add_(0, idx, g.sum(dim=1))
+    return dx, dscale, doffset
 
 
 def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,

@@ -16,7 +16,13 @@ epilogue.  The wrapper keeps the host's cost of a call small: the entry
 point's ``argtypes`` are set once, the checks are the kernel's needs, and
 the stream is found by ``runtime.on_device``'s raw lookups.
 
-Autograd: :class:`ProjectionLogitsFn` on both devices.  Its backward is the
+The call is the ``torch.library`` op ``rcgan::projection_logits(feat, emb,
+wgan)``: a CPU implementation (the plain version), a CUDA one (the launch,
+counted there: :func:`projection_logits_cuda`) and a fake one, with two
+DTensor sharding rules: rows sharded on dim 0 with ``emb`` replicated, or
+everything replicated.
+
+Autograd: :class:`ProjectionLogitsFn` calls the op on both devices.  Its backward is the
 TPU kernel's ``_bwd``: ``dfeat = g·emb``, ``demb = gᵀ·feat``,
 ``dwgan = Σ_l g``, each cast to its primal's dtype (a float32 ``dwgan``
 against a bfloat16 ``wgan`` was the bf16 regression of the JAX package).
@@ -27,6 +33,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from rcgan_tpu_torch.ops.kernels import runtime
 
@@ -53,6 +61,10 @@ def _check(feat, emb, wgan):
                         f"{emb.dtype}, {wgan.dtype}")
     if not (feat.is_contiguous() and emb.is_contiguous() and wgan.is_contiguous()):
         raise ValueError("projection wants contiguous tensors")
+
+
+def _launch(feat, emb, wgan):
+    _check(feat, emb, wgan)
     b, d = feat.shape
     # 16-byte vector loads of feat's rows; emb whole in shared memory
     if d % 8 or feat.data_ptr() % 16 or emb.numel() > _MAX_EMB or b * d > _INT32_MAX \
@@ -60,11 +72,6 @@ def _check(feat, emb, wgan):
         raise ValueError(f"projection wants D a multiple of 8, feat 16-byte aligned, "
                          f"V*D <= {_MAX_EMB} and 0 < B*D < 2^31; got feat {tuple(feat.shape)} "
                          f"at {feat.data_ptr() % 16} bytes past 16, emb {tuple(emb.shape)}")
-
-
-def _launch(feat, emb, wgan):
-    _check(feat, emb, wgan)
-    b, d = feat.shape
     v = emb.shape[0]
     out = torch.empty((b, v), dtype=torch.float32, device=feat.device)
     lib = runtime.cuda_library("projection")
@@ -81,14 +88,44 @@ def _launch(feat, emb, wgan):
     return out
 
 
+def projection_logits_cuda(feat, emb, wgan):
+    """The op's CUDA implementation: the launch on the current stream, or an
+    error; tensors that are not all on one CUDA device raise
+    (``runtime.on_cuda``)."""
+    if not runtime.on_cuda(feat, emb, wgan):
+        raise ValueError("projection_logits' CUDA implementation takes CUDA tensors")
+    return _launch(feat, emb, wgan)
+
+
+def _projection_fake(feat, emb, wgan):
+    _check(feat, emb, wgan)
+    return feat.new_empty((feat.shape[0], emb.shape[0]), dtype=torch.float32)
+
+
+_lib = torch.library.Library("rcgan", "FRAGMENT")
+_lib.define("projection_logits(Tensor feat, Tensor emb, Tensor wgan) -> Tensor")
+_lib.impl("projection_logits", projection_plain, "CPU")
+_lib.impl("projection_logits", projection_logits_cuda, "CUDA")
+torch.library.register_fake("rcgan::projection_logits", _projection_fake, lib=_lib)
+projection_logits_op = torch.ops.rcgan.projection_logits.default
+
+
+@register_sharding(projection_logits_op)
+def _projection_sharding(feat, emb, wgan):
+    """Rows sharded (``feat`` and ``wgan`` on dim 0, ``emb`` whole), or all
+    replicated."""
+    return [([Shard(0)], [Shard(0), Replicate(), Shard(0)]),
+            ([Replicate()], [Replicate(), Replicate(), Replicate()])]
+
+
 class ProjectionLogitsFn(torch.autograd.Function):
-    """``(feat, emb, wgan) → wgan + feat · embᵀ`` in float32: the CUDA
-    kernel on the card, :func:`projection_plain` on the CPU."""
+    """``(feat, emb, wgan) → wgan + feat · embᵀ`` in float32 through
+    :data:`projection_logits_op`: the CUDA kernel on the card,
+    :func:`projection_plain` on the CPU."""
 
     @staticmethod
     def forward(ctx, feat, emb, wgan):
-        on_card = runtime.on_cuda(feat, emb, wgan)
-        out = _launch(feat, emb, wgan) if on_card else projection_plain(feat, emb, wgan)
+        out = projection_logits_op(feat, emb, wgan)
         ctx.save_for_backward(feat, emb, wgan)
         return out
 

@@ -35,6 +35,7 @@ from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -178,6 +179,72 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"unsupported device {dev} (cpu or cuda)")
+
+
+def replicated(*tensors: torch.Tensor):
+    """The tensors, each DTensor redistributed to replicated on its mesh (an
+    all-gather of a sharded one); plain tensors as they are.  For a kernel
+    whose sharding rule takes whole tensors, so that its backward reads the
+    same whole tensors as its forward."""
+    return tuple(t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+                 if isinstance(t, DTensor) else t for t in tensors)
+
+
+def _rows(x: DTensor):
+    """``x``'s placements with every one but a shard of dim 0 replicated,
+    and its weights' gradient placements: a partial sum where the rows are
+    sharded."""
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in x.placements)
+    return rows, tuple(Partial() if isinstance(p, Shard) else Replicate() for p in rows)
+
+
+def replicated_local(fn, *tensors):
+    """``fn(*tensors)``, a function of whole tensors returning a tensor or a
+    tuple of tensors (or None).  On DTensors every input is replicated
+    (:func:`replicated`), ``fn`` runs on the local tensors and each tensor
+    it returns is a replicated DTensor again: each rank computes the whole
+    result, as a kernel whose rule takes whole tensors does, and needs no
+    DTensor rule for the ops inside ``fn`` (PyTorch versions differ in
+    those).  Plain tensors: ``fn`` itself."""
+    mesh = next((t.device_mesh for t in tensors if isinstance(t, DTensor)), None)
+    if mesh is None:
+        return fn(*tensors)
+    whole = [Replicate()] * mesh.ndim
+    out = fn(*[t.to_local() if isinstance(t, DTensor) else t for t in replicated(*tensors)])
+
+    def wrap(o):
+        return o if o is None else DTensor.from_local(o, mesh, whole)
+
+    return wrap(out) if isinstance(out, torch.Tensor) else tuple(map(wrap, out))
+
+
+def rows_local(fn, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *weights)`` where ``fn`` maps each row of ``x`` on its own (a
+    convolution, a batch of images).  On a DTensor ``x`` it runs on each
+    rank's local tensors: ``x``'s rows stay sharded where they are (any
+    other placement is replicated first), the weights are replicated, the
+    result takes the rows' placements and each weight's gradient is a
+    partial sum where they are sharded, as DTensor's rule for a
+    batch-sharded convolution gives; DTensor's own convolution handlers
+    differ between PyTorch versions.  Plain tensors: ``fn`` itself."""
+    if not isinstance(x, DTensor):
+        return fn(x, *weights)
+    rows, grads = _rows(x)
+    x = x.redistribute(x.device_mesh, rows)
+    weights = [w.to_local(grad_placements=grads) for w in replicated(*weights)]
+    return DTensor.from_local(fn(x.to_local(), *weights), x.device_mesh, rows)
+
+
+def rows_reduced(fn, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``fn(x, g)`` where ``fn`` sums over the rows of ``x`` and ``g`` (a
+    weight's gradient): on DTensors, ``g`` takes ``x``'s row placements
+    (:func:`rows_local`), each rank sums its rows, and the result is a
+    partial sum where the rows are sharded.  Plain tensors: ``fn``."""
+    if not isinstance(x, DTensor):
+        return fn(x, g)
+    rows, sums = _rows(x)
+    x, g = x.redistribute(x.device_mesh, rows), g.redistribute(x.device_mesh, rows)
+    return DTensor.from_local(fn(x.to_local(), g.to_local()), x.device_mesh, sums)
 
 
 def on_device(t: torch.Tensor, fn, *args):

@@ -18,7 +18,15 @@ The TPU kernel's whole-W VMEM budget (``fits_fused``, 4 MB) is a fact of the
 TPU, not of the algorithm: on the card every ``num_iters == 1`` call goes
 through the kernel, whatever its size.
 
-Autograd: :class:`SpectralNormGroupFn` is the route on both devices.  Its
+The group is the ``torch.library`` op ``rcgan::sn_group(ws, us) -> (W/σ
+buffer, u' and σ buffer)``: a CPU implementation (:func:`sn_plain` per
+weight), a CUDA one (the launches, counted there: :func:`sn_group_cuda`)
+and a fake one.  It returns the two flat buffers the kernel writes, so that
+its outputs are a fixed pair whatever the group's length, and its DTensor
+sharding rule (``register_sharding``) replicates every input and output: a
+weight sharded on a mesh dimension is gathered before the launch.
+
+Autograd: :class:`SpectralNormGroupFn` calls the op on both devices.  Its
 backward re-runs :func:`sn_plain` under ``torch.enable_grad()`` per weight
 that needs a gradient and takes the VJP with respect to W, as the TPU
 kernel's ``_bwd`` re-runs ``sn_math`` under ``jax.vjp``: gradients flow
@@ -30,9 +38,12 @@ no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor.experimental import register_sharding
 
 from rcgan_tpu_torch.ops.kernels import runtime
 
@@ -104,22 +115,32 @@ def _check(w_mat: torch.Tensor, u0: torch.Tensor) -> None:
                          f"(0 < m * cout < 2^31, cout <= {MAX_COUT})")
 
 
-def _launch_group(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
-    """One launch per ``MAX_WEIGHTS`` weights of ``pairs``; returns the flat
-    list ``[W/σ, u', σ, ...]``.  The outputs of a call are views of two
-    buffers: one for every ``W/σ``, one for every ``u'`` and ``σ``."""
-    for w, u in pairs:
-        _check(w, u)
-    dev, n = pairs[0][0].device, len(pairs)
-    w_sizes = [w.numel() for w, _ in pairs]
-    u_sizes = [w.shape[1] for w, _ in pairs]
-    big = torch.empty((sum(w_sizes),), dtype=torch.float32, device=dev)
-    small = torch.empty((sum(u_sizes) + n,), dtype=torch.float32, device=dev)
-    wbars = [t.view(w.shape) for t, (w, _) in zip(big.split(w_sizes), pairs)]
-    *us, sigmas = small.split(u_sizes + [n])
-    us = [t.view(1, -1) for t in us]
-    sigmas = sigmas.unbind()
+def _group_buffers(ws: Sequence[torch.Tensor]):
+    """The two buffers of a group's outputs, as the kernel writes them: one
+    for every ``W/σ`` (flat, in order), one for every ``u'`` then every
+    ``σ``."""
+    n, dev = len(ws), ws[0].device
+    big = torch.empty((sum(w.numel() for w in ws),), dtype=torch.float32, device=dev)
+    small = torch.empty((sum(w.shape[1] for w in ws) + n,), dtype=torch.float32, device=dev)
+    return big, small
 
+
+def _group_views(ws: Sequence[torch.Tensor], big: torch.Tensor, small: torch.Tensor):
+    """The flat list ``[W/σ, u', σ, ...]`` as views of the two buffers."""
+    wbars = [t.view(w.shape) for t, w in zip(big.split([w.numel() for w in ws]), ws)]
+    *us, sigmas = small.split([w.shape[1] for w in ws] + [len(ws)])
+    return [t for triple in zip(wbars, [u.view(1, -1) for u in us], sigmas.unbind())
+            for t in triple]
+
+
+def _launch_group(ws: Sequence[torch.Tensor], us: Sequence[torch.Tensor]):
+    """One launch per ``MAX_WEIGHTS`` weights; returns the two output
+    buffers (:func:`_group_buffers`)."""
+    for w, u in zip(ws, us):
+        _check(w, u)
+    n = len(ws)
+    big, small = _group_buffers(ws)
+    out = _group_views(ws, big, small)
     lib = runtime.cuda_library("sn")
     fn = lib.sn_group_f32
     if fn.argtypes is None:  # first use of this entry point
@@ -130,53 +151,101 @@ def _launch_group(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
     for start in range(0, n, MAX_WEIGHTS):
         chunk = range(start, min(start + MAX_WEIGHTS, n))
         group = _SnGroup()
-        group.t_cap, group.v_cap, group.tile_cap = group_smem(
-            [tuple(pairs[i][0].shape) for i in chunk])
+        group.t_cap, group.v_cap, group.tile_cap = group_smem([tuple(ws[i].shape) for i in chunk])
         for k, i in enumerate(chunk):
-            (w, u), d = pairs[i], group.w[k]
-            d.w, d.u0, d.wbar = w.data_ptr(), u.data_ptr(), wbars[i].data_ptr()
-            d.u_new, d.sigma = us[i].data_ptr(), sigmas[i].data_ptr()
-            d.m, d.cout = w.shape
+            d, (wbar, u_new, sigma) = group.w[k], out[3 * i:3 * i + 3]
+            d.w, d.u0, d.wbar = ws[i].data_ptr(), us[i].data_ptr(), wbar.data_ptr()
+            d.u_new, d.sigma = u_new.data_ptr(), sigma.data_ptr()
+            d.m, d.cout = ws[i].shape
         code = runtime.on_device(big, fn, ctypes.addressof(group), len(chunk),
                                  4 * (group.t_cap + group.v_cap + group.tile_cap))
         runtime.check_cuda_status(lib, "sn_error_string", code, "sn launch")
         runtime.count_launch("sn")
-    return [t for triple in zip(wbars, us, sigmas) for t in triple]
+    return big, small
+
+
+def _sn_group_cpu(ws, us):
+    """The op's CPU implementation: :func:`sn_plain` per weight, written
+    into the two buffers as the kernel writes them."""
+    big, small = _group_buffers(ws)
+    for dst, t in zip(_group_views(ws, big, small), [t for w, u in zip(ws, us)
+                                                      for t in sn_plain(w, u)]):
+        dst.copy_(t)
+    return big, small
+
+
+def sn_group_cuda(ws, us):
+    """The op's CUDA implementation: the group's launches on the current
+    stream, or an error; tensors that are not all on one CUDA device raise
+    (``runtime.on_cuda``)."""
+    if not runtime.on_cuda(*ws, *us):
+        raise ValueError("sn_group's CUDA implementation takes CUDA tensors")
+    return _launch_group(ws, us)
+
+
+def _sn_group_fake(ws, us):
+    for w, u in zip(ws, us):
+        _check(w, u)
+    return _group_buffers(ws)
+
+
+_lib = torch.library.Library("rcgan", "FRAGMENT")
+_lib.define("sn_group(Tensor[] ws, Tensor[] us) -> (Tensor, Tensor)")
+_lib.impl("sn_group", _sn_group_cpu, "CPU")
+_lib.impl("sn_group", sn_group_cuda, "CUDA")
+torch.library.register_fake("rcgan::sn_group", _sn_group_fake, lib=_lib)
+sn_group_op = torch.ops.rcgan.sn_group.default
+
+
+@register_sharding(sn_group_op)
+def _sn_group_sharding(ws, us):
+    """Every input and both outputs replicated: a cluster normalises a whole
+    ``W`` in one launch, so a weight sharded on a mesh dimension is gathered
+    first, as XLA gathers before a custom call."""
+    return [([Replicate(), Replicate()], [Replicate()] * (len(ws) + len(us)))]
 
 
 class SpectralNormGroupFn(torch.autograd.Function):
-    """``(w_0, u_0, w_1, u_1, ...) → (W_0/σ_0, u'_0, σ_0, W_1/σ_1, ...)``: one
-    kernel launch for the group on CUDA, :func:`sn_plain` per weight on the
-    CPU; backward through the power iteration on both, per weight that
-    needs it."""
+    """``(w_0, u_0, w_1, u_1, ...) → (W_0/σ_0, u'_0, σ_0, W_1/σ_1, ...)``
+    through :data:`sn_group_op`: one kernel launch for the group on CUDA,
+    :func:`sn_plain` per weight on the CPU; backward through the power
+    iteration on both, per weight that needs it."""
 
     @staticmethod
     def forward(ctx, *flat):
-        pairs = list(zip(flat[0::2], flat[1::2]))
-        if runtime.on_cuda(*flat):
-            out = _launch_group(pairs)
-        else:
-            out = [t for w, u in pairs for t in sn_plain(w, u)]
+        ws, us = list(flat[0::2]), list(flat[1::2])
+        out = _group_views(ws, *sn_group_op(ws, us))
         ctx.save_for_backward(*flat)
         ctx.set_materialize_grads(False)
         return tuple(out)
 
     @staticmethod
     def backward(ctx, *cts):
-        flat = ctx.saved_tensors
-        grads = [None] * len(flat)
-        for i in range(len(flat) // 2):
-            cot = cts[3 * i:3 * i + 3]
-            if not ctx.needs_input_grad[2 * i] or all(c is None for c in cot):
-                continue
-            w_mat, u0 = flat[2 * i], flat[2 * i + 1]
-            with torch.enable_grad():
-                w = w_mat.detach().requires_grad_(True)
-                outs = sn_plain(w, u0.detach())
-                keep = [(o, c) for o, c in zip(outs, cot) if c is not None]
-                (dw,) = torch.autograd.grad([o for o, _ in keep], (w,), [c for _, c in keep])
-            grads[2 * i] = dw.to(w_mat.dtype)
-        return tuple(grads)
+        # on a mesh, every tensor whole on every rank, as the op took them
+        return runtime.replicated_local(
+            functools.partial(_sn_group_backward, ctx.needs_input_grad, len(cts)),
+            *ctx.saved_tensors, *cts)
+
+
+def _sn_group_backward(needs, n_cts: int, *tensors):
+    """The gradients of :class:`SpectralNormGroupFn`'s inputs from its
+    saved ``(w, u)`` pairs and the cotangents (None where there are none):
+    the VJP of :func:`sn_plain` with respect to each ``w`` that ``needs``
+    one."""
+    flat, cts = tensors[:-n_cts], tensors[-n_cts:]
+    grads = [None] * len(flat)
+    for i in range(len(flat) // 2):
+        cot = cts[3 * i:3 * i + 3]
+        if not needs[2 * i] or all(c is None for c in cot):
+            continue
+        w_mat, u0 = flat[2 * i], flat[2 * i + 1]
+        with torch.enable_grad():
+            w = w_mat.detach().requires_grad_(True)
+            outs = sn_plain(w, u0.detach())
+            keep = [(o, c) for o, c in zip(outs, cot) if c is not None]
+            (dw,) = torch.autograd.grad([o for o, _ in keep], (w,), [c for _, c in keep])
+        grads[2 * i] = dw.to(w_mat.dtype)
+    return tuple(grads)
 
 
 def spectral_norm_group(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]):

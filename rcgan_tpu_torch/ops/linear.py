@@ -12,21 +12,29 @@ Pallas kernel in ``ctx.compute_dtype``.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from rcgan_tpu_torch.core import initializers as inits
 from rcgan_tpu_torch.core.module import Scoped
 from rcgan_tpu_torch.ops.conv import add_weight_norm, weight_normed
+from rcgan_tpu_torch.ops.kernels import runtime
 from rcgan_tpu_torch.ops.sn import add_sn_state, spectral_normed_weight
 
 
 def linear_lib(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """``x [..., in] @ w [in, out] (+ b)``; leading dims are flattened and
     restored, as in the JAX function.  The bias is cast to the product's
-    dtype."""
+    dtype.  On DTensors (``parallel/gspmd.py``) the output takes ``x``'s
+    placements: a weight sharded on the ``model`` mesh dimension keeps its
+    tensor parallelism inside the layer (a column-parallel output is
+    gathered, a row-parallel one's partial sums reduced), as XLA gathers
+    ``G.Input``'s output before the first conv."""
     lead = x.shape[:-1]
     out = torch.matmul(x.reshape(-1, w.shape[0]), w).reshape(*lead, w.shape[1])
     if b is not None:
         out = out + b.to(out.dtype)
+    if isinstance(out, DTensor) and out.placements != x.placements:
+        out = out.redistribute(x.device_mesh, x.placements)
     return out
 
 
@@ -80,10 +88,23 @@ class Embedding(Scoped):
             self.add_param("embedding_map", (vocab_size, embedding_dim),
                            inits.uniform_range(0.08))
 
+    def table(self) -> torch.Tensor:
+        """The whole table ``[vocab, emb]``, row ``l`` label ``l``'s embedding
+        (what gathering every label in order gives, with the same
+        gradient)."""
+        return self.embedding_map_frozen.detach() if self.frozen else self.embedding_map
+
     def forward(self, labels: torch.Tensor) -> torch.Tensor:
-        if self.frozen:
-            return self.embedding_map_frozen.detach()[labels]
-        return self.embedding_map[labels]
+        return take_rows(self.table(), labels)
+
+
+def take_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``table[labels]``: one row of ``table`` per label.  On DTensors each
+    rank gathers for its own labels from the whole table, whose gradient is
+    a partial sum where the labels are sharded (``runtime.rows_local``):
+    DTensor's rules for indexing and its backward differ between PyTorch
+    versions."""
+    return runtime.rows_local(lambda rows, t: t[rows], labels, table)
 
 
 class Linear(Scoped):

@@ -21,8 +21,20 @@ rank 0 alone copies it to the host and writes it, every rank calls
 ``save``, ``restore`` and ``close`` at the same points, and
 :meth:`Checkpointer.wait` ends at a barrier of all ranks, so that no rank
 reads a step while rank 0 still writes it; every rank restores the same
-whole state.  JAX's ``restore_sharded`` (a GSPMD-sharded state onto a
-device mesh) is not ported (ROADMAP.md, Queue 1).
+whole state.
+
+Under GSPMD (``parallel/gspmd.py``) the state is DTensors on a device mesh:
+every rank calls ``save`` and gathers each leaf whole (``full_tensor()``, a
+collective), and global rank 0 writes the same ``train_state.pt``, so both
+paths share one format; :meth:`Checkpointer.wait` then ends at a barrier of
+the process group.  :meth:`Checkpointer.restore_sharded` reads that file on
+every rank into an unplaced template and places each leaf on the requested
+mesh and placements (``apply_shardings``), so a state saved from one mesh
+shape restores onto any other.  JAX's orbax reads only each device's shards
+(OCDBT/zarr); the port reads the whole file on every rank, because the
+whole CIFAR train state is a few tens of MB (65.262 MB all-reduced per
+rcgan cycle at full width, ``PERF.md``), which a rank holds at once anyway
+before it places it.
 """
 
 from __future__ import annotations
@@ -33,9 +45,12 @@ import threading
 from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from rcgan_tpu_torch.core.module import state_tree
-from rcgan_tpu_torch.train.state import TrainState
+from rcgan_tpu_torch.parallel.gspmd import TrainStateShardings, apply_shardings
+from rcgan_tpu_torch.train.state import TrainState, train_state_tensors
 
 if TYPE_CHECKING:
     from rcgan_tpu_torch.parallel.mesh import DataGroup
@@ -48,8 +63,12 @@ def _key(layer: str, var: str) -> str:
 
 
 def state_payload(ts: TrainState) -> dict:
-    """``ts`` as nested dicts of CPU tensor copies and ints."""
+    """``ts`` as nested dicts of CPU tensor copies and ints; a DTensor leaf
+    is gathered whole first (a collective: every rank of its mesh calls
+    this)."""
     def cpu(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         return t.detach().to("cpu", copy=True)
 
     return {
@@ -142,6 +161,7 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._on_mesh = False  # a DTensor state was saved: waits end at a barrier
 
     def steps(self):
         """The steps of the whole checkpoints on disk, ascending."""
@@ -170,6 +190,8 @@ class Checkpointer:
             self._thread = None
         if self.group is not None:
             self.group.barrier()
+        elif self._on_mesh:
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError(f"checkpoint write to {self.directory} failed") from err
@@ -177,10 +199,17 @@ class Checkpointer:
     def save(self, step: int, ts: TrainState, wait: bool = False) -> None:
         """Save ``ts`` as checkpoint ``step``: the device-to-host copy now,
         the write in the background (``wait=True`` or :meth:`close`
-        finishes it).  With a group, only rank 0 copies and writes."""
+        finishes it).  With a group, only rank 0 copies and writes; a DTensor
+        state is gathered by every rank and written by global rank 0."""
         self.wait()
-        if self.group is None or self.group.is_main:
+        self._on_mesh = any(isinstance(t, DTensor) for t in train_state_tensors(ts))
+        if self._on_mesh:
             payload = state_payload(ts)
+            main = dist.get_rank() == 0
+        else:
+            main = self.group is None or self.group.is_main
+            payload = state_payload(ts) if main else None
+        if main:
             self._thread = threading.Thread(target=self._write, args=(step, payload),
                                             daemon=True)
             self._thread.start()
@@ -219,6 +248,24 @@ class Checkpointer:
             return None
         load_payload(ts_template, got[1], strict=True)
         return ts_template
+
+
+    def restore_sharded(self, ts_template: TrainState, shardings: TrainStateShardings,
+                        step: Optional[int] = None) -> Optional[TrainState]:
+        """Load checkpoint ``step`` (default the latest), saved from any
+        mesh or none, into the unplaced ``ts_template`` (plain tensors, the
+        same model), then place every leaf on ``shardings.mesh`` with the
+        placements ``shardings`` gives (``parallel.gspmd.apply_shardings``)
+        and return it; None when there is no checkpoint.  Every rank of the
+        mesh calls it."""
+        if any(isinstance(t, DTensor) for t in train_state_tensors(ts_template)):
+            raise ValueError("restore_sharded takes an unplaced template; it places the "
+                             "state itself")
+        got = self.read(step)
+        if got is None:
+            return None
+        load_payload(ts_template, got[1], strict=True)
+        return apply_shardings(ts_template, shardings)
 
 
 def optimistic_restore(ts_template: TrainState, directory: str) -> Tuple[TrainState, int]:

@@ -37,6 +37,13 @@ its gradients and the state (SN ``u``) over the ranks in one
 ``rcgan_tpu/train/cifar_loop.py:167-168,236-237``; the cycle's costs are
 meaned at its end.  Batch norms take their moments per rank, as under
 ``shard_map``.
+
+GSPMD (JAX's ``gspmd_cycle``: the single-program cycle partitioned over a
+``('data', 'model')`` mesh) runs the same body on DTensors with no group:
+:func:`rcgan_tpu_torch.parallel.gspmd.gspmd_cycle` sets :attr:`CifarTrainer.mesh`
+while its step runs, and the noise of the global batch is then drawn by
+each rank for its rows of the mesh's data axis, by global row, and sharded
+there.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from rcgan_tpu_torch.data.cifar10 import (DATASET_KEYS, dequantize_chw_to_hwc,
                                           dequantize_chw_to_hwc_seeded)
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
+from rcgan_tpu_torch.parallel.gspmd import data_rows
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
 from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, Program, StepBlock, load_block,
                                           state_key)
@@ -127,6 +135,9 @@ class CifarTrainer:
             raise ValueError(f"device_dataset must hold {DATASET_KEYS} on {self.device}")
         self.device_dataset = device_dataset
         self.optimizers = optimizers(tcfg)
+        # the DeviceMesh of a GSPMD step while it runs (parallel/gspmd.py),
+        # with confusion_actual a replicated DTensor on it
+        self.mesh = None
         on_card = self.device.type == "cuda" and group is None
         if graphs and not on_card:
             raise ValueError("CUDA graphs need a CUDA device and no group; "
@@ -296,7 +307,12 @@ class CifarTrainer:
         eagerly and in a CUDA graph: the G step (unless this is iteration
         0), then the ``n_critic`` D steps, the state kept at its addresses
         (:func:`state_in_place`); the metrics go to the block's row."""
-        ts, blk, cfg, tcfg = self._ts, self.block, self.cfg, self.tcfg
+        self._cycle_on(self.block)
+
+    def _cycle_on(self, blk) -> None:
+        """:meth:`_cycle` on the row ``counter`` of ``blk``, a
+        :class:`StepBlock` or a GSPMD step's row of DTensors."""
+        ts, cfg, tcfg = self._ts, self.cfg, self.tcfg
         f = {k: blk.row(k) for k in blk.fields}
         if "index" in f:
             batches = self._batch_to_device({k: v[f["index"]]
@@ -305,13 +321,11 @@ class CifarTrainer:
             batches = {k: f[k] for k in DATASET_KEYS}
         b = batches["labels"].shape[1]
         gb = tcfg.gen_bs_multiple * b
-        rank = 0 if self.group is None else self.group.rank
         noise = "zg" in f
         adam, z_base = f["adam"], f["z_base"]
         with state_in_place(ts.gan):
             if self._g_step:
-                zg = f["zg"] if noise else rng.example_normal_from(z_base[0], gb, cfg.z_dim,
-                                                                   rank * gb)
+                zg = f["zg"] if noise else self._normal_rows(z_base[0], gb)
                 g_cost = self._g_step_update(ts, f["g_labels"][0], f["g_labels"][1], zg, adam)
             else:  # the reference skips the G step at iteration 0
                 g_cost = torch.zeros((), device=self.device)
@@ -325,15 +339,27 @@ class CifarTrainer:
                 else:
                     real = dequantize_chw_to_hwc_seeded(batch["images"], f["q_seeds"][k],
                                                         cfg.img_size, cfg.img_dim)
-                    z = rng.example_normal_from(z_base[1 + k], b, cfg.z_dim, rank * b)
+                    z = self._normal_rows(z_base[1 + k], b)
                 d_costs.append(self._d_step(ts, batch, real, z, adam[2 + k]))
         d_costs = torch.stack(d_costs)
-        costs = torch.stack([d_costs[-1], d_costs.mean(), g_cost])
+        costs = [d_costs[-1], d_costs.mean(), g_cost]
         if self.group is not None:
-            self.group.mean_([costs])
+            self.group.mean_(costs)
         for name, value in zip(self.METRICS, (*costs, adam[2, 0])):
             blk.write(name, value)
         blk.advance()
+
+    def _normal_rows(self, base: torch.Tensor, n: int) -> torch.Tensor:
+        """``[n, z_dim]`` normals of a global batch of ``n`` rows keyed by
+        ``base`` and the global row: with a group this rank's rows (``n`` is
+        then the rank's count); under GSPMD each rank draws its rows of the
+        mesh's data axis, sharded there."""
+        z_dim = self.cfg.z_dim
+        if self.mesh is not None:
+            return data_rows(self.mesh, n, lambda rows, start: rng.example_normal_from(
+                base, rows, z_dim, start))
+        rank = 0 if self.group is None else self.group.rank
+        return rng.example_normal_from(base, n, z_dim, rank * n)
 
     def step(self, ts: TrainState, d_batches: Mapping, g_labels: Mapping, iteration: int,
              seed: int, noise: Optional[Mapping] = None):

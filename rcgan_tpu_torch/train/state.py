@@ -39,6 +39,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from rcgan_tpu_torch.core.module import scoped_modules
 
@@ -106,10 +108,21 @@ class ScalelessAdam:
         ``addcmul`` by the tensor ``-lr`` is the fused multiply-add (one
         rounding) of ``add(step, alpha=-lr)`` on both devices, where
         ``addcmul(step, lr, value=-1)`` would round the product first on
-        CUDA."""
-        params, grads = list(params), [g.float() for g in grads]
+        CUDA.
+
+        On DTensor parameters (``parallel/gspmd.py``) each gradient is first
+        redistributed to its parameter's placements (a partial sum on the
+        data axis is all-reduced there), and ``scalars`` stays a plain
+        device tensor, taken as replicated where its 0-dim rows meet the
+        lists."""
+        params = list(params)
+        grads = [_placed_like(g, p).float() for g, p in zip(grads, params)]
         lr, bc1, bc2, inv1, inv2 = scalars.unbind()
         cuda = params[0].is_cuda
+        # the scalars are plain 0-dim device tensors; on DTensor parameters
+        # they are taken as replicated where they meet the lists
+        scalars_in = implicit_replication if isinstance(params[0], DTensor) \
+            else contextlib.nullcontext
         b1, b2 = self.b1, self.b2
         narrow = self.moment_dtype != torch.float32
         mu = [m.float() for m in state.mu] if narrow else state.mu
@@ -118,16 +131,28 @@ class ScalelessAdam:
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_mul(nu, inv2) if cuda else torch._foreach_div(nu, bc2)
+        with scalars_in():
+            denom = torch._foreach_mul(nu, inv2) if cuda else torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_mul(mu, inv1) if cuda else torch._foreach_div(mu, bc1)
+        with scalars_in():
+            step = torch._foreach_mul(mu, inv1) if cuda else torch._foreach_div(mu, bc1)
         torch._foreach_div_(step, denom)
         neg_lr = torch.neg(lr)
-        torch._foreach_addcmul_(params, step, [neg_lr] * len(params))
+        with scalars_in():
+            torch._foreach_addcmul_(params, step, [neg_lr] * len(params))
         if narrow:  # rounded to nearest even for storage, as JAX's astype
             torch._foreach_copy_(state.mu, mu)
             torch._foreach_copy_(state.nu, nu)
+
+
+def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """``grad`` with ``param``'s placements when ``param`` is a DTensor
+    (``parallel/gspmd.py``): a gradient that is a partial sum on the data
+    axis is all-reduced here, once, before it meets the moments."""
+    if isinstance(param, DTensor):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
 
 
 def _bias_correction(decay: float, count: int) -> float:

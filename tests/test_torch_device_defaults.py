@@ -17,7 +17,7 @@ from rcgan_tpu_torch.evals.classifier import cifar_classifier, mnist_classifier
 from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig
-from rcgan_tpu_torch.parallel import mesh
+from rcgan_tpu_torch.parallel import gspmd, mesh
 from rcgan_tpu_torch.train import mnist_loop
 from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer, new_train_state
@@ -63,6 +63,10 @@ CALLS = {
     "cifar_app.main on 2 devices": lambda: cifar_app.main(["--niters", "1", "--mesh_devices",
                                                            "2"]),
     "parallel.launch": lambda: mesh.launch(_never_called, 2),
+    "make_dp_tp_mesh": lambda: gspmd.make_dp_tp_mesh(1, 1),
+    "gspmd_cycle": lambda: gspmd.gspmd_cycle(CifarTrainer(CFG, ACFG, TCFG,
+                                                          build_confusion(0.6)[0]),
+                                             gspmd.make_dp_tp_mesh(1, 1)),
     "maybe_initialize_distributed under a launcher": _under_a_launcher,
     "MnistTrainer": lambda: mnist_loop.MnistTrainer(MCFG, MACFG, MTCFG, np.eye(10)),
     "mnist new_train_state": lambda: mnist_loop.new_train_state(MCFG, MACFG, MTCFG),

@@ -46,12 +46,12 @@ from rcgan_tpu_torch.data.confusion import build_confusion
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.parallel import launch
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
-from torch_parity import assert_states_bit_equal
+from torch_parity import (assert_deltas_close, assert_states_bit_equal, bridge_of, jax_noise,
+                          out_bias)
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 B, N_CRITIC, GEN_MULT = 16, 2, 2
-LR = 2e-4
 WIDTHS = dict(dim_g=8, dim_d=8, embedding_dim=12)
 TIMEOUT = 300.0
 
@@ -92,57 +92,6 @@ def _run(group, alg, norm_g, feeds, noises, seed=3):
         ts, m = tr.step(ts, d, g, i + 1, seed + i, noise=noise)
         out.append(({k: float(v) for k, v in m.items()}, to_jax_train_state(ts)))
     return out
-
-
-def _assert_close_to(np_ts, ref, init, label, count):
-    """Parameter deltas from ``init``, SN ``u`` and Adam moments of
-    ``np_ts`` against ``ref`` under JAX's tolerances (module doc): every
-    element within 2·lr per update, and the deltas of the live tensors
-    within JAX's tolerance on at least 99.9% of each group's elements."""
-    for g, ps in ref.groups.items():
-        mu = ref.opt_states[g][0].mu
-        group_max = max(np.abs(a).max() for d in mu.values() for a in d.values())
-        n_live = n_off = 0
-        for la, vs in ps.items():
-            for v, want in vs.items():
-                got, p0 = np_ts.groups[g][la][v], init.groups[g][la][v]
-                assert np.abs(got - want).max() <= 2 * LR * count, (label, g, la, v)
-                if np.abs(mu[la][v]).max() <= 1e-4 * group_max:
-                    continue  # sign-like Adam steps on rounding noise
-                d_want = want - p0
-                scale = max(float(np.abs(d_want).max()), 1e-8)
-                off = np.abs((got - p0) / scale - d_want / scale) > 2e-3 + 1e-4 * np.abs(
-                    d_want / scale)
-                n_live, n_off = n_live + off.size, n_off + int(off.sum())
-                for mom in ("mu", "nu"):
-                    m_want = getattr(ref.opt_states[g][0], mom)[la][v]
-                    m_got = getattr(np_ts.opt_states[g][0], mom)[la][v]
-                    s = max(float(np.abs(m_want).max()), 1e-30)
-                    np.testing.assert_allclose(m_got / s, m_want / s, rtol=1e-4, atol=2e-3,
-                                               err_msg=f"{label} {mom} {g} {la}/{v}")
-        assert n_off <= 1e-3 * n_live, (label, g, n_off, n_live)
-        assert int(np_ts.opt_states[g][0].count) == int(ref.opt_states[g][0].count)
-    for la, vs in ref.state.items():
-        np.testing.assert_allclose(np_ts.state[la]["u"], vs["u"], rtol=1e-4, atol=1e-5,
-                                   err_msg=f"{label} u {la}")
-
-
-def _jax_noise(key, z_dim=128):
-    """The noise JAX's ``_cycle`` draws from ``key`` for the global batch,
-    by global row (``dequantize_chw_to_hwc_keys`` on the CPU)."""
-    import jax
-    import jax.numpy as jnp
-
-    from rcgan_tpu.core.rng import example_keys, example_normal
-
-    zg = example_normal(jax.random.fold_in(key, 1), GEN_MULT * B, z_dim)
-    z, u = [], []
-    for k in jax.random.split(jax.random.fold_in(key, 2), N_CRITIC):
-        kz, kq = jax.random.split(k)
-        u.append(jax.vmap(lambda kk: jax.random.uniform(kk, (3072,), jnp.float32, 0.0,
-                                                        1.0 / 128.0))(example_keys(kq, B)))
-        z.append(example_normal(kz, B, z_dim))
-    return {"zg": np.asarray(zg), "z": np.asarray(jnp.stack(z)), "u": np.asarray(jnp.stack(u))}
 
 
 def _jax_mesh_run(alg, feeds, init_np):
@@ -186,7 +135,7 @@ def test_two_ranks_match_jax_mesh_and_stay_one_model(alg):
     feeds = _feeds(7)
     init = _run(None, alg, True, [], [])[0][1]  # the ranks' starting state, built alike
     keys, want = _jax_mesh_run(alg, feeds, init)
-    noises = [_jax_noise(k) for k in keys]
+    noises = [jax_noise(k, B, N_CRITIC, GEN_MULT) for k in keys]
     ranks = launch(_run, 2, backend="gloo", args=(alg, True, feeds, noises), timeout=TIMEOUT)
     assert_states_bit_equal(ranks[0][0][1], init, f"{alg} initial state")
     for i in range(1, 3):
@@ -198,25 +147,12 @@ def test_two_ranks_match_jax_mesh_and_stay_one_model(alg):
         # (real and fake cancel): its rounding-driven ±lr walk (module doc)
         # is taken out of g_cost
         jprev = init if i == 1 else want[i - 2][1]
-        np.testing.assert_allclose(m["g_cost"] + _out_bias(ranks[0][i - 1][1]),
-                                   jm["g_cost"] + _out_bias(jprev), rtol=1e-4, atol=1e-5,
+        np.testing.assert_allclose(m["g_cost"] + out_bias(ranks[0][i - 1][1]),
+                                   jm["g_cost"] + out_bias(jprev), rtol=1e-4, atol=1e-5,
                                    err_msg=f"{alg} g_cost")
         np.testing.assert_allclose(m["lr"], jm["lr"], rtol=1e-6)
         assert ranks[0][i][1].step == i
-        _assert_close_to(ranks[0][i][1], _bridge_of(jts), init, f"{alg} cycle {i}", i)
-
-
-def _out_bias(ts) -> float:
-    return float(np.asarray(ts.groups["disc"]["D.Output"]["b"]).ravel()[0])
-
-
-def _bridge_of(jts):
-    """JAX's numpy TrainState in the bridge's layout."""
-    from rcgan_tpu_torch.bridge import AdamMoments, NumpyTrainState
-
-    opt = {g: (AdamMoments(count=s[0].count, mu=s[0].mu, nu=s[0].nu), None)
-           for g, s in jts.opt_states.items()}
-    return NumpyTrainState(groups=jts.groups, state=jts.state, opt_states=opt, step=jts.step)
+        assert_deltas_close(ranks[0][i][1], bridge_of(jts), init, f"{alg} cycle {i}", i)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -231,7 +167,7 @@ def test_layout_does_not_change_the_noise(n):
     for i in range(1, 3):
         for k in ("d_cost", "d_cost_mean", "g_cost"):
             np.testing.assert_allclose(ranks[0][i][0][k], one[i][0][k], rtol=1e-4, atol=1e-5)
-        _assert_close_to(ranks[0][i][1], one[i][1], one[0][1], f"{n} ranks cycle {i}", i)
+        assert_deltas_close(ranks[0][i][1], one[i][1], one[0][1], f"{n} ranks cycle {i}", i)
         for r in range(1, n):
             assert_states_bit_equal(ranks[r][i][1], ranks[0][i][1], f"rank {r} cycle {i}")
 

@@ -228,7 +228,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"rcgan_tpu_torch/{m}.py" for m in (
         "models/pggan", "train/pggan_loop", "apps/pggan_app", "evals/inception_v3",
         "evals/calibrate_inception", "serving", "parallel/__init__", "parallel/mesh",
-        "train/graphs")} <= walked
+        "parallel/gspmd", "train/graphs", "train/checkpoint")} <= walked
     bad = [(f.relative_to(_ROOT).as_posix(), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "rcgan_tpu", "flax", "optax", "orbax",
                                   "triton")]

@@ -26,7 +26,7 @@ from rcgan_tpu_torch.ops.kernels import runtime, sn_kernel
 from rcgan_tpu_torch.ops.kernels.sn_kernel import (CLUSTER, MAX_WEIGHTS, cluster_rows,
                                                    group_smem, sn_plain, spectral_norm,
                                                    spectral_norm_group)
-from torch_parity import TINY, perturbed_trees
+from torch_parity import TINY, cuda_impls_on_cpu, perturbed_trees
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -234,6 +234,7 @@ class _FakeSnLibrary:
 def _fake_sn(monkeypatch, **kw):
     lib = _FakeSnLibrary(**kw)
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
+    cuda_impls_on_cpu(monkeypatch, "sn_group")
     monkeypatch.setattr(runtime, "cuda_library", lambda name: lib)
     monkeypatch.setattr(runtime, "on_device", lambda t, f, *args: f(*args, 7))
     monkeypatch.setattr(sn_kernel, "sn_plain",

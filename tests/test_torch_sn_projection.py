@@ -256,6 +256,7 @@ def _fake_projection_library(monkeypatch, code=0):
                                 projection_error_string=_FakeFn(b"an illegal memory access"))
     lookups = []
     monkeypatch.setattr(runtime, "on_cuda", lambda *ts: True)
+    cuda_impls_on_cpu(monkeypatch, "projection_logits")
     monkeypatch.setattr(runtime, "cuda_library", lambda name: lookups.append(name) or lib)
     monkeypatch.setattr(runtime, "on_device", lambda t, f, *args: f(*args, 7))
     return fn, lookups
