@@ -145,12 +145,17 @@ and the CIFAR app's Inception-v3 scorer:
 12. data parallelism (``rcgan_tpu_torch/parallel/mesh.py``, no kernel of
    its own: the collectives are NCCL's or gloo's), in ranks that
    ``parallel.launch`` spawns: NCCL at world size 1 at ``bench.py``'s
-   configuration (rcgan and rcgan-u, bf16, batch 64), two cycles through
-   the group bit-equal to two without it under deterministic algorithms,
-   each cycle's launches (``cycle_counts``) and its bytes all-reduced
-   (every step's gradients and the state, exactly), ms per cycle and
-   NCCL's share of a profiled cycle's device time (in this process); two
-   gloo ranks sharing
+   configuration (rcgan and rcgan-u, bf16, batch 64) and ``MnistTrainer``
+   at ``DCGANConfig()`` (float32, batch 100), in this process: four steps
+   captured in the group (the default there; the CIFAR cycle at
+   iteration 0 eager) bit-equal to the eager grouped step and to the
+   captured step without the group under deterministic algorithms, each
+   step's launches (``cycle_counts``, ``MNIST_PATH_COUNTS``) and its bytes
+   all-reduced (every step's gradients and the state, exactly:
+   ``dp_expected_bytes``, ``mnist_expected_bytes``, per replay as per
+   eager step), eager against captured ms per step, the captured step's
+   busy share and NCCL's share of its device time, the capture's seconds
+   and pool; two gloo ranks sharing
    cuda:0 (NCCL refuses two ranks on one card), full width, float32, batch
    16 a rank: rcgan and rcgan-u two cycles, both ranks' whole states
    bit-equal, each rank's launches a cycle, finite costs, ms per cycle and
@@ -184,8 +189,10 @@ and the CIFAR app's Inception-v3 scorer:
    (CUDA events, median of 12), device busy ms (profiler), capture seconds
    and graph pool MB, eager against captured, also as the line
    ``{"compiled": ...}``.  The trainers and samplers of phases 4 to 10
-   capture as well (by default on the card without a group), so their
-   checks, launch counts and resumes hold the replays;
+   capture as well (by default on the card, alone or in an NCCL group), so
+   their checks, launch counts and resumes hold the replays; phases 12
+   (a) and 16 (a) print their rows as the line ``{"compiled_parallel":
+   ...}``;
 14. the rest of what JAX compiles, each captured program against its eager
    body (``graphs=False``) from the same start under deterministic
    algorithms, bit for bit: the PGGAN fade-in with ``alpha`` a device
@@ -228,12 +235,15 @@ and the CIFAR app's Inception-v3 scorer:
 16. GSPMD (``rcgan_tpu_torch/parallel/gspmd.py``): at ``bench.py``'s
    configuration, a ``(1, 1)`` ``('data', 'model')`` mesh under NCCL at
    world size 1 in this process, rcgan and rcgan-u with the perm
-   classifier, two cycles through ``gspmd_cycle`` (every kernel through
-   its ``torch.library`` op and DTensor's dispatch) against the eager
-   cycle from one state under deterministic algorithms: whole states and
-   costs bit-equal, each cycle's launches equal to the eager cycle's and to
-   ``cycle_counts``; ms per cycle beside the eager cycle without DTensor,
-   the ops through DTensor a cycle and the host cost per op; the rcgan
+   classifier, four cycles through ``gspmd_cycle`` captured (its default
+   on a CUDA mesh; iteration 0 eager), through the eager DTensor cycle
+   (every kernel through its ``torch.library`` op and DTensor's
+   dispatch) and through the captured cycle without a mesh, from one
+   state under deterministic algorithms: whole states and costs
+   bit-equal, each cycle's launches equal to ``cycle_counts``, no op
+   through DTensor's dispatch in a replay; eager against captured ms per
+   cycle beside the captured cycle without a mesh, the captured cycle's
+   busy share and NCCL's share, the capture's seconds and pool; the rcgan
    state saved (``Checkpointer`` of a DTensor state) and restored by
    ``restore_sharded`` onto a ``(2, 2)`` mesh of four gloo ranks on the CPU
    (bit-equal, the five tensor-parallel leaves sharded on ``model``), and
@@ -2763,7 +2773,7 @@ def inception_slice(torch, dev, seed: int, card: str) -> dict:
 # ranks that share cuda:0: they check correctness, and their times say
 # nothing of scaling.  NCCL runs at world size 1.
 DP = {"nccl_batch": 64, "nccl_dataset": 4096, "gloo_batch": 16, "mnist_batch": 100,
-      "timed": 3}
+      "timed": 3, "cycles": 4, "nccl_timed": 12}
 DP_APP = ["--algorithm", "rcgan-u", "--alpha", "0.6", "--perm_classifier", "--confuse_init",
           "--perm_gen_label_acc", "--mesh_devices", "2", "--multi_gpu_multi_batch",
           "--batch_size", "32", "--synthetic_train_size", "640", "--eval_train_size", "2000",
@@ -2795,7 +2805,9 @@ def state_digest(torch, ts) -> str:
 def dp_expected_bytes(ts, n_critic: int, g_step: bool) -> int:
     """Bytes one cycle all-reduces: each step's gradients and the state
     (float32), the G step's over G (and C), every critic step's over D,
-    and the cycle's three costs."""
+    and the cycle's three costs.  ``DataGroup.bytes_reduced`` reads this
+    after an eager cycle and after each replay of a captured one (a replay
+    adds what its capture recorded)."""
     from rcgan_tpu_torch.train.state import state_buffers
 
     def size(ts_):
@@ -2805,6 +2817,20 @@ def dp_expected_bytes(ts, n_critic: int, g_step: bool) -> int:
              for g in ts.groups}
     g_bytes = sum(v for g, v in numel.items() if g != "disc") + size(ts)
     return g_step * g_bytes + n_critic * (numel["disc"] + size(ts)) + 3 * 4
+
+
+def mnist_expected_bytes(ts, g_steps: int, y_dim: int = 10) -> int:
+    """Bytes one MNIST iteration all-reduces: the D step's gradients over D
+    and the state, each G step's over G (and C) and the state (float32),
+    and the metrics meaned: six scalars and the ``[y_dim, y_dim]``
+    confusion."""
+    from rcgan_tpu_torch.train.state import state_buffers
+
+    state = sum(b.numel() * b.element_size() for b in state_buffers(ts.gan))
+    numel = {g: sum(p.numel() * p.element_size() for p in ts.group_params(g))
+             for g in ts.groups}
+    g_bytes = sum(v for g, v in numel.items() if g != "disc")
+    return numel["disc"] + state + g_steps * (g_bytes + state) + 4 * (6 + y_dim * y_dim)
 
 
 def dp_cifar_feeds(seed: int, b: int, n_critic: int, gen_mult: int, cycles: int):
@@ -2825,23 +2851,30 @@ def dp_cifar_feeds(seed: int, b: int, n_critic: int, gen_mult: int, cycles: int)
     return out
 
 
-def dp_nccl_run(group, seed: int):
-    """Phase 12, NCCL at world size 1: ``bench.py``'s
-    configuration (full width, bf16, batch 64, n_critic 5) for rcgan and
-    rcgan-u; two cycles through the group and two without, from one seed
-    on one resident dataset under deterministic algorithms; each grouped
-    cycle's launches and bytes; ms per cycle, and a profile's share of
-    device time in NCCL's kernels."""
+def dp_nccl_run(group, seed: int, card: str):
+    """Phase 12 (a), NCCL at world size 1: ``bench.py``'s configuration
+    (full width, bf16, batch 64, n_critic 5) for rcgan and rcgan-u; cycles
+    at iterations 0 to ``DP["cycles"] - 1`` of the captured grouped cycle,
+    the eager grouped cycle and the captured cycle without the group, from
+    one seed on one resident dataset under deterministic algorithms (cycle
+    0 eager in all three: no G step; cycle 1 the warm-up before the
+    capture; the rest replays); each grouped cycle's launches and bytes;
+    then eager against captured (``eager_vs_captured``: ms per cycle,
+    busy and NCCL's share of device time, the capture's seconds and pool).
+    Then ``MnistTrainer`` at ``DCGANConfig()`` the same way."""
     import numpy as np
     import torch
 
     from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
     from rcgan_tpu_torch.core import rng as trng
     from rcgan_tpu_torch.data.cifar10 import device_dataset_of
     from rcgan_tpu_torch.data.confusion import build_confusion, corrupt_dataset_numpy
+    from rcgan_tpu_torch.models.dcgan import DCGANConfig
     from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
     from rcgan_tpu_torch.ops.kernels import runtime
     from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+    from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
 
     dev = group.device
     c_mat, c_inv = build_confusion(0.6)
@@ -2852,47 +2885,122 @@ def dp_nccl_run(group, seed: int):
                             "labels": y_real, "labels_random": y_gen, "labels_biased": y_fake,
                             "labels_inv_weights": inv_w}, dev)
     tcfg = CifarTrainConfig()
-    out = {"backend": group.backend, "world": group.world_size}
+    out = {"backend": group.backend, "world": group.world_size, "rows": {}}
+
+    def checked(trainers, step_of, expected_bytes, cycles):
+        """``cycles`` steps of each trainer from one seed: the launches, the
+        group's bytes and the metrics of each step, and the final digests."""
+        runs = {name: {"counts": [], "bytes": [], "metrics": [], "ts": tr.init(seed)}
+                for name, tr in trainers.items()}
+        with deterministic_algorithms(torch):
+            for it in range(cycles):
+                for name, tr in trainers.items():
+                    r = runs[name]
+                    runtime.reset_launch_counts()
+                    group.reset_counts()
+                    r["ts"], m = step_of(tr, r["ts"], it)
+                    torch.cuda.synchronize()
+                    r["counts"].append(runtime.launch_counts())
+                    r["bytes"].append((group.bytes_reduced, expected_bytes(r["ts"], it))
+                                      if tr.group is not None else None)
+                    r["metrics"].append({k: v.clone() for k, v in m.items()})
+            for r in runs.values():
+                r["digest"] = state_digest(torch, r["ts"])
+        return runs
+
+    def readings(runs, trainers):
+        got, eager, alone = runs["captured"], runs["eager"], runs["alone"]
+        return {"counts": got["counts"], "eager_counts": eager["counts"],
+                "bytes": got["bytes"], "eager_bytes": eager["bytes"],
+                "digests": [got["digest"], eager["digest"], alone["digest"]],
+                "metrics_equal": all(
+                    torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
+                    for a, b, c in zip(got["metrics"], eager["metrics"], alone["metrics"])
+                    for k in a),
+                "graphs": [tr.graphs for tr in trainers.values()],
+                "captures": trainers["captured"].captured.captures,
+                "replays": trainers["captured"].captured.replays}
+
     for alg, perm in (("rcgan", False), ("rcgan-u", True)):
         acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
         cfg = ResnetGANConfig(algorithm=alg)
-        grouped = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, group=group)
-        alone = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds)
-        # two checked cycles, then the timed ones (one warm-up), two profiled
+        trainers = {
+            "captured": CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, group=group),
+            "eager": CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, group=group,
+                                  graphs=False),
+            "alone": CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds)}
+        # the checked cycles, then the timed ones (one warm-up each), the profiled
         feeds = [(rs.randint(0, n, (tcfg.n_critic, b)), rs.randint(0, n, tcfg.gen_bs_multiple * b))
-                 for _ in range(DP["timed"] + 5)]
-        ts_g, ts_1, counts, nbytes = grouped.init(seed), alone.init(seed), [], []
-        with deterministic_algorithms(torch):
-            for it in range(2):
-                idx, gi = feeds[it]
-                gl = {"random": y_gen[gi], "biased": y_fake[gi]}
-                runtime.reset_launch_counts()
-                group.reset_counts()
-                ts_g, m_g = grouped.step(ts_g, {"index": idx}, gl, it, trng.fold_in(seed, it))
-                torch.cuda.synchronize()
-                counts.append(runtime.launch_counts())
-                nbytes.append((group.bytes_reduced, dp_expected_bytes(ts_g, tcfg.n_critic, it > 0)))
-                ts_1, m_1 = alone.step(ts_1, {"index": idx}, gl, it, trng.fold_in(seed, it))
-            compared, differ, same = state_differences(torch, ts_g, ts_1)
-            costs_equal = all(torch.equal(m_g[k], m_1[k]) for k in m_g)
-        state = {"ts": ts_g, "it": 2}
+                 for _ in range(DP["cycles"])]
 
-        def cycle():
-            idx, gi = feeds[state["it"]]
-            state["ts"], m = grouped.step(state["ts"], {"index": idx},
-                                          {"random": y_gen[gi], "biased": y_fake[gi]},
-                                          state["it"], trng.fold_in(seed, state["it"]))
-            state["it"] += 1
+        def cycle(tr, ts, it):
+            idx, gi = feeds[it]
+            return tr.step(ts, {"index": idx}, {"random": y_gen[gi], "biased": y_fake[gi]}, it,
+                           trng.fold_in(seed, it))
+
+        runs = checked(trainers, cycle,
+                       lambda ts, it: dp_expected_bytes(ts, tcfg.n_critic, it > 0),
+                       DP["cycles"])
+        out[alg] = readings(runs, trainers)
+        state = {name: {"ts": runs[name]["ts"]} for name in ("captured", "eager")}
+
+        def timed_cycle(name):
+            tr = trainers[name]
+
+            def run():
+                ts = state[name]["ts"]
+                idx, gi = rs.randint(0, n, (tcfg.n_critic, b)), \
+                    rs.randint(0, n, tcfg.gen_bs_multiple * b)
+                state[name]["ts"], m = tr.step(ts, {"index": idx},
+                                               {"random": y_gen[gi], "biased": y_fake[gi]},
+                                               ts.step, trng.fold_in(seed, ts.step))
+                return m
+            return run
+
+        eager_vs_captured(torch, card, out["rows"],
+                          f"data parallel NCCL world 1, CIFAR {alg} cycle, bf16, batch {b}",
+                          timed_cycle("eager"), timed_cycle("captured"),
+                          trainers["captured"].captured, reps=DP["nccl_timed"],
+                          collectives=True)
+        del trainers, runs, state
+
+    # MNIST at DCGANConfig(): the projection D with sn and max-norm, rcgan-u
+    mb = DP["mnist_batch"]
+    mcfg = DCGANConfig(batch_size=mb, disc_type="projection", spectral_norm=True, max_norm=True)
+    macfg = MnistAlgoConfig(algorithm="rcgan", estimate_confuse=True, perm_regularizer=True,
+                            loss_fn="hinge")
+    c3 = build_confusion(0.3)[0]
+    trainers = {"captured": MnistTrainer(mcfg, macfg, MnistTrainConfig(), c3, group=group,
+                                         device=dev),
+                "eager": MnistTrainer(mcfg, macfg, MnistTrainConfig(), c3, group=group,
+                                      device=dev, graphs=False),
+                "alone": MnistTrainer(mcfg, macfg, MnistTrainConfig(), c3, device=dev)}
+    mrs = np.random.RandomState(seed + 1)
+
+    def mnist_batch():
+        return {"images": mrs.rand(mb, 28, 28, 1).astype(np.float32),
+                "y_real": mrs.randint(0, 10, mb), "y_gen": mrs.randint(0, 10, mb),
+                "y_fake": mrs.randint(0, 10, mb),
+                "y_real_weights": mrs.uniform(-0.5, 1.5, (mb, 10)).astype(np.float32)}
+
+    batches = [mnist_batch() for _ in range(DP["cycles"])]
+    runs = checked(trainers, lambda tr, ts, it: tr.step(ts, batches[it], seed + it),
+                   lambda ts, it: mnist_expected_bytes(ts, MnistTrainConfig().g_steps),
+                   DP["cycles"])
+    out["mnist"] = readings(runs, trainers)
+    state = {name: {"ts": runs[name]["ts"]} for name in ("captured", "eager")}
+
+    def timed_iteration(name):
+        def run():
+            ts = state[name]["ts"]
+            state[name]["ts"], m = trainers[name].step(ts, mnist_batch(), seed + ts.step)
             return m
+        return run
 
-        ms = event_ms(torch, cycle, reps=DP["timed"], warmup=1)
-        wall = busy = nccl = float("nan")
-        if alg == "rcgan":  # a profile of one cycle (rcgan-u's collectives are the same)
-            wall, busy, rows = device_profile(torch, cycle, reps=1)
-            nccl = sum(r[0] for r in rows if "nccl" in r[2].lower())
-        out[alg] = {"counts": counts, "bytes": nbytes, "compared": compared, "differ": differ,
-                    "same": same, "costs_equal": costs_equal, "ms": ms, "busy": busy,
-                    "wall": wall, "nccl_ms": nccl}
+    eager_vs_captured(torch, card, out["rows"],
+                      f"data parallel NCCL world 1, MNIST iteration, float32, batch {mb}",
+                      timed_iteration("eager"), timed_iteration("captured"),
+                      trainers["captured"].captured, reps=DP["nccl_timed"], collectives=True)
     return out
 
 
@@ -3115,28 +3223,37 @@ def parallel_slice(torch, dev, seed: int, card: str) -> dict:
                             world_size=1, timeout=datetime.timedelta(seconds=DP_TIMEOUT))
     try:
         nc = dp_nccl_run(DataGroup(rank=0, world_size=1, device=torch.device("cuda", 0),
-                                   backend="nccl"), seed)
+                                   backend="nccl"), seed, card)
     finally:
         dist.destroy_process_group()
     print(f"  NCCL world 1: {time.perf_counter() - t:.1f} s", flush=True)
-    for alg, perm in (("rcgan", False), ("rcgan-u", True)):
-        r = nc[alg]
-        want = [cycle_counts(alg, perm, 5, it > 0) for it in range(2)]
+    cycles = DP["cycles"]
+    for key, label, want in (
+            [(alg, f"CIFAR {alg} bf16 batch {DP['nccl_batch']} cycle",
+              [cycle_counts(alg, perm, 5, it > 0) for it in range(cycles)])
+             for alg, perm in (("rcgan", False), ("rcgan-u", True))]
+            + [("mnist", f"MNIST DCGANConfig() float32 batch {DP['mnist_batch']} iteration",
+                [MNIST_PATH_COUNTS] * cycles)]):
+        r = nc[key]
         for c in r["counts"]:
             add(c)
-        check(nc["backend"] == "nccl" and r["counts"] == want and not r["differ"] and r["same"]
-              and r["costs_equal"] and all(got == exp for got, exp in r["bytes"]),
-              f"data parallel, NCCL world 1, {alg} bf16 batch {DP['nccl_batch']}: two cycles "
-              f"through the group bit-equal to two without ({r['compared'] - len(r['differ'])} "
-              f"of {r['compared']} tensors, costs equal {r['costs_equal']}; differ "
-              f"{r['differ'][:3]}), launches {r['counts'][-1]} (want {want[-1]}), bytes "
-              f"all-reduced {r['bytes']} (got, want)")
-        prof = "" if math.isnan(r["busy"]) else (
-            f"; profiled cycle {r['wall']:.3f} ms, device busy {r['busy']:.3f} ms, of it NCCL's "
-            f"kernels {r['nccl_ms']:.3f} ms ({r['nccl_ms'] / r['busy']:.2%})")
-        print(f"  data parallel NCCL world 1, {alg}, bf16, batch {DP['nccl_batch']}, on {card}: "
-              f"{r['ms']:.3f} ms per cycle (CUDA events, median of {DP['timed']}); "
-              f"{r['bytes'][-1][0] / 1e6:.3f} MB all-reduced per cycle{prof}", flush=True)
+        first_replay = 2 if key != "mnist" else 1  # the CIFAR cycle at iteration 0 is eager
+        check(nc["backend"] == "nccl" and r["graphs"] == [True, False, True]
+              and r["captures"] == 1 and r["replays"] == cycles - first_replay
+              and len(set(r["digests"])) == 1 and r["metrics_equal"]
+              and r["counts"] == r["eager_counts"] == want
+              and all(got == exp for got, exp in r["bytes"] + r["eager_bytes"]),
+              f"data parallel, NCCL world 1, {label}: {cycles} steps captured in the group "
+              f"({r['replays']} replays) bit-equal to the eager grouped step and to the "
+              f"captured step without the group (sha256 "
+              f"{' / '.join(d[:12] for d in r['digests'])}, metrics equal "
+              f"{r['metrics_equal']}), graphs by default {r['graphs']} (captured, eager, "
+              f"alone), launches per replay {r['counts'][-1]} (eager {r['eager_counts'][-1]}, "
+              f"want {want[-1]}), bytes all-reduced per step, captured {r['bytes']} and eager "
+              f"{r['eager_bytes']} (got, want: dp_expected_bytes / mnist_expected_bytes)")
+        print(f"  data parallel NCCL world 1, {label}: {r['bytes'][-1][0] / 1e6:.3f} MB "
+              f"all-reduced per replay, on {card}", flush=True)
+    rows = nc["rows"]
 
     # ---- two gloo ranks sharing the card: one model, launches per rank, layout
     t = time.perf_counter()
@@ -3294,7 +3411,7 @@ def parallel_slice(torch, dev, seed: int, card: str) -> dict:
     add(served)
     shutil.rmtree(root, ignore_errors=True)
     os.environ.pop("RCGAN_SYNTH_CACHE", None)
-    return {"counts": totals}
+    return {"counts": totals, "rows": rows}
 
 
 def capture_row(stats: dict) -> dict:
@@ -3312,28 +3429,45 @@ def capture_text(row: dict) -> str:
 
 
 def eager_vs_captured(torch, card: str, rows: dict, label: str, eager_fn, graph_fn, step,
-                      per: float = 1, reps: int = 12):
+                      per: float = 1, reps: int = 12, collectives: bool = False):
     """Eager against captured, printed and kept in ``rows[label]``: ms (the
     median of ``reps`` calls by CUDA events, after one), busy ms (profiler,
-    over one eager call and two captured), both per ``per`` units, and the
+    over one eager call and two captured), all per ``per`` units, and the
     last capture of ``step`` (a ``CapturedStep``: ``capture_row``); then the
-    device ms by kernel, captured minus eager."""
+    device ms by kernel, captured minus eager.  ``collectives``: a program
+    with NCCL collectives, whose eager side (host-bound) is timed but not
+    profiled, and whose captured side also gives NCCL's kernels' ms."""
     row, by_name = {}, {}
-    for mode, fn, n_prof in (("eager", eager_fn, 1), ("captured", graph_fn, 2)):
+    for mode, fn, n_prof in (("eager", eager_fn, 0 if collectives else 1),
+                             ("captured", graph_fn, 2)):
         ms = event_ms(torch, fn, reps=reps, warmup=1) / per
-        wall, busy, kernels = device_profile(torch, fn, reps=n_prof)
-        row[mode] = {"ms": ms, "busy_ms": busy / per, "profiled_ms": wall / per}
+        row[mode] = {"ms": ms}
         by_name[mode] = {}
+        if not n_prof:
+            continue
+        wall, busy, kernels = device_profile(torch, fn, reps=n_prof)
+        row[mode].update(busy_ms=busy / per, profiled_ms=wall / per)
+        if collectives:
+            row[mode]["nccl_ms"] = sum(t for t, _, name in kernels
+                                       if "nccl" in name.lower()) / per
         for t, _, name in kernels:
             by_name[mode][name] = by_name[mode].get(name, 0.0) + t / per
     row.update(capture_row(step.stats()))
     rows[label] = row
     e, c = row["eager"], row["captured"]
-    print(f"  {label} on {card}: eager {e['ms']:.3f} ms (busy {e['busy_ms']:.3f} ms, "
-          f"{e['busy_ms'] / e['profiled_ms']:.0%} of its profiled time), captured "
+    busy = (f" (busy {e['busy_ms']:.3f} ms, {e['busy_ms'] / e['profiled_ms']:.0%} of its "
+            f"profiled time)") if "busy_ms" in e else ""
+    nccl = "" if not collectives else (
+        f"; of it NCCL's kernels {c['nccl_ms']:.3f} ms ({c['nccl_ms'] / c['busy_ms']:.2%})")
+    print(f"  {label} on {card}: eager {e['ms']:.3f} ms{busy}, captured "
           f"{c['ms']:.3f} ms (busy {c['busy_ms']:.3f} ms, "
-          f"{c['busy_ms'] / c['profiled_ms']:.0%}); {e['ms'] / c['ms']:.2f}x; "
+          f"{c['busy_ms'] / c['profiled_ms']:.0%}{nccl}); {e['ms'] / c['ms']:.2f}x; "
           f"{capture_text(row)}", flush=True)
+    if collectives:  # the captured program's kernels (no eager profile to subtract)
+        top = sorted(((t, k) for k, t in by_name["captured"].items()), reverse=True)
+        print("    device ms captured, by kernel (largest 5): " + "; ".join(
+            f"{t:.3f} {k[:60]}" for t, k in top[:5]), flush=True)
+        return row
     names = set(by_name["eager"]) | set(by_name["captured"])
     diff = sorted(((by_name["captured"].get(k, 0.0) - by_name["eager"].get(k, 0.0), k)
                    for k in names), reverse=True)
@@ -4282,7 +4416,7 @@ def export_slice(torch, dev, seed: int, card: str) -> dict:
 # through gloo end in a segmentation fault in the functional collectives'
 # wait (PyTorch 2.11; plain c10d collectives of the same tensors work), so a
 # multi-rank mesh on the card waits for a machine with several cards.
-GS = {"dataset": 50000, "batch": 64, "timed": 4, "bytes_batch": 2}
+GS = {"dataset": 50000, "batch": 64, "timed": 12, "bytes_batch": 2, "cycles": 4}
 GS_TIMEOUT = 600.0
 # the leaves DEFAULT_TP_RULES shards on "model"
 TP_SHARDED = ["D.Embedding_y/W", "D.Embedding_y/b", "D.Output/W", "G.Input/W", "G.Input/b"]
@@ -4345,14 +4479,18 @@ def gathered_bytes():
         runtime.replicated, sn_kernel.sn_group_op = replicated, op
 
 
-def gspmd_nccl_run(seed: int, ckpt_dir: str) -> dict:
+def gspmd_nccl_run(seed: int, ckpt_dir: str, card: str) -> dict:
     """Phase 16 (a), in this process under NCCL at world size 1 (the caller
     owns the group): ``bench.py``'s configuration on a resident dataset,
-    rcgan and rcgan-u with the perm classifier, two cycles (iterations 0 and
-    1) through ``gspmd_cycle`` on a (1, 1) mesh and two of the eager cycle
-    from the same state under deterministic algorithms; launches per cycle
-    of both; ms per cycle of both and DTensor's dispatches per cycle.  The
-    rcgan state after its checked cycles is saved to ``ckpt_dir`` for (c)."""
+    rcgan and rcgan-u with the perm classifier, cycles at iterations 0 to
+    ``GS["cycles"] - 1`` through the captured ``gspmd_cycle`` on a (1, 1)
+    mesh, through the eager one (``graphs=False``) and through the captured
+    cycle without a mesh, from one state under deterministic algorithms
+    (cycle 0 eager in all three: no G step; cycle 1 the warm-up before the
+    capture; the rest replays); launches per cycle of each, DTensor's
+    dispatches per replay; then eager against captured
+    (``eager_vs_captured``).  The captured rcgan state after its checked
+    cycles is saved to ``ckpt_dir`` for (c)."""
     import numpy as np
     import torch
 
@@ -4377,50 +4515,67 @@ def gspmd_nccl_run(seed: int, ckpt_dir: str) -> dict:
                             "labels": y_real, "labels_random": y_gen, "labels_biased": y_fake,
                             "labels_inv_weights": inv_w}, dev)
     tcfg = CifarTrainConfig()
-    out = {}
+    out = {"rows": {}}
     for alg, perm in (("rcgan", False), ("rcgan-u", True)):
         acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
         cfg = ResnetGANConfig(algorithm=alg)
-        eager = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, graphs=False)
-        meshed = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds, graphs=False)
-        step = gspmd_cycle(meshed, mesh)
-        ts_e = eager.init(seed)
-        ts_m = meshed.init(seed)
-        ts_m = apply_shardings(ts_m, train_state_shardings(mesh, ts_m))
+        alone = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds)
+        steps, states = {"alone": alone.step}, {"alone": alone.init(seed)}
+        for name, graphs in (("captured", None), ("eager", False)):
+            tr = CifarTrainer(cfg, acfg, tcfg, c_mat, dev, torch.bfloat16, ds)
+            steps[name] = gspmd_cycle(tr, mesh, graphs=graphs)
+            ts = tr.init(seed)
+            states[name] = apply_shardings(ts, train_state_shardings(mesh, ts))
         feeds = [(rs.randint(0, n, (tcfg.n_critic, b)), rs.randint(0, n, tcfg.gen_bs_multiple * b))
-                 for _ in range(2 + 2 * (GS["timed"] + 1) + 1)]
-        counts = []
+                 for _ in range(GS["cycles"])]
+        counts = {name: [] for name in steps}
+        metrics = {name: [] for name in steps}
+        dispatches = {"captured": [], "eager": []}  # the replays', the eager cycles'
         with deterministic_algorithms(torch):
-            for it in range(2):
+            for it in range(GS["cycles"]):
                 idx, gi = feeds[it]
                 gl = {"random": y_gen[gi], "biased": y_fake[gi]}
-                pair = []
-                for fn, ts in ((step, ts_m), (eager.step, ts_e)):
+                for name, fn in steps.items():
                     runtime.reset_launch_counts()
-                    _, m = fn(ts, {"index": idx}, gl, it, trng.fold_in(seed, it))
+                    # counted around the replays only: the capture runs without the mode
+                    counting = name == "eager" or (name == "captured" and it >= 2)
+                    with dtensor_dispatches() if counting else contextlib.nullcontext([0]) as disp:
+                        states[name], m = fn(states[name], {"index": idx}, gl, it,
+                                             trng.fold_in(seed, it))
                     torch.cuda.synchronize()
-                    pair.append((runtime.launch_counts(), {k: float(v) for k, v in m.items()}))
-                counts.append(pair)
-            digests = (state_digest(torch, ts_m), state_digest(torch, ts_e))
+                    counts[name].append(runtime.launch_counts())
+                    metrics[name].append({k: v.clone() for k, v in m.items()})
+                    if counting:
+                        dispatches[name].append(disp[0])
+            digests = [state_digest(torch, states[name]) for name in ("captured", "eager", "alone")]
         if alg == "rcgan":
-            Checkpointer(ckpt_dir).save(ts_m.step, ts_m, wait=True)
-        state = {"it": 2}
+            Checkpointer(ckpt_dir).save(states["captured"].step, states["captured"], wait=True)
+        captured = steps["captured"].captured
+        out[alg] = {"counts": counts, "digests": digests, "dispatches": dispatches,
+                    "captures": captured.captures, "replays": captured.replays,
+                    "capture": captured.capture and not steps["eager"].captured.capture,
+                    "metrics_equal": all(
+                        torch.equal(a[k], e[k]) and torch.equal(a[k], o[k])
+                        for a, e, o in zip(metrics["captured"], metrics["eager"],
+                                           metrics["alone"]) for k in a)}
 
-        def cycle(fn, ts):
+        def timed_cycle(name):
             def run():
-                idx, gi = feeds[state["it"]]
-                state["it"] += 1
-                return fn(ts, {"index": idx}, {"random": y_gen[gi], "biased": y_fake[gi]},
-                          state["it"], trng.fold_in(seed, state["it"]))[1]
+                ts = states[name]
+                idx, gi = rs.randint(0, n, (tcfg.n_critic, b)), \
+                    rs.randint(0, n, tcfg.gen_bs_multiple * b)
+                states[name], m = steps[name](ts, {"index": idx},
+                                              {"random": y_gen[gi], "biased": y_fake[gi]},
+                                              ts.step, trng.fold_in(seed, ts.step))
+                return m
             return run
 
-        ms_m = event_ms(torch, cycle(step, ts_m), reps=GS["timed"], warmup=1)
-        ms_e = event_ms(torch, cycle(eager.step, ts_e), reps=GS["timed"], warmup=1)
-        with dtensor_dispatches() as disp:
-            cycle(step, ts_m)()
-        torch.cuda.synchronize()
-        out[alg] = {"counts": counts, "digests": digests, "ms": ms_m, "eager_ms": ms_e,
-                    "dispatches": disp[0]}
+        eager_vs_captured(torch, card, out["rows"],
+                          f"GSPMD (1, 1) mesh under NCCL, CIFAR {alg} cycle, bf16, batch {b}",
+                          timed_cycle("eager"), timed_cycle("captured"), captured,
+                          reps=GS["timed"], collectives=True)
+        out[alg]["alone_ms"] = event_ms(torch, timed_cycle("alone"), reps=GS["timed"], warmup=1)
+        del steps, states, alone
     return out
 
 
@@ -4495,30 +4650,38 @@ def gspmd_slice(torch, dev, seed: int, card: str) -> dict:
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
                             world_size=1, timeout=datetime.timedelta(seconds=GS_TIMEOUT))
     try:
-        nc = gspmd_nccl_run(seed, ckpt)
+        nc = gspmd_nccl_run(seed, ckpt, card)
     finally:
         dist.destroy_process_group()
     print(f"  (a) NCCL world 1: {time.perf_counter() - t:.1f} s", flush=True)
+    cycles = GS["cycles"]
     for alg, perm in (("rcgan", False), ("rcgan-u", True)):
         r = nc[alg]
-        want = [cycle_counts(alg, perm, 5, it > 0) for it in range(2)]
-        for (cm, _), _ in r["counts"]:
-            for k in totals:
-                totals[k] += cm[k]
-        check(r["digests"][0] == r["digests"][1]
-              and all(cm == ce == w for ((cm, _), (ce, _)), w in zip(r["counts"], want))
-              and all(mm == me for (_, mm), (_, me) in r["counts"]),
-              f"GSPMD (a), {alg}, (1, 1) mesh under NCCL, bf16, batch {GS['batch']}, two cycles "
-              f"(iterations 0 and 1) against the eager cycle from one state: whole states "
-              f"bit-equal ({r['digests'][0][:12]} / {r['digests'][1][:12]}), costs equal, "
-              f"launches a cycle {r['counts'][-1][0][0]} (eager {r['counts'][-1][1][0]}, want "
-              f"{want[-1]})")
-        extra = r["ms"] - r["eager_ms"]
-        print(f"  GSPMD (a) {alg}, (1, 1) mesh, bf16, batch {GS['batch']}, on {card}: "
-              f"{r['ms']:.3f} ms per cycle against {r['eager_ms']:.3f} ms eager without DTensor "
-              f"(CUDA events, median of {GS['timed']}); {r['dispatches']} ops through DTensor "
-              f"a cycle, {extra:.3f} ms more a cycle, {1e3 * extra / max(r['dispatches'], 1):.1f} "
-              f"us an op", flush=True)
+        want = [cycle_counts(alg, perm, 5, it > 0) for it in range(cycles)]
+        for name in ("captured", "eager"):
+            for cm in r["counts"][name]:
+                for k in totals:
+                    totals[k] += cm[k]
+        check(r["capture"] and r["captures"] == 1 and r["replays"] == cycles - 2
+              and len(set(r["digests"])) == 1 and r["metrics_equal"]
+              and all(r["counts"][name] == want for name in r["counts"])
+              and r["dispatches"]["captured"] == [0] * (cycles - 2)
+              and min(r["dispatches"]["eager"]) > 0,
+              f"GSPMD (a), {alg}, (1, 1) mesh under NCCL, bf16, batch {GS['batch']}, {cycles} "
+              f"cycles (iterations 0 to {cycles - 1}) captured ({r['replays']} replays) against "
+              f"the eager DTensor cycle and the captured cycle without a mesh from one state: "
+              f"whole states bit-equal (sha256 {' / '.join(d[:12] for d in r['digests'])}), "
+              f"costs equal {r['metrics_equal']}, launches a cycle {r['counts']['captured'][-1]} "
+              f"(eager {r['counts']['eager'][-1]}, no mesh {r['counts']['alone'][-1]}, want "
+              f"{want[-1]}), ops through DTensor's dispatch per replay "
+              f"{r['dispatches']['captured']} (want 0; eager {r['dispatches']['eager']})")
+        row = nc["rows"][f"GSPMD (1, 1) mesh under NCCL, CIFAR {alg} cycle, bf16, batch "
+                         f"{GS['batch']}"]
+        print(f"  GSPMD (a) {alg}, (1, 1) mesh, bf16, batch {GS['batch']}, on {card}: captured "
+              f"{row['captured']['ms']:.3f} ms per cycle, eager {row['eager']['ms']:.3f} ms, the "
+              f"captured cycle without a mesh {r['alone_ms']:.3f} ms (CUDA events, median of "
+              f"{GS['timed']}); {r['dispatches']['eager'][-1]} ops through DTensor in an eager "
+              f"cycle, {r['dispatches']['captured'][-1]} in a replay", flush=True)
 
     # ---- (c) the saved state onto a (2, 2) mesh of gloo ranks on the CPU
     saved = state_digest(torch, _restore_plain(torch, seed, ckpt))
@@ -4544,7 +4707,7 @@ def gspmd_slice(torch, dev, seed: int, card: str) -> dict:
           f"and {c[0]['bytes']['sn'] / 1e6:.3f} MB for sn; {c[0]['s']:.1f} s on rank 0",
           flush=True)
     shutil.rmtree(root, ignore_errors=True)
-    return {"counts": totals}
+    return {"counts": totals, "rows": nc["rows"]}
 
 
 def _restore_plain(torch, seed: int, ckpt: str):
@@ -5002,6 +5165,7 @@ def main(argv=None) -> int:
     # -------------------------------------------------------------- 16. GSPMD
     gspmd = gspmd_slice(torch, dev, args.seed, card)
     lap("phase 16")
+    print(json.dumps({"compiled_parallel": {**dp["rows"], **gspmd["rows"]}}), flush=True)
 
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)

@@ -32,7 +32,8 @@ Flags, cadences and file layout are the JAX app's.  What differs:
   draws what the uninterrupted run drew; like JAX's, its batch iterators
   restart at position 0 of the split.
 - ``--profile_steps`` writes a ``torch.profiler`` Chrome trace.
-- On the card (with no group) the cycle, its blocks, the dev cost's scan,
+- On the card (alone, or in an NCCL group, whose collectives each rank's
+  graph captures) the cycle, its blocks (alone), the dev cost's scan,
   the samples, the Inception score's batches (one program for the run)
   and the classifier's logits run captured in CUDA graphs, as JAX jits
   or scans them (``train/graphs.py``), and the classifier's train step

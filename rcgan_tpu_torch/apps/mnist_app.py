@@ -29,7 +29,8 @@ Flags, cadences and file layout are the JAX app's.  What differs:
   ``fold_in(train_seed, i)`` (JAX splits a key per block).
 - The eval classifier is the port's, trained and pinned under
   ``--checkpoint_dir`` as JAX's is.
-- On the card (with no group) the iteration, ``step_scan``'s blocks, the
+- On the card (alone, or in an NCCL group, whose collectives each rank's
+  graph captures) the iteration, ``step_scan``'s blocks (alone), the
   samples and the classifier's logits run captured in CUDA graphs, as JAX
   jits or scans them (``train/graphs.py``); label recovery and the
   classifier's train step run eagerly, as their step is device-bound and

@@ -4,7 +4,7 @@
 
 JAX jits the single-program cycle (``_cycle(..., axis=None)``) with
 sharding annotations and lets XLA insert the collectives.  The port runs
-the same body, :meth:`CifarTrainer._cycle_on`, eagerly on
+the same body, :meth:`CifarTrainer._cycle_on`, on
 ``torch.distributed.tensor`` DTensors, one process per mesh device, and
 DTensor's dispatch inserts the collectives:
 
@@ -31,8 +31,16 @@ DTensor's dispatch inserts the collectives:
   all-reduced once, explicitly, to its parameter's placements
   (``train/state.py::ScalelessAdam.apply_``).
 
-The cycle runs eagerly: JAX compiles it, but a CUDA graph of a DTensor
-cycle would capture its collectives, which takes NCCL across cards.
+JAX jits the cycle (``jax.jit(body, donate_argnums=0)``); on a CUDA mesh
+the port captures it into a CUDA graph and replays it (``train/graphs.py``),
+the collectives DTensor inserts included (NCCL).  The host part of a
+cycle (:func:`_check_placed`, ``CifarTrainer._cycle_row``) stays outside
+the graph and loads this rank's rows of the cycle's inputs into a
+:class:`~rcgan_tpu_torch.train.graphs.StepBlock` at fixed addresses; the
+body wraps them as DTensors, gathers the index batch from the resident
+dataset and writes the metrics whole to the block, all on the device, so
+that a replay does the same with no DTensor dispatch.  A CPU mesh (gloo)
+runs the same body eagerly.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distr
 from rcgan_tpu_torch.core.module import scoped_modules
 from rcgan_tpu_torch.data.cifar10 import DATASET_KEYS
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.state import ParamKey, TrainState
+from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, capture_on, load_block, state_key
+from rcgan_tpu_torch.train.state import ParamKey, TrainState, train_state_tensors
 
 Placements = Tuple[Placement, ...]  # one per mesh dimension: (data, model)
 
@@ -149,44 +158,51 @@ _ROWS_DIM = {"images": 1, "labels": 1, "labels_random": 1, "labels_biased": 1,
              "labels_inv_weights": 1, "q_seeds": 1, "z": 1, "u": 1, "g_labels": 1, "zg": 0}
 
 
-class _MeshRow:
-    """A cycle's row as the body reads it (the :class:`StepBlock` calls it
-    makes): the batch's fields as DTensors sharded on ``data``, each rank
-    holding only its rows (index batches gathered by each rank from the
-    resident dataset), the seeds and Adam's scalars as plain device
-    tensors; the metrics written come back whole."""
-
-    def __init__(self, row: Mapping[str, np.ndarray], trainer, mesh: DeviceMesh):
-        self.mesh, self.device, self.dtypes = mesh, trainer.device, trainer._DTYPES
-        self.fields: Dict[str, torch.Tensor] = {}
-        for k, v in row.items():
-            dim = _ROWS_DIM.get("images" if k == "index" else k)
-            if dim is None:
-                self.fields[k] = torch.as_tensor(v).to(self.device, self.dtypes[k],
-                                                       non_blocking=True)
-                continue
+def _local_row(row: Mapping[str, np.ndarray], mesh: DeviceMesh) -> Dict[str, np.ndarray]:
+    """This rank's rows of a cycle's row (the fields of :data:`_ROWS_DIM`
+    cut to its rows of the mesh's ``data`` dimension; the rest whole)."""
+    out = {}
+    for k, v in row.items():
+        dim = _ROWS_DIM.get("images" if k == "index" else k)
+        if dim is not None:
             lo, hi = _local_rows(mesh, v.shape[dim])
-            local = torch.as_tensor(np.take(v, np.arange(lo, hi), axis=dim))
-            if k == "index":  # each rank gathers its rows from the resident dataset
-                local = local.to(self.device)
-                for key in DATASET_KEYS:
-                    self._place(key, trainer.device_dataset[key][local], dim)
-            else:
-                self._place(k, local, dim)
-        self.metrics: Dict[str, torch.Tensor] = {}
+            v = np.take(v, np.arange(lo, hi), axis=dim)
+        out[k] = v
+    return out
 
-    def _place(self, k: str, local: torch.Tensor, dim: int) -> None:
-        local = local.to(self.device, self.dtypes[k], non_blocking=True).contiguous()
-        self.fields[k] = DTensor.from_local(local, self.mesh, (Shard(dim), Replicate()))
+
+class _MeshRow:
+    """The row ``counter`` of a cycle's block (this rank's rows,
+    :func:`_local_row`) as the body reads it (the :class:`StepBlock` calls
+    it makes), on the device: the batch's fields as DTensors sharded on
+    ``data``, each rank holding only its rows (an index batch gathered by
+    each rank from the resident dataset), the seeds and Adam's scalars as
+    plain device tensors; the metrics are written whole to the block."""
+
+    def __init__(self, block: StepBlock, trainer, mesh: DeviceMesh):
+        self.block, self.trainer, self.mesh = block, trainer, mesh
+        names = list(block.fields)
+        if "index" in names:  # the body reads the dataset's fields
+            i = names.index("index")
+            names[i:i + 1] = DATASET_KEYS
+        self.fields = names
 
     def row(self, k: str) -> torch.Tensor:
-        return self.fields[k]
+        dim = _ROWS_DIM.get(k)
+        if dim is None:
+            return self.block.row(k)
+        if k in DATASET_KEYS and "index" in self.block.fields:
+            local = self.trainer.device_dataset[k][self.block.row("index")]
+        else:
+            local = self.block.row(k)
+        local = local.to(self.trainer._DTYPES[k]).contiguous()
+        return DTensor.from_local(local, self.mesh, (Shard(dim), Replicate()))
 
     def write(self, name: str, value: torch.Tensor) -> None:
-        self.metrics[name] = value.full_tensor() if isinstance(value, DTensor) else value
+        self.block.write(name, value.full_tensor() if isinstance(value, DTensor) else value)
 
     def advance(self) -> None:
-        pass
+        self.block.advance()
 
 
 def _local_rows(mesh: DeviceMesh, n: int) -> Tuple[int, int]:
@@ -223,8 +239,52 @@ def _check_placed(ts: TrainState, want: TrainStateShardings) -> None:
                                  f"{getattr(p, 'placements', None)}")
 
 
+def _addresses(ts: TrainState, trainer) -> tuple:
+    """The addresses of the local tensors a cycle reads and writes."""
+    with torch.no_grad():
+        local = [t.to_local() if isinstance(t, DTensor) else t for t in train_state_tensors(ts)]
+    return state_key(local + list((trainer.device_dataset or {}).values())
+                     + [trainer.confusion_actual])
+
+
+class _MeshCycle:
+    """:func:`gspmd_cycle`'s step: the cycle's block (``block``) and its
+    :class:`CapturedStep` (``captured``), which captures the body at the
+    first cycle of a state (after iteration 0, which has no G step and runs
+    eagerly) and replays it for the next."""
+
+    def __init__(self, trainer, mesh: DeviceMesh, rules, capture: bool):
+        self.trainer, self.mesh, self.rules = trainer, mesh, rules
+        self.block: Optional[StepBlock] = None
+        self.captured = CapturedStep(self._body, trainer.device, capture)
+
+    def _body(self) -> None:
+        with _on_mesh(self.trainer, self.mesh):
+            self.trainer._cycle_on(_MeshRow(self.block, self.trainer, self.mesh))
+
+    def __call__(self, ts: TrainState, d_batches: Mapping, g_labels: Mapping, iteration: int,
+                 seed: int, noise: Optional[Mapping] = None):
+        tr = self.trainer
+        _check_placed(ts, train_state_shardings(self.mesh, ts, self.rules))
+        row = _local_row(tr._cycle_row(ts, d_batches, g_labels, iteration, seed, noise),
+                         self.mesh)
+        self.block = load_block(self.block, [row], tr._DTYPES, tr.device,
+                                {k: (torch.float32, ()) for k in tr.METRICS}, self.captured)
+        tr._ts, tr._g_step = ts, iteration > 0
+        try:
+            if tr._g_step:
+                self.captured((id(ts), id(self.mesh), _addresses(ts, tr)), held=ts)
+            else:  # the reference skips the G step at iteration 0
+                self._body()
+        finally:
+            tr._ts = None
+        ts.step += 1
+        return ts, {k: v[0] for k, v in self.block.read(1).items()}
+
+
 def gspmd_cycle(trainer, mesh: DeviceMesh,
-                rules: Optional[Mapping[str, Mapping[str, Placements]]] = None) -> Callable:
+                rules: Optional[Mapping[str, Mapping[str, Placements]]] = None,
+                graphs: Optional[bool] = None) -> Callable:
     """A training cycle of ``trainer`` (a ``CifarTrainer`` with no group)
     over ``mesh``; returns ``step(ts, d_batches, g_labels, iteration, seed,
     noise=None) -> (ts, metrics)`` with :meth:`CifarTrainer.step`'s
@@ -232,24 +292,12 @@ def gspmd_cycle(trainer, mesh: DeviceMesh,
     :func:`apply_shardings` with ``rules``' shardings; it is updated in
     place.  The batch leaves are sharded on ``data`` (dim 1 of the critic
     batches, dim 0 of the generator labels); the metrics come back whole
-    on every rank."""
+    on every rank.  ``graphs``: capture the cycle into a CUDA graph and
+    replay it; by default on a CUDA mesh, never on a CPU mesh
+    (``graphs=True`` there raises).  The step's ``captured`` holds the
+    graph and its stats."""
     if trainer.group is not None:
         raise ValueError("gspmd_cycle runs the single-program cycle; the trainer has a group")
     if trainer.device.type != mesh.device_type:
         raise ValueError(f"trainer on {trainer.device}, mesh on {mesh.device_type}")
-
-    def step(ts: TrainState, d_batches: Mapping, g_labels: Mapping, iteration: int, seed: int,
-             noise: Optional[Mapping] = None):
-        _check_placed(ts, train_state_shardings(mesh, ts, rules))
-        row = trainer._cycle_row(ts, d_batches, g_labels, iteration, seed, noise)
-        blk = _MeshRow(row, trainer, mesh)
-        trainer._ts, trainer._g_step = ts, iteration > 0
-        try:
-            with _on_mesh(trainer, mesh):
-                trainer._cycle_on(blk)
-        finally:
-            trainer._ts = None
-        ts.step += 1
-        return ts, blk.metrics
-
-    return step
+    return _MeshCycle(trainer, mesh, rules, capture_on(trainer.device, graphs))

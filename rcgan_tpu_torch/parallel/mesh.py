@@ -21,7 +21,17 @@ metrics over the axis.  The port runs one process per rank over
   rank's per-example rows, concatenated in rank order;
 - :meth:`DataGroup.barrier`.
 
-The trainers call these explicitly.  PyTorch's ``DistributedDataParallel``
+The trainers call these explicitly.  An NCCL group's
+:meth:`DataGroup.mean_` and :meth:`DataGroup.gather_rows` are device work
+and one collective each, so a CUDA graph captures them inside a trainer's
+step (``train/graphs.py``): each rank captures its own graph of the same
+collectives in the same order, and a replay runs them again.  gloo stages
+CUDA tensors through the host, which a graph cannot capture
+(:attr:`DataGroup.capturable`).  :meth:`DataGroup.any`,
+:meth:`DataGroup.barrier` and :meth:`DataGroup.broadcast_object` wait on
+the host and stay out of every captured step.
+
+PyTorch's ``DistributedDataParallel``
 is not used: its reducer hooks fire on ``.backward()``, while the port's
 steps take gradients with ``torch.autograd.grad``, and it broadcasts
 buffers from rank 0 where JAX means the state.  Nor ``SyncBatchNorm``:
@@ -41,6 +51,7 @@ tensors through host copies.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import io
@@ -49,7 +60,7 @@ import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -65,7 +76,9 @@ class DataGroup:
     ``torch.distributed`` group.  ``device`` is where the rank's tensors
     live; ``bytes_reduced`` counts what :meth:`mean_` sent through the
     collective since the last :meth:`reset_counts` (a host counter, no
-    device sync)."""
+    device sync).  A captured step's reductions are counted once per
+    replay, as its kernel launches are (:meth:`recorded_bytes`), so the
+    counter reads the same after N replays as after N eager steps."""
 
     rank: int
     world_size: int
@@ -73,10 +86,34 @@ class DataGroup:
     backend: str
     local_rank: int = 0
     bytes_reduced: int = 0
+    # the record of a capture in progress: [bytes] (recorded_bytes)
+    _recording: Optional[List[int]] = dataclasses.field(default=None, repr=False,
+                                                        compare=False)
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this group's :meth:`mean_` and
+        :meth:`gather_rows`: NCCL's collectives run on the device, gloo's
+        copy CUDA tensors to the host and back."""
+        return self.backend == "nccl"
+
+    @contextlib.contextmanager
+    def recorded_bytes(self) -> Iterator[List[int]]:
+        """Inside the block (a step's capture, which reduces nothing) the
+        bytes that :meth:`mean_` would send go to the yielded ``[bytes]``
+        and not to :attr:`bytes_reduced`; the owner adds them once per
+        replay."""
+        if self._recording is not None:
+            raise RuntimeError("the group's reductions are already being recorded")
+        self._recording = rec = [0]
+        try:
+            yield rec
+        finally:
+            self._recording = None
 
     def local_rows(self, global_rows: int) -> slice:
         """This rank's contiguous rows of a batch of ``global_rows``, which
@@ -109,7 +146,11 @@ class DataGroup:
             buf.div_(self.world_size)
             if buf is not flat:
                 flat.copy_(buf)
-            self.bytes_reduced += flat.numel() * flat.element_size()
+            n = flat.numel() * flat.element_size()
+            if self._recording is None:
+                self.bytes_reduced += n
+            else:
+                self._recording[0] += n
             torch._foreach_copy_(ts, [v.view_as(t) for v, t in
                                       zip(flat.split([t.numel() for t in ts]), ts)])
 

@@ -4,10 +4,11 @@
 One cycle is one G step (plus the C step of rcgan-u), skipped at iteration
 0, then ``n_critic`` D steps, each on its own micro-batch, as JAX's
 ``_cycle``.  JAX compiles the cycle into one program; the port runs it
-eagerly on the CPU and with a group; on a card it captures the cycle into a
-CUDA graph once and replays it (``train/graphs.py``), the counterpart of
-``_jitted_cycle``, and :meth:`CifarTrainer.step_scan` replays it once per
-row of a block, the counterpart of ``_jitted_scan``.  Both paths run one
+eagerly on the CPU and with a gloo group; on a card, alone or in an NCCL
+group, it captures the cycle into a CUDA graph once and replays it
+(``train/graphs.py``), the counterpart of ``_jitted_cycle`` (with a group,
+of its ``shard_map`` branch), and :meth:`CifarTrainer.step_scan` replays
+it once per row of a block, the counterpart of ``_jitted_scan``.  Both paths run one
 body, :meth:`CifarTrainer._cycle`, which reads only device tensors: a host
 part (:meth:`CifarTrainer._cycle_row`) derives the learning rates, Adam's
 bias corrections and every seed (by :mod:`rcgan_tpu_torch.core.rng`) and
@@ -36,7 +37,8 @@ its gradients and the state (SN ``u``) over the ranks in one
 ``all_reduce`` before its update, as ``pavg`` does at
 ``rcgan_tpu/train/cifar_loop.py:167-168,236-237``; the cycle's costs are
 meaned at its end.  Batch norms take their moments per rank, as under
-``shard_map``.
+``shard_map``.  In an NCCL group each rank captures its own graph of the
+same collectives in the same order.
 
 GSPMD (JAX's ``gspmd_cycle``: the single-program cycle partitioned over a
 ``('data', 'model')`` mesh) runs the same body on DTensors with no group:
@@ -64,8 +66,8 @@ from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.gspmd import data_rows
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
-from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, Program, StepBlock, load_block,
-                                          state_key)
+from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, Program, StepBlock, capture_on,
+                                          load_block, state_key)
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
                                          init_train_state, mean_over_ranks, state_in_place,
                                          train_state_tensors, trainable)
@@ -113,9 +115,9 @@ class CifarTrainer:
     the data-parallel group this rank belongs to (JAX's ``mesh``); the
     trainer then runs on the group's device.  ``graphs``: capture the cycle
     into a CUDA graph and replay it (``train/graphs.py``); by default on a
-    CUDA device without a group, as JAX always jits its cycle.  ``False``
-    runs the same body eagerly there (to compare); the CPU and a group run
-    it eagerly, and asking them for graphs raises."""
+    CUDA device, alone or in an NCCL group, as JAX always jits its cycle.
+    ``False`` runs the same body eagerly there (to compare); the CPU and a
+    gloo group run it eagerly, and asking them for graphs raises."""
 
     def __init__(self, cfg: ResnetGANConfig, acfg: CifarAlgoConfig, tcfg: CifarTrainConfig,
                  confusion_actual: np.ndarray, device="cuda",
@@ -125,6 +127,7 @@ class CifarTrainer:
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
         self.group = check_group(group, device)
         self.device = group.device if group is not None else resolve_device(device)
+        self.graphs = capture_on(self.device, graphs, self.group)
         self.compute_dtype = compute_dtype
         float32_policy(compute_dtype)
         self.confusion_actual = torch.as_tensor(np.asarray(confusion_actual, np.float32),
@@ -138,17 +141,12 @@ class CifarTrainer:
         # the DeviceMesh of a GSPMD step while it runs (parallel/gspmd.py),
         # with confusion_actual a replicated DTensor on it
         self.mesh = None
-        on_card = self.device.type == "cuda" and group is None
-        if graphs and not on_card:
-            raise ValueError("CUDA graphs need a CUDA device and no group; "
-                             f"got {self.device}{' with a group' if group is not None else ''}")
-        self.graphs = on_card if graphs is None else bool(graphs)
         self.block: Optional[StepBlock] = None   # the cycle's inputs and metrics
-        self.captured = CapturedStep(self._cycle, self.device, self.graphs)
+        self.captured = CapturedStep(self._cycle, self.device, self.graphs, self.group)
         self._ts: Optional[TrainState] = None    # what the cycle and dev-cost bodies run on
         self._g_step = True
         # the evals' programs, each in a graph and pool of its own (one device:
-        # with a group the evals run on the main rank, eagerly)
+        # with a group the evals run on the main rank, and have no collective)
         self.dev_program = Program(self._dev_cost, self._DTYPES, self.device, self.graphs,
                                    {"cost": (torch.float32, ())})
         self._eval_dataset: Optional[Mapping[str, torch.Tensor]] = None

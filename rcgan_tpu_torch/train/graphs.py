@@ -9,8 +9,11 @@ classifier's logits and train step, the Inception score's scan, label
 recovery's scan) and its sampler once per bucket size into one XLA program
 each that runs with no host work between its ops.  This module has no
 counterpart file there.  The port
-runs the same step eagerly (the CPU, a data-parallel group) or, on a card,
-records it once into a CUDA graph and replays it:
+runs the same step eagerly (the CPU, a gloo group) or, on a card, records
+it once into a CUDA graph and replays it, with a data-parallel NCCL group
+too: its collectives are captured into each rank's graph
+(``parallel/mesh.py``), as are a DTensor step's
+(``parallel/gspmd.py``):
 
 - :class:`StepBlock` holds a step's inputs at fixed addresses: up to
   ``capacity`` rows of named fields (one row per step, so that a block of
@@ -51,7 +54,8 @@ Launch counts: the kernel wrappers count on the host, so a replay counts
 nothing.  The capture runs inside
 :func:`~rcgan_tpu_torch.ops.kernels.runtime.recorded_launches`, and every
 replay adds that record once, so that the counts read after N replays as
-after N eager steps.
+after N eager steps.  A group's ``bytes_reduced`` is recorded and added
+the same way (``DataGroup.recorded_bytes``).
 """
 
 from __future__ import annotations
@@ -94,13 +98,19 @@ def _in_program() -> Iterator[None]:
         _program.depth -= 1
 
 
-def capture_on(device: torch.device, graphs: Optional[bool]) -> bool:
-    """Whether an owner on ``device`` captures: by default on a CUDA device,
-    as JAX always jits; ``graphs=True`` off one raises."""
+def capture_on(device: torch.device, graphs: Optional[bool], group=None) -> bool:
+    """Whether an owner on ``device``, in the data-parallel ``group`` (a
+    ``parallel.DataGroup``) if any, captures: by default on a CUDA device
+    whose group can capture its collectives (NCCL), as JAX always jits;
+    ``graphs=True`` off a card, or with a gloo group, raises."""
     on_card = device.type == "cuda"
     if graphs and not on_card:
         raise ValueError(f"CUDA graphs need a CUDA device; got {device}")
-    return on_card if graphs is None else bool(graphs)
+    if graphs and group is not None and not group.capturable:
+        raise ValueError(f"CUDA graphs cannot capture a {group.backend} group's collectives, "
+                         "which stage through the host; use NCCL, or graphs=False")
+    able = on_card and (group is None or group.capturable)
+    return able if graphs is None else bool(graphs)
 
 
 class StepBlock:
@@ -240,12 +250,15 @@ class CapturedStep:
     its state); ``held`` is kept alive while the graph is, so that the
     memory it captured is never given to another tensor.  The graph lives
     in a private memory pool of its own, freed with it: one graph, and one
-    pool, at a time."""
+    pool, at a time.  ``group``: the data-parallel group whose collectives
+    the body runs; its ``bytes_reduced`` is recorded at the capture and
+    added once per replay."""
 
-    def __init__(self, body: Callable[[], Any], device, capture: bool):
+    def __init__(self, body: Callable[[], Any], device, capture: bool, group=None):
         self.body = body
         self.device = torch.device(device)
         self.capture = capture
+        self.group = group
         if capture and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device; got {self.device}")
         self._graph = None
@@ -253,6 +266,7 @@ class CapturedStep:
         self._held: Any = None
         self._static: Any = None
         self.launches: Optional[runtime.LaunchRecord] = None  # one replay's
+        self.bytes_reduced = 0  # what one replay reduces over the group
         self.captures = 0
         self.replays = 0
         # host seconds of the last warm-up (the eager step, to its end), of
@@ -285,6 +299,8 @@ class CapturedStep:
             return self._warm_up_and_capture(key, held)
         self._graph.replay()
         runtime.add_launches(self.launches)
+        if self.group is not None:
+            self.group.bytes_reduced += self.bytes_reduced
         self.replays += 1
         return self._static
 
@@ -313,9 +329,13 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.Stream(self.device)
         t = time.perf_counter()
+        reduced = contextlib.nullcontext([0]) if self.group is None \
+            else self.group.recorded_bytes()
         # a private pool of the graph's own: a pool outlives no graph, so a
-        # new key's capture takes a new one once the old graph is freed
-        with runtime.recorded_launches(capture.cuda_stream) as rec, \
+        # new key's capture takes a new one once the old graph is freed;
+        # thread_local: other threads (autograd's backward, NCCL's proxy)
+        # make CUDA calls while the capture runs
+        with runtime.recorded_launches(capture.cuda_stream) as rec, reduced as nbytes, \
                 torch.cuda.device(self.device), _in_program(), \
                 torch.cuda.graph(graph, stream=capture, capture_error_mode="thread_local"):
             static = self.body()
@@ -323,7 +343,7 @@ class CapturedStep:
         self.capture_s = time.perf_counter() - t
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self._graph, self._static, self._key, self._held = graph, static, key, held
-        self.launches = rec
+        self.launches, self.bytes_reduced = rec, nbytes[0]
         self.captures += 1
         return out
 

@@ -21,9 +21,10 @@ never concatenated: each must see its own batch moments.
 
 JAX compiles the iteration (``_jitted_step``), ``step_scan``'s blocks
 (``_jitted_scan``) and ``sample`` into one program each; the port runs one body,
-:meth:`MnistTrainer._iteration`, eagerly on the CPU and with a group, and on
-a card captures it into a CUDA graph once and replays it, once per row of a
-block for ``step_scan`` (``train/graphs.py``).  The body reads only device
+:meth:`MnistTrainer._iteration`, eagerly on the CPU and with a gloo group,
+and on a card, alone or in an NCCL group, captures it into a CUDA graph
+once and replays it, once per row of a block for ``step_scan``
+(``train/graphs.py``).  The body reads only device
 tensors: a host part (:meth:`MnistTrainer._iteration_row`) packs Adam's
 scalars, the seed's base for ``z`` (drawn on the device by
 :func:`rcgan_tpu_torch.core.rng.example_uniform_from`) and the batch or its
@@ -42,7 +43,9 @@ state (BN moving statistics, SN ``u``) are meaned over the ranks after the
 D step's backward and after each G step's, before the update, and the
 max-norm clip after the D update runs on every rank.  The scalar metrics
 are meaned; ``prob_real`` and ``prob_fake`` are gathered to the global
-batch in rank order.  Batch norms take their moments per rank.
+batch in rank order.  Batch norms take their moments per rank.  In an NCCL
+group each rank captures its own graph of the same collectives in the same
+order.
 """
 
 from __future__ import annotations
@@ -60,7 +63,8 @@ from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models.dcgan import DCGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
-from rcgan_tpu_torch.train.graphs import CapturedStep, Passes, StepBlock, load_block, state_key
+from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, StepBlock, capture_on, load_block,
+                                          state_key)
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, apply_constraints,
                                          constraints_of, grads_of, init_train_state,
                                          mean_over_ranks, state_in_place, train_state_tensors,
@@ -102,10 +106,10 @@ class MnistTrainer:
     """Builds the train state and runs the iteration on ``device``, or on
     the device of ``group``, the data-parallel group this rank belongs to
     (JAX's ``mesh``).  ``graphs``: capture the iteration into a CUDA graph
-    and replay it (``train/graphs.py``); by default on a CUDA device without
-    a group, as JAX always jits its step.  ``False`` runs the same body
-    eagerly there (to compare); the CPU and a group run it eagerly, and
-    asking them for graphs raises."""
+    and replay it (``train/graphs.py``); by default on a CUDA device, alone
+    or in an NCCL group, as JAX always jits its step.  ``False`` runs the
+    same body eagerly there (to compare); the CPU and a gloo group run it
+    eagerly, and asking them for graphs raises."""
 
     def __init__(self, cfg: DCGANConfig, acfg: MnistAlgoConfig, tcfg: MnistTrainConfig,
                  confusion_actual: np.ndarray, group: Optional[DataGroup] = None,
@@ -114,18 +118,14 @@ class MnistTrainer:
         self.cfg, self.acfg, self.tcfg = cfg, acfg, tcfg
         self.group = check_group(group, device)
         self.device = group.device if group is not None else resolve_device(device)
+        self.graphs = capture_on(self.device, graphs, self.group)
         self.compute_dtype = compute_dtype
         float32_policy(compute_dtype)
         self.confusion_actual = torch.as_tensor(np.asarray(confusion_actual, np.float32),
                                                 device=self.device)
         self.optimizers = optimizers(tcfg)
-        on_card = self.device.type == "cuda" and group is None
-        if graphs and not on_card:
-            raise ValueError("CUDA graphs need a CUDA device and no group; "
-                             f"got {self.device}{' with a group' if group is not None else ''}")
-        self.graphs = on_card if graphs is None else bool(graphs)
         self.block: Optional[StepBlock] = None   # the iteration's inputs and metrics
-        self.captured = CapturedStep(self._iteration, self.device, self.graphs)
+        self.captured = CapturedStep(self._iteration, self.device, self.graphs, self.group)
         self._ts: Optional[TrainState] = None    # what the iteration body runs on
         self._dataset: Optional[Mapping[str, torch.Tensor]] = None  # step_scan's
         # sample: one pass per batch size, in a graph and pool of its own

@@ -33,8 +33,7 @@ from rcgan_tpu_torch.ops.kernels import runtime
 from rcgan_tpu_torch.train import graphs
 from rcgan_tpu_torch.train.state import ScalelessAdam
 from test_torch_app_train import B, _dataset, _host_batches, _jax_state, _jax_trainer, _trainer
-from test_torch_compiled_graphs import _install, _StandIn
-from torch_parity import TINY_MNIST, perturbed_trees
+from torch_parity import TINY_MNIST, StandIn, install_stand_in, perturbed_trees
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -331,8 +330,8 @@ def test_a_pass_inside_a_programs_capture_runs_in_its_body(monkeypatch):
     body calls another owner's pass runs that pass inline at its warm-up and
     its capture (the pass makes no program of its own), records the pass's
     launches once per replay, and replays once per later row."""
-    standin = _StandIn([])
-    _install(monkeypatch, standin)
+    standin = StandIn([])
+    install_stand_in(monkeypatch, standin)
 
     def inner_body(inputs, held):
         runtime.count_launch("cond_bn")
@@ -362,7 +361,7 @@ def test_inception_score_keeps_its_program_across_calls(monkeypatch):
     first score's graph for every batch (one capture, the warm-up batch
     then replays), and a state that moved is captured again, as are more
     batches than the block holds."""
-    _install(monkeypatch, _StandIn([]))
+    install_stand_in(monkeypatch, StandIn([]))
     scorer = tinc.InceptionScore(lambda s, b: torch.zeros(b, 4), lambda x: x, batch=2,
                                  device="cpu")
     captured = scorer.program.captured

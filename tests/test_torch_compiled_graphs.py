@@ -23,7 +23,7 @@ from rcgan_tpu_torch.ops.norm import BatchNorm
 from rcgan_tpu_torch.serving import Sampler
 from rcgan_tpu_torch.train import graphs
 from rcgan_tpu_torch.train.state import ScalelessAdam, state_in_place
-from torch_parity import TINY_MNIST
+from torch_parity import TINY_MNIST, StandIn, install_stand_in
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -67,64 +67,6 @@ def test_step_block_rows_outputs_and_counter():
 
 
 # ------------------------------------------------------- stand-in capture
-class _StandIn:
-    """The ``torch.cuda`` calls of a capture, on the host: a graph replays
-    what its body "launched" during the capture (the ``device`` list), as a
-    CUDA graph replays the kernels without calling their wrappers."""
-
-    def __init__(self, device_log):
-        self.log = device_log
-        self.capturing = None  # the capture stream's handle while capturing
-
-    def graph_cls(self):
-        standin = self
-
-        class Graph:
-            def __init__(self):
-                self.recorded = []
-
-            def replay(self):
-                standin.log.extend(self.recorded)
-
-        return Graph
-
-    @contextlib.contextmanager
-    def graph(self, g, pool=None, stream=None, capture_error_mode="global"):
-        assert capture_error_mode == "thread_local" and stream is not None
-        start = len(self.log)
-        self.capturing = stream.cuda_stream
-        try:
-            yield
-        finally:
-            self.capturing = None
-            g.recorded = self.log[start:]  # what the capture "recorded" did not run
-            del self.log[start:]
-
-
-def _install(monkeypatch, standin):
-    class Stream:
-        made = 0
-
-        def __init__(self, *a, **k):
-            Stream.made += 1
-            self.cuda_stream = 0x1000 + Stream.made
-
-        def wait_stream(self, other):
-            pass
-
-    cuda = torch.cuda
-    monkeypatch.setattr(cuda, "current_stream", lambda device=None: Stream())
-    monkeypatch.setattr(cuda, "Stream", Stream)
-    monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(runtime, "_capturing_stream", lambda: standin.capturing)
-    monkeypatch.setattr(cuda, "synchronize", lambda device=None: None)
-    monkeypatch.setattr(cuda, "empty_cache", lambda: None)
-    monkeypatch.setattr(cuda, "memory_reserved", lambda device=None: 0)
-    monkeypatch.setattr(cuda, "CUDAGraph", standin.graph_cls())
-    monkeypatch.setattr(cuda, "graph", standin.graph)
-
-
 def test_a_stand_in_capture_counts_once_per_replay(monkeypatch):
     """The first call of a key is the warm-up (counted as an eager step) and
     the capture (whose wrapper calls go to the record, not to the totals,
@@ -135,8 +77,8 @@ def test_a_stand_in_capture_counts_once_per_replay(monkeypatch):
     import threading
 
     device_log = []
-    standin = _StandIn(device_log)
-    _install(monkeypatch, standin)
+    standin = StandIn(device_log)
+    install_stand_in(monkeypatch, standin)
 
     def launch(name, variant):
         runtime.count_launch(name, variant)
@@ -177,8 +119,8 @@ def test_a_capture_collects_before_it_begins(monkeypatch):
     (held by a dropped owner's reference cycle) during the capture, which
     would invalidate it; the step's stats time each part."""
     order = []
-    standin = _StandIn([])
-    _install(monkeypatch, standin)
+    standin = StandIn([])
+    install_stand_in(monkeypatch, standin)
     enter = standin.graph
 
     @contextlib.contextmanager

@@ -1,7 +1,9 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): tiny
-configurations, weight trees that both frameworks load, numpy batches, and
-the CUDA implementations of the ops routed to CPU tensors."""
+configurations, weight trees that both frameworks load, numpy batches, the
+CUDA implementations of the ops routed to CPU tensors, and a stand-in for
+the ``torch.cuda`` calls of a CUDA graph's capture."""
 
+import contextlib
 import sys
 
 import numpy as np
@@ -9,7 +11,7 @@ import torch
 
 from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
 from rcgan_tpu_torch.ops.kernels import (conv_kernel, dequant_kernel, norm_kernel,
-                                         projection_kernel, sn_kernel)
+                                         projection_kernel, runtime, sn_kernel)
 
 # narrow widths, full 32x32 images: the CIFAR layer graph at test size
 TINY = dict(dim_g=8, dim_d=16, embedding_dim=24)
@@ -220,3 +222,65 @@ def bridge_of(jts):
     opt = {g: (AdamMoments(count=s[0].count, mu=s[0].mu, nu=s[0].nu), None)
            for g, s in jts.opt_states.items()}
     return NumpyTrainState(groups=jts.groups, state=jts.state, opt_states=opt, step=jts.step)
+
+
+# ------------------------------------------------------- stand-in capture
+class StandIn:
+    """The ``torch.cuda`` calls of a capture, on the host: a graph replays
+    what its body "launched" during the capture (the ``device`` list), as a
+    CUDA graph replays the kernels without calling their wrappers
+    (:func:`install_stand_in` puts it in place of ``torch.cuda``'s)."""
+
+    def __init__(self, device_log):
+        self.log = device_log
+        self.capturing = None  # the capture stream's handle while capturing
+
+    def graph_cls(self):
+        standin = self
+
+        class Graph:
+            def __init__(self):
+                self.recorded = []
+
+            def replay(self):
+                standin.log.extend(self.recorded)
+
+        return Graph
+
+    @contextlib.contextmanager
+    def graph(self, g, pool=None, stream=None, capture_error_mode="global"):
+        assert capture_error_mode == "thread_local" and stream is not None
+        start = len(self.log)
+        self.capturing = stream.cuda_stream
+        try:
+            yield
+        finally:
+            self.capturing = None
+            g.recorded = self.log[start:]  # what the capture "recorded" did not run
+            del self.log[start:]
+
+
+def install_stand_in(monkeypatch, standin: StandIn) -> None:
+    """Until the test ends, the ``torch.cuda`` calls of a capture go to
+    ``standin``, and the stream it captures is the one being recorded."""
+    class Stream:
+        made = 0
+
+        def __init__(self, *a, **k):
+            Stream.made += 1
+            self.cuda_stream = 0x1000 + Stream.made
+
+        def wait_stream(self, other):
+            pass
+
+    cuda = torch.cuda
+    monkeypatch.setattr(cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(cuda, "Stream", Stream)
+    monkeypatch.setattr(cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(runtime, "_capturing_stream", lambda: standin.capturing)
+    monkeypatch.setattr(cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(cuda, "memory_reserved", lambda device=None: 0)
+    monkeypatch.setattr(cuda, "CUDAGraph", standin.graph_cls())
+    monkeypatch.setattr(cuda, "graph", standin.graph)
