@@ -203,10 +203,12 @@ def partition_predicates():
     }
 
 
-def lr_decay(iteration, decay: bool = True) -> torch.Tensor:
-    """Linear LR decay to 0.5 at iteration 50k, then 0.5 flat (JAX ``lr_decay``)."""
+def lr_decay(iteration, decay: bool = True) -> float:
+    """Linear LR decay to 0.5 at iteration 50k, then 0.5 flat (JAX ``lr_decay``),
+    in float32 on the host: the cycle's host part runs no tensor op."""
     if not decay:
-        return torch.ones(())
-    it = torch.as_tensor(iteration, dtype=torch.float32)
-    return torch.where(it < 50000.0, torch.clamp(1.0 - it / 100000.0, min=0.0),
-                       torch.full_like(it, 0.5))
+        return 1.0
+    it = np.float32(iteration)
+    if it < np.float32(50000.0):
+        return float(max(np.float32(1.0) - it / np.float32(100000.0), np.float32(0.0)))
+    return 0.5

@@ -275,7 +275,7 @@ class _MeshCycle:
             if tr._g_step:
                 self.captured((id(ts), id(self.mesh), _addresses(ts, tr)), held=ts)
             else:  # the reference skips the G step at iteration 0
-                self._body()
+                self.captured.eager()
         finally:
             tr._ts = None
         ts.step += 1

@@ -46,6 +46,19 @@ GSPMD (JAX's ``gspmd_cycle``: the single-program cycle partitioned over a
 while its step runs, and the noise of the global batch is then drawn by
 each rank for its rows of the mesh's data axis, by global row, and sharded
 there.
+
+Spans (:mod:`rcgan_tpu_torch.utils.profiling`, in the cycle's
+``captured.spans``): the host part of :meth:`CifarTrainer.step_scan` and
+:meth:`CifarTrainer.step` is timed as ``rows`` (the cycles' rows), ``key``
+(the state's addresses), ``load`` (the block's copy), ``launch`` (the
+cycles run or replayed) and ``read`` (the metrics); the cycle marks its
+device phases: ``d.input`` (the rows read, the index gather, each critic
+step's dequantisation and ``z``), ``g.input`` (``zg``), ``g.forward`` and
+``d.forward`` (up to the gradients), ``g.backward`` and ``d.backward``
+(autograd), ``g.update`` and ``d.update`` (the mean over the ranks, Adam,
+and after the last critic step the state copies and the metrics), then
+``between`` until the next cycle.  rcgan-u's confusion step is inside the
+G step's spans.
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, Program, StepBlo
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
                                          init_train_state, mean_over_ranks, state_in_place,
                                          train_state_tensors, trainable)
+from rcgan_tpu_torch.utils.profiling import mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,32 +265,41 @@ class CifarTrainer:
         """The cycles of ``rows`` (each at its iteration), in place on
         ``ts``: the cycle at iteration 0 eagerly (no G step), every other one
         through :attr:`captured`.  Returns the metrics ``[K]``."""
-        self.block = load_block(self.block, rows, self._DTYPES, self.device,
-                                {k: (torch.float32, ()) for k in self.METRICS}, self.captured)
+        spans, k = self.captured.spans, len(rows)
+        with spans.host("load", k):
+            self.block = load_block(self.block, rows, self._DTYPES, self.device,
+                                    {m: (torch.float32, ()) for m in self.METRICS},
+                                    self.captured)
         self._ts = ts
         # the addresses the graph reads: a new state or dataset captures
         # again (a new block did in load_block)
-        key = (id(ts), state_key(train_state_tensors(ts) + list(
-            (self.device_dataset or {}).values())))
+        with spans.host("key", k):
+            key = (id(ts), state_key(train_state_tensors(ts) + list(
+                (self.device_dataset or {}).values())))
         try:
-            for it in iterations:
-                self._g_step = it > 0
-                if self._g_step:
-                    self.captured(key, held=ts)
-                else:
-                    self._cycle()
-                ts.step += 1
+            with spans.host("launch", k):
+                for it in iterations:
+                    self._g_step = it > 0
+                    if self._g_step:
+                        self.captured(key, held=ts)
+                    else:
+                        self.captured.eager()
+                    ts.step += 1
         finally:
             self._ts = None
-        return self.block.read(len(rows))
+        with spans.host("read", k):
+            return self.block.read(k)
 
     # ------------------------------------------------------------- steps
     def _g_step_update(self, ts: TrainState, g_random, g_biased, zg, adam) -> torch.Tensor:
         names = [g for g in ("gen", "confusion") if g in ts.groups]
         params = [p for g in names for p in ts.group_params(g)]
+        mark("g.forward")
         with trainable(ts, names):
             out = ts.gan.gen_loss(g_random, g_biased, zg, self.confusion_actual)
+            mark("g.backward")
             grads = grads_of(out["gen_cost"], params)
+        mark("g.update")
         mean_over_ranks(self.group, grads, ts)
         n = 0
         for g in names:
@@ -292,9 +315,12 @@ class CifarTrainer:
               "labels_random": batch["labels_random"], "labels_biased": batch["labels_biased"],
               "labels_inv_weights": batch["labels_inv_weights"]}
         params = ts.group_params("disc")
+        mark("d.forward")
         with trainable(ts, ["disc"]):
             out = ts.gan.disc_loss(sb, z, self.confusion_actual)
+            mark("d.backward")
             grads = grads_of(out["disc_cost"], params)
+        mark("d.update")
         mean_over_ranks(self.group, grads, ts)
         self.optimizers["disc"].apply_(params, grads, ts.opt_states["disc"], scalars)
         return out["disc_cost"].detach()
@@ -304,13 +330,15 @@ class CifarTrainer:
         ``counter``; it reads only device tensors, so that one body runs
         eagerly and in a CUDA graph: the G step (unless this is iteration
         0), then the ``n_critic`` D steps, the state kept at its addresses
-        (:func:`state_in_place`); the metrics go to the block's row."""
+        (:func:`state_in_place`); the metrics go to the block's row; the
+        phases are marked as device spans (module doc)."""
         self._cycle_on(self.block)
 
     def _cycle_on(self, blk) -> None:
         """:meth:`_cycle` on the row ``counter`` of ``blk``, a
         :class:`StepBlock` or a GSPMD step's row of DTensors."""
         ts, cfg, tcfg = self._ts, self.cfg, self.tcfg
+        mark("d.input")
         f = {k: blk.row(k) for k in blk.fields}
         if "index" in f:
             batches = self._batch_to_device({k: v[f["index"]]
@@ -323,12 +351,14 @@ class CifarTrainer:
         adam, z_base = f["adam"], f["z_base"]
         with state_in_place(ts.gan):
             if self._g_step:
+                mark("g.input")
                 zg = f["zg"] if noise else self._normal_rows(z_base[0], gb)
                 g_cost = self._g_step_update(ts, f["g_labels"][0], f["g_labels"][1], zg, adam)
             else:  # the reference skips the G step at iteration 0
                 g_cost = torch.zeros((), device=self.device)
             d_costs = []
             for k in range(tcfg.n_critic):
+                mark("d.input")
                 batch = {key: v[k] for key, v in batches.items()}
                 if noise:
                     real = dequantize_chw_to_hwc(batch["images"], f["u"][k], cfg.img_size,
@@ -346,6 +376,7 @@ class CifarTrainer:
         for name, value in zip(self.METRICS, (*costs, adam[2, 0])):
             blk.write(name, value)
         blk.advance()
+        mark("between")
 
     def _normal_rows(self, base: torch.Tensor, n: int) -> torch.Tensor:
         """``[n, z_dim]`` normals of a global batch of ``n`` rows keyed by
@@ -376,7 +407,8 @@ class CifarTrainer:
         ``g_cost``, ``lr``.  With a group, the batches, labels and ``noise``
         are the global ones (every rank is given the same), the rank runs on
         its rows, and the costs are meaned over the ranks."""
-        row = self._cycle_row(ts, d_batches, g_labels, iteration, seed, noise)
+        with self.captured.spans.host("rows"):
+            row = self._cycle_row(ts, d_batches, g_labels, iteration, seed, noise)
         ms = self._run(ts, [row], [iteration])
         return ts, {k: v[0] for k, v in ms.items()}
 
@@ -399,11 +431,13 @@ class CifarTrainer:
             raise ValueError("step_scan needs the trainer's device_dataset")
         idx, g_random, g_biased = (self._host(x) for x in (idx, g_random, g_biased))
         first = ts.step
-        rows = [self._cycle_row(ts, {"index": idx[j]},
-                                {"random": g_random[j], "biased": g_biased[j]},
-                                first + j, rng.fold_in(seed, first + j),
-                                None if noise is None else {k: v[j] for k, v in noise.items()})
-                for j in range(len(idx))]
+        with self.captured.spans.host("rows", len(idx)):
+            rows = [self._cycle_row(ts, {"index": idx[j]},
+                                    {"random": g_random[j], "biased": g_biased[j]},
+                                    first + j, rng.fold_in(seed, first + j),
+                                    None if noise is None else
+                                    {k: v[j] for k, v in noise.items()})
+                    for j in range(len(idx))]
         return ts, self._run(ts, rows, range(first, first + len(idx)))
 
     def eval_disc_cost(self, ts: TrainState, batch: Mapping, seed: int,

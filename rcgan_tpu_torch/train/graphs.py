@@ -56,6 +56,12 @@ nothing.  The capture runs inside
 replay adds that record once, so that the counts read after N replays as
 after N eager steps.  A group's ``bytes_reduced`` is recorded and added
 the same way (``DataGroup.recorded_bytes``).
+
+Spans: each :class:`CapturedStep` owns a
+:class:`~rcgan_tpu_torch.utils.profiling.Spans` (``spans``), whose totals
+its ``stats()`` returns: a body's device marks go there, eagerly and in its
+graph, and :class:`Program` times the host part of its calls (``load``,
+``launch``, ``read``).
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ import numpy as np
 import torch
 
 from rcgan_tpu_torch.ops.kernels import runtime
+from rcgan_tpu_torch.utils.profiling import Spans
 
 Field = Tuple[torch.dtype, Tuple[int, ...]]  # dtype and the shape of one row
 _ALIGN = 16  # bytes: every field of a row, and every row, starts on it
@@ -252,7 +259,8 @@ class CapturedStep:
     in a private memory pool of its own, freed with it: one graph, and one
     pool, at a time.  ``group``: the data-parallel group whose collectives
     the body runs; its ``bytes_reduced`` is recorded at the capture and
-    added once per replay."""
+    added once per replay.  ``spans``: the program's host and device spans
+    (module doc); the device totals start again at each capture."""
 
     def __init__(self, body: Callable[[], Any], device, capture: bool, group=None):
         self.body = body
@@ -274,16 +282,18 @@ class CapturedStep:
         # it, and of the capture
         self.warm_up_s = self.gc_s = self.empty_cache_s = self.capture_s = 0.0
         self.pool_bytes = 0      # device memory the last capture reserved
+        self.spans = Spans(self.device)
 
     def stats(self) -> Dict[str, float]:
         """``captures``, ``replays``, the host seconds of the last warm-up,
         collection, cache emptying and capture (``warm_up_s``, ``gc_s``,
-        ``empty_cache_s``, ``capture_s``) and the device memory the capture
-        reserved (``pool_bytes``)."""
+        ``empty_cache_s``, ``capture_s``), the device memory the capture
+        reserved (``pool_bytes``) and the totals of :attr:`spans`
+        (:meth:`~rcgan_tpu_torch.utils.profiling.Spans.stats`)."""
         return {"captures": self.captures, "replays": self.replays,
                 "warm_up_s": self.warm_up_s, "gc_s": self.gc_s,
                 "empty_cache_s": self.empty_cache_s, "capture_s": self.capture_s,
-                "pool_bytes": self.pool_bytes}
+                "pool_bytes": self.pool_bytes, **self.spans.stats()}
 
     def reset(self) -> None:
         """Free the graph and what it holds (the pool's memory returns to
@@ -294,7 +304,7 @@ class CapturedStep:
         """One step; returns the body's result (for a replay, the tensors the
         capture returned, which the next replay overwrites)."""
         if not self.capture:
-            return self.body()
+            return self.eager()
         if self._graph is None or key != self._key:
             return self._warm_up_and_capture(key, held)
         self._graph.replay()
@@ -302,7 +312,16 @@ class CapturedStep:
         if self.group is not None:
             self.group.bytes_reduced += self.bytes_reduced
         self.replays += 1
+        self.spans.steps += 1
         return self._static
+
+    def eager(self) -> Any:
+        """The body once, eagerly, outside any graph (a step that no graph
+        holds, such as a cycle with no G step), its marks in :attr:`spans`."""
+        with self.spans.active():
+            out = self.body()
+        self.spans.steps += 1
+        return out
 
     def _warm_up_and_capture(self, key: Hashable, held: Any) -> Any:
         self.reset()
@@ -310,7 +329,7 @@ class CapturedStep:
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side), _in_program():
+        with torch.cuda.stream(side), _in_program(), self.spans.active():
             out = self.body()  # the step itself, eagerly
         stream.wait_stream(side)
         torch.cuda.synchronize(self.device)
@@ -336,11 +355,12 @@ class CapturedStep:
         # thread_local: other threads (autograd's backward, NCCL's proxy)
         # make CUDA calls while the capture runs
         with runtime.recorded_launches(capture.cuda_stream) as rec, reduced as nbytes, \
-                torch.cuda.device(self.device), _in_program(), \
+                torch.cuda.device(self.device), _in_program(), self.spans.active(), \
                 torch.cuda.graph(graph, stream=capture, capture_error_mode="thread_local"):
             static = self.body()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t
+        self.spans.reset()  # the device totals cover this graph's replays
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self._graph, self._static, self._key, self._held = graph, static, key, held
         self.launches, self.bytes_reduced = rec, nbytes[0]
@@ -354,7 +374,10 @@ class Program:
     by a :class:`CapturedStep` of its own: eagerly, or captured at the first
     row of a new key and replayed for the rest (JAX's ``lax.scan`` of one
     jitted body).  The body reads row ``counter`` of the fields, writes its
-    outputs there and advances the counter."""
+    outputs there and advances the counter.  The host spans ``load`` (the
+    rows into the block) and ``launch`` (the steps run or replayed) of each
+    :meth:`run`, and ``read`` of each :meth:`read`, go to the step's
+    ``spans``."""
 
     def __init__(self, body: Callable[[StepBlock], Any], dtypes: Mapping[str, torch.dtype],
                  device, capture: bool, outputs: Optional[Mapping[str, Field]] = None):
@@ -369,15 +392,19 @@ class Program:
         """``rows`` (one dict a step, as :func:`load_block` takes them) into
         the block, then the body once a row; returns the last call's
         result."""
-        self.block = load_block(self.block, rows, self.dtypes, self.device, self.outputs,
-                                self.captured)
+        spans, k = self.captured.spans, len(rows)
+        with spans.host("load", k):
+            self.block = load_block(self.block, rows, self.dtypes, self.device, self.outputs,
+                                    self.captured)
         out = None
-        for _ in range(len(rows)):
-            out = self.captured(key, held)
+        with spans.host("launch", k):
+            for _ in range(k):
+                out = self.captured(key, held)
         return out
 
     def read(self, k: int) -> Dict[str, torch.Tensor]:
-        return self.block.read(k)
+        with self.captured.spans.host("read", k):
+            return self.block.read(k)
 
 
 class Passes:

@@ -37,6 +37,16 @@ there.  The state (parameters, moments, SN ``u``, the critic's BN
 statistics) keeps its addresses (``train/state.py::state_in_place``).
 ``sample`` is captured per ``(stage, batch)`` (:class:`~rcgan_tpu_torch.
 train.graphs.Passes`).
+
+Spans (:mod:`rcgan_tpu_torch.utils.profiling`, in the program's
+``captured.spans``): :meth:`PGGANTrainer.step`'s host part is timed as
+``rows`` (:meth:`PGGANTrainer._iteration_row`), ``key`` (the state's
+addresses), ``load``, ``launch`` and ``read`` (the program's); the
+iteration marks its device phases: ``d.input`` (the row read,
+``pool_to_stage``, ``z``), ``d.forward`` (G's fakes and D on both),
+``d.backward``, ``d.update`` (Adam), ``g.forward``, ``g.backward``,
+``g.update`` (Adam, the state copies and the costs), then ``between``
+until the next iteration.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on, state_key
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of, init_train_state,
                                          state_in_place, train_state_tensors, trainable)
+from rcgan_tpu_torch.utils.profiling import mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,10 +158,12 @@ class PGGANTrainer:
         ``counter``; it reads only device tensors, so that one body runs
         eagerly and in a CUDA graph: ``pool_to_stage``, the D step, the G
         step, the state kept at its addresses (:func:`state_in_place`); the
-        costs go to the block's row."""
+        costs go to the block's row; the phases are marked as device spans
+        (module doc)."""
         ts, cfg, tcfg = self._ts, self.cfg, self.tcfg
         stage, trans = self._phase
         gan = ts.gan
+        mark("d.input")
         f = {k: blk.row(k) for k in blk.fields}
         x = pool_to_stage(f["x"], cfg, stage).to(self.compute_dtype)
         labels = f["labels"]
@@ -159,24 +172,31 @@ class PGGANTrainer:
         alpha, adam = f["alpha"], f["adam"]
         with state_in_place(gan):
             params = ts.group_params("disc")
+            mark("d.forward")
             with trainable(ts, ["disc"]):
                 fake = gan.G(z, labels, stage, trans, alpha)
                 _, d_fake = gan.D(fake, stage, trans, alpha, d_labels)
                 _, d_real = gan.D(x, stage, trans, alpha, d_labels)
                 _, d_cost = get_loss(d_real, d_fake, tcfg.loss_type)
+                mark("d.backward")
                 grads = grads_of(d_cost, params)
+            mark("d.update")
             self.optimizers["disc"].apply_(params, grads, ts.opt_states["disc"], adam[0])
 
             params = ts.group_params("gen")
+            mark("g.forward")
             with trainable(ts, ["gen"]), sn_updates(gan.D, False):
                 fake = gan.G(z, labels, stage, trans, alpha)
                 _, d_fake = gan.D(fake, stage, trans, alpha, d_labels)
                 g_cost, _ = get_loss(torch.zeros_like(d_fake), d_fake, tcfg.loss_type)
+                mark("g.backward")
                 grads = grads_of(g_cost, params)
+            mark("g.update")
             self.optimizers["gen"].apply_(params, grads, ts.opt_states["gen"], adam[1])
         blk.write("d_cost", d_cost.detach())
         blk.write("g_cost", g_cost.detach())
         blk.advance()
+        mark("between")
 
     def step(self, ts: TrainState, images: Mapping, seed: int, alpha: float, stage: int,
              trans: bool, z=None):
@@ -187,9 +207,12 @@ class PGGANTrainer:
         device); ``z`` is drawn from ``fold_in(seed, 0)`` unless given.  On
         a card the first iteration of a phase is the warm-up before the
         capture, and every later one replays."""
-        row = self._iteration_row(ts, images, seed, alpha, z)
+        spans = self.program.captured.spans
+        with spans.host("rows"):
+            row = self._iteration_row(ts, images, seed, alpha, z)
         # the phase's layers, its sn group, and the addresses of the state
-        key = (stage, trans, id(ts), state_key(train_state_tensors(ts)))
+        with spans.host("key"):
+            key = (stage, trans, id(ts), state_key(train_state_tensors(ts)))
         self._ts, self._phase = ts, (stage, trans)
         try:
             self.program.run([row], key, held=ts)

@@ -6,7 +6,7 @@ and ``instance_norm`` (and the discriminator with ``normalization_d``),
 (with spectral norm, stride 2 and VALID padding), ``conv1d_lib`` with its
 causal mask, ``linear_lib(weightnorm=True)``, ``embed_y``'s frozen table,
 spectral norm with ``num_iters > 1`` and ``exact_sigma``; and the
-profiling hooks ``StepTimer`` and ``annotate``."""
+profiling hook ``annotate``."""
 
 import numpy as np
 import pytest
@@ -22,7 +22,6 @@ from rcgan_tpu.ops import norm as jnorm
 from rcgan_tpu.ops import sn as jsn
 from rcgan_tpu.ops.linear import embed_y as jax_embed_y
 from rcgan_tpu.ops.linear import linear_lib as jax_linear_lib
-from rcgan_tpu.utils import profiling as jprof
 from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
 from rcgan_tpu_torch.core.module import param_tree, state_tree
 from rcgan_tpu_torch.models import resnet_gan as trg
@@ -308,23 +307,15 @@ def test_a_prepared_step_does_not_serve_more_iterations():
 
 
 # --------------------------------------------------------------- profiling
-def test_step_timer_reads_as_jax_and_annotate_names_a_region(monkeypatch):
-    """Both meters on the same clock readings give the same steps/s over
-    the same window; ``annotate`` puts its name into the profiler's
-    events."""
-    ticks = iter(np.cumsum(np.random.RandomState(0).uniform(0.01, 0.2, 40)))
-    clock = list(ticks)
-    mine, theirs = tprof.StepTimer(window=10), jprof.StepTimer(window=10)
-    assert mine.steps_per_sec == theirs.steps_per_sec == 0.0
-    for t in clock:
-        monkeypatch.setattr(tprof.time, "perf_counter", lambda t=t: t)
-        monkeypatch.setattr(jprof.time, "perf_counter", lambda t=t: t)
-        mine.tick()
-        theirs.tick()
-        assert mine.steps_per_sec == pytest.approx(theirs.steps_per_sec, rel=1e-12)
-    assert len(mine._times) == 10
-    monkeypatch.undo()
+def test_annotate_names_a_region_under_a_profiler_and_nothing_without(monkeypatch):
+    """Under the profiler ``annotate`` puts its name into the profiler's
+    events; with no profiler running it enters no ``record_function``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with tprof.annotate("rcgan.region"):
             torch.ones(4).sum()
     assert "rcgan.region" in {e.key for e in prof.key_averages()}
+    entered = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: entered.append(name))
+    with tprof.annotate("rcgan.region"):
+        torch.ones(4).sum()
+    assert entered == []
