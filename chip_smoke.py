@@ -33,8 +33,14 @@ and the CIFAR app's Inception-v3 scorer:
    holds; spectral norm as the path groups it (the 15 weights of a D pass
    in one launch, the projection embedding and the perm classifier alone)
    and on a group of ragged shapes, each also for the same bits on a second
-   run; the all-label projection at batch 64 and 128 for the path's dtypes (all
-   float32, all bfloat16) and one mix;
+   run; its VJP (``sn_group_kernel_vjp``, a group a launch) against
+   ``sn_vjp_plain`` at those groups, PGGAN's stage-3 and stage-4-transition
+   critics, MNIST's two groups and one at the widest cout, with the
+   cotangent of W/sigma alone and with all three, likewise for the same
+   bits, and timed in CUDA graphs against ``sn_vjp_plain`` and autograd's
+   VJP of ``sn_plain`` at the path's groups; the all-label projection at
+   batch 64 and 128 for the path's dtypes (all float32, all bfloat16) and
+   one mix;
 4. the serving slice: a seeded generator (or ``--checkpoint_dir``'s
    ``generator.npz``) behind ``Sampler`` and ``make_server``, concurrent
    ``/sample`` requests plus ``/healthz``, ``/models`` and ``/metrics``,
@@ -103,15 +109,18 @@ and the CIFAR app's Inception-v3 scorer:
    final state must equal the uninterrupted run's bit for bit; the app's
    own timings (cycles/s, each eval, checkpoint save and restore);
 9. the MNIST slice (the projection D with spectral norm and max-norm,
-   rcgan-u with the perm classifier; the sn kernel is its only kernel):
+   rcgan-u with the perm classifier; sn and its VJP are its only kernels):
    ``example_uniform`` on the card; sn against its plain version at
    MNIST's groups (a D pass's four convs, and ``concat_y``'s), the same
    bits twice, timed in CUDA graphs and issued alone beside the bound; two
    float32 ``MnistTrainer`` iterations on the card against the CPU from the
    same state over five data seeds, under deterministic algorithms, their
-   spread printed and held to ``MNIST_SPREAD``; full width, bf16, batch 100,
-   ``step_scan`` on the 70 000 synthetic digits resident on the card, 4 sn
-   launches and nothing else asserted per iteration, iterations/s and a
+   spread printed and held to 3x the spread that ``python3 -m
+   rcgan_tpu_torch.diagnostics.sum_order --check mnist`` printed over nine
+   arithmetics of the float32 kernels, ``MNIST_SPREAD``; full width, bf16,
+   batch 100, ``step_scan`` on the 70 000 synthetic digits resident on the
+   card, 4 sn and 2 sn VJP launches and nothing else asserted per
+   iteration, iterations/s and a
    profiler breakdown; ``mnist_app.main`` with the rcgan-u recipe's flags
    cut to 100 iterations, its run dir, every iteration's launches, then the
    run restored without ``--train`` to the same bits and the same recovery;
@@ -126,10 +135,12 @@ and the CIFAR app's Inception-v3 scorer:
    beside their bounds; one iteration of each of the three phases of
    ``max_stage`` 2 at full width, float32, card against CPU from the same
    state over five data seeds under deterministic algorithms, the spread
-   printed and held to ``PG_SPREAD``; full width, bf16, batch 64,
+   printed and held to 3x the spread that ``sum_order --check pggan``
+   printed over fourteen arithmetics, ``PG_SPREAD``; full width, bf16, batch 64,
    ``max_stage`` 4, iterations in each of the 7 phases on 2 048 images
    resident on the card, each iteration's launches asserted exactly
-   (``pggan_counts``: 18 conv3x3 on wgmma and 4 cond-BN per stage, 3 sn),
+   (``pggan_counts``: 18 conv3x3 on wgmma and 4 cond-BN per stage, 3 sn,
+   2 sn VJP),
    ms per stage-4 iteration (stab and trans) and a profiler breakdown;
    ``train_progressive`` at full width, ``max_stage`` 2, crashed in phase 3
    by its data and resumed from the phase checkpoint to the uninterrupted
@@ -386,6 +397,12 @@ SLICE_ATOL = 1e-3
 # ~sqrt(m) * 2^-24 ~ 3e-6 relative; W/sigma and u' within 1e-5 of their
 # scale, sigma within 1e-5 relative.
 SN_TOL = 1e-5
+# The sn VJP (kernel against sn_vjp_plain), float32: dW's terms are sums of
+# up to 3072 products in another order, ~sqrt(m) * 2^-24 ~ 3e-6 of their
+# size; each side lies 0.5-2e-7 of it from a float64 VJP on the CPU.  dW
+# itself may cancel (a [1, 1] weight's is zero), so the scale is the larger
+# of max |dW| and max |Gbar| / sigma; 1e-5 of it.
+SN_VJP_TOL = 1e-5
 # Projection: float32 dots of 128 terms on float32 (or exactly widened
 # bfloat16) inputs, float32 out: 1e-5 of the output's scale.
 PROJ_TOL = 1e-5
@@ -497,6 +514,8 @@ KERNEL_INFO = {
                 "replaces": "rcgan_tpu/ops/pallas/conv_kernel.py:101"},
     "sn": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/sn.cu",
            "replaces": "rcgan_tpu/ops/pallas/sn_kernel.py:73"},
+    "sn_bwd": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/sn.cu",
+               "replaces": "rcgan_tpu/ops/pallas/sn_kernel.py:99 (sn_fused's _bwd)"},
     "projection": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/projection.cu",
                    "replaces": "rcgan_tpu/ops/pallas/projection_kernel.py:32"},
     "dequant": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/dequant.cu",
@@ -1016,6 +1035,85 @@ def sn_group_times(torch, pairs) -> dict:
     return out
 
 
+def check_sn_vjp(torch, pairs, tag: str, max_err: dict, gen) -> float:
+    """The sn VJP kernel on ``pairs`` (``[(w [M, O], u [1, O])]``, float32)
+    in one launch against ``sn_vjp_plain`` per weight on the card, with the
+    cotangent of W/sigma alone and with those of u' and sigma too (random,
+    from ``gen``): within SN_VJP_TOL of each dW's terms, and the same bits
+    on a second run (no atomics).  Returns the largest abs error, also kept
+    in ``max_err``."""
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.sn_kernel import (MAX_WEIGHTS, _launch_vjp, sn_plain,
+                                                       sn_vjp_plain)
+
+    dev = pairs[0][0].device
+    worst, ok, err_abs = 0.0, True, 0.0
+    for full in (False, True):
+        items = [(w, u, torch.randn(w.shape, generator=gen).to(dev),
+                  torch.randn(u.shape, generator=gen).to(dev) if full else None,
+                  torch.randn((), generator=gen).to(dev) if full else None) for w, u in pairs]
+        before = runtime.launch_counts()["sn_bwd"]
+        got = _launch_vjp(items)
+        launched = runtime.launch_counts()["sn_bwd"] - before
+        again = _launch_vjp(items)
+        torch.cuda.synchronize()
+        ok = ok and launched == -(-len(items) // MAX_WEIGHTS)
+        for item, g, a in zip(items, got, again):
+            r = sn_vjp_plain(*item)
+            scale = max(r.abs().max().item(),
+                        item[2].abs().max().item() / abs(sn_plain(*item[:2])[2].item()))
+            err = (g - r).abs().max().item()
+            ok = ok and bool(torch.isfinite(g).all()) and err <= SN_VJP_TOL * scale \
+                and torch.equal(g, a) and g.shape == r.shape
+            worst, err_abs = max(worst, err / scale), max(err_abs, err)
+    max_err["sn_bwd"] = max(max_err["sn_bwd"], err_abs)
+    shapes = [tuple(w.shape) for w, _ in pairs]
+    check(ok, f"sn VJP group of {len(shapes)} ({tag}: {sorted(set(shapes))}) float32, "
+              f"{launched} launch, cotangents of W/sigma alone and of all three, the same bits on "
+              f"two runs: max err of the terms' scale {worst:.3e} (limit {SN_VJP_TOL})")
+    return err_abs
+
+
+def sn_vjp_times(torch, pairs, gen) -> dict:
+    """The sn VJP kernel on ``pairs`` (cotangent of W/sigma alone, as the
+    training path has it) in one launch against ``sn_vjp_plain`` per weight,
+    each timed two ways (``paired_ms``), and autograd's VJP of ``sn_plain``
+    per weight in CUDA graphs; beside the bound (13 operations a weight
+    entry: three GEMVs, sum(Gbar * W) and dW's three terms; W and Gbar read
+    once, dW written once)."""
+    from rcgan_tpu_torch.ops.kernels.sn_kernel import _launch_vjp, sn_plain, sn_vjp_plain
+
+    dev = pairs[0][0].device
+    items = [(w, u, torch.randn(w.shape, generator=gen).to(dev), None, None) for w, u in pairs]
+
+    def kernel():
+        return _launch_vjp(items)
+
+    def plain():
+        return [sn_vjp_plain(*item) for item in items]
+
+    def autograd():
+        out = []
+        for w, u, gbar, _, _ in items:
+            x = w.detach().requires_grad_(True)
+            out.append(torch.autograd.grad(sn_plain(x, u)[0], (x,), gbar)[0])
+        return out
+
+    out = {}
+    for key, timer in (("ms", graph_ms), ("alone_ms", event_ms)):
+        out[key], out[f"plain_{key}"] = paired_ms(torch, timer, kernel, plain)
+    out["autograd_ms"] = graph_ms(torch, autograd)
+    shapes = [tuple(w.shape) for w, _ in pairs]
+    out["bound_ms"], out["bound_by"] = bound(
+        sum(13 * m * co for m, co in shapes),
+        sum(4 * (3 * m * co + co) for m, co in shapes), PEAK_F32)
+    print(f"  sn VJP, {len(shapes)} weights in one launch: {out['ms']:.4f} ms in CUDA graphs, "
+          f"{out['alone_ms']:.4f} ms issued alone; sn_vjp_plain {out['plain_ms']:.4f} ms, "
+          f"autograd's VJP of sn_plain {out['autograd_ms']:.4f} ms in graphs; bound "
+          f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']})", flush=True)
+    return out
+
+
 def state_differences(torch, ts_a, ts_b):
     """``(compared, differ, same)`` of two train states on one device: the
     number of tensors compared (every group's parameters, the state, Adam's
@@ -1114,7 +1212,7 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
             totals[k] += v
         for k, v in variants.items():
             var_totals[k] += v
-        want = dict(PATH_COUNTS[name], dequant=0)
+        want = dict(PATH_COUNTS[name], sn_bwd=0, dequant=0)  # forwards: no VJP
         check(counts == want and variants == PATH_VARIANTS[name],
               f"{name}: launches {counts}, conv3x3 by variant {variants} "
               f"(want {want}, {PATH_VARIANTS[name]})")
@@ -1301,12 +1399,13 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
     frozen (no backward), then D on real and fake data: one pass on the
     concatenated batch, or two for rcgan-u (real alone, then fake against
     every label through the projection kernel), each taking input grads in
-    all its convs but the first, whose input is data.  conv3x3 counts the
-    hand-written kernels' launches only: the ragged convs
+    all its convs but the first, whose input is data; each of its SN
+    launches has one VJP launch (``sn_bwd``) in the backward.  conv3x3
+    counts the hand-written kernels' launches only: the ragged convs
     (:func:`ragged_convs`) go to cuDNN."""
     g_conv, g_bn, d_conv, d_sn = 7, 7, 12, 1
     u = algorithm == "rcgan-u"
-    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "projection": 0, "dequant": 0}
+    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0}
     if g_step:
         counts["conv3x3"] += 2 * (g_conv + d_conv)
         counts["cond_bn"] += g_bn
@@ -1314,7 +1413,8 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
         counts["projection"] += u
     passes = 2 if u else 1
     per_d_step = {"conv3x3": g_conv + passes * (2 * d_conv - 1), "cond_bn": g_bn,
-                  "sn": passes * (d_sn + 1) + perm, "projection": int(u), "dequant": 1}
+                  "sn": passes * (d_sn + 1) + perm, "sn_bwd": passes * (d_sn + 1) + perm,
+                  "projection": int(u), "dequant": 1}
     for k, v in per_d_step.items():
         counts[k] += n_critic * v
     counts["conv3x3"] -= ragged_convs(algorithm, n_critic, g_step)
@@ -1379,15 +1479,33 @@ def check_train_feeds(seed: int, data_seed: int) -> list:
     return feeds
 
 
+def spread_limits(spread: dict, margin: float, one_param: dict) -> dict:
+    """``{reading: (median limit, max limit)}`` from ``spread`` (``{reading:
+    (median, max)}`` of a calibration): ``margin`` times each, or, where it
+    was 0, ``margin`` times the smallest nonzero value the reading can take
+    (one parameter of the group for ``far``, from ``one_param``)."""
+    return {k: tuple(margin * max(v, one_param.get(k, 0.0)) for v in sp)
+            for k, sp in spread.items()}
+
+
+def over_limits(readings: dict, limits: dict) -> list:
+    """The readings (``{reading: [(value, seed, where)]}`` over the data
+    seeds) whose median or max over the seeds exceeds its limit, or that
+    have none: empty where the check passes."""
+    return sorted(k for k, vs in readings.items()
+                  if k not in limits or statistics.median(v for v, _, _ in vs) > limits[k][0]
+                  or max(v for v, _, _ in vs) > limits[k][1])
+
+
 def check_spread(readings: dict, limits: dict, margin: float, what: str) -> None:
     """Readings of ``train_readings`` over the data seeds (``{reading:
     [(value, seed, where)]}``): the median and the max of each held to
     ``limits`` (``{reading: (median limit, max limit)}``), and every reading
-    must have one; then the spread printed (min / median / max)."""
+    must have one (:func:`over_limits`); then the spread printed (min /
+    median / max)."""
     worst = {k: max(vs) for k, vs in readings.items()}
     med = {k: statistics.median(v for v, _, _ in vs) for k, vs in readings.items()}
-    check(bool(limits) and set(readings) <= set(limits) and all(
-        med[k] <= limits[k][0] and v <= limits[k][1] for k, (v, _, _) in worst.items()),
+    check(bool(limits) and not over_limits(readings, limits),
           f"{what}: " + ", ".join(f"{k} median {med[k]:.3g} max {v:.3g} (seed {s}"
                                   f"{', at ' + w if w else ''}; limits {limits[k][0]:.3g}, "
                                   f"{limits[k][1]:.3g})"
@@ -1690,7 +1808,8 @@ def training_slice(torch, dev, seed: int, card: str, max_err: dict):
         groups = {"conv3x3 (forward + input grad)": "conv3x3",
                   "weight grads (cuDNN kernels named *wgrad*)": "wgrad",
                   "Adam (foreach)": "multi_tensor_apply",
-                  "sn (one launch per D pass and per lone layer)": "sn_group_kernel",
+                  "sn and its VJP (a launch per D pass and lone layer, each)": "sn_group_kernel",
+                  "of it the VJP (a launch per critic step's group)": "sn_group_kernel_vjp",
                   "cond-BN forward (ReLU fused)": "cond_bn_kernel"}
         for label, key in groups.items():
             hit = [r for r in rows if key in r[2]]
@@ -1951,10 +2070,13 @@ def app_slice(torch, seed: int, card: str) -> dict:
 # spectral norm and max-norm, alpha 0.3, hinge, bf16, rcgan-u (a learned C
 # and the perm classifier).  The sn kernel is the path's only kernel: one
 # group of D's four convs per D pass, four passes an iteration (the D
-# step's real and fake passes, one fake pass per G step).
+# step's real and fake passes, one fake pass per G step); the D step's two
+# take the VJP kernel in its backward (``sn_bwd``), the G steps' none (D is
+# frozen there).
 MNIST_SN_GROUPS = {"a projection D pass": [(25, 64)] + [(1600, 64)] * 3,
                    "concat_y at layer 1": [(275, 64)] + [(1600, 64)] * 3}
-MNIST_PATH_COUNTS = {"sn": 4, "cond_bn": 0, "conv3x3": 0, "projection": 0, "dequant": 0}
+MNIST_PATH_COUNTS = {"sn": 4, "sn_bwd": 2, "cond_bn": 0, "conv3x3": 0, "projection": 0,
+                     "dequant": 0}
 MNIST_RECIPE = ["--algorithm", "rcgan", "--alpha", "0.3", "--disc_type", "projection",
                 "--estimate_confuse", "--aux_classifier", "--noadd_noise", "--noconcat_y",
                 "--spectral_norm", "--max_norm"]
@@ -1970,36 +2092,46 @@ MNIST_TIMED = {"batch": 100, "block": 50, "blocks": 4}
 # each from the card's state copied to the CPU bit for bit, with the same
 # batch and z, at batch 16, over the data seeds ``seed + MNIST_CHECK["data_seeds"]``
 # (every one checked; none chosen).  ``train_readings`` says what each
-# reading is; ``stats`` reads the BN moving statistics.  MNIST_SPREAD is the
-# spread that a calibration run printed (median, max over the five data
-# seeds; H100 80GB HBM3 at 700.00 W; the readings repeat bit for bit between
-# calls under deterministic algorithms).  Both the median and the max over
-# the seeds are held to MNIST_MARGIN times their calibration value, or, where
-# that was 0, to MNIST_MARGIN parameters of the group.  At iteration 0 one
-# seed (304) sits on a near-tie: Adam's first steps (``g / (|g| + eps)``) on
-# gradients that are zero but for rounding go apart there, so its maxima of
-# the G and C moments (``mu.gen`` 0.374) bound little, and the medians carry
-# the check; iteration 1, from the card's state, is within a few float32
-# steps at every seed.
+# reading is; ``stats`` reads the BN moving statistics.  Adam's first steps
+# (``g / (|g| + eps)``) turn rounding in gradients that are zero but for it
+# into +-lr steps, so some seeds sit on near-ties whose readings move with
+# the order in which the float32 kernels sum (seed 304's ``mu.gen`` 0.374
+# at iteration 0; 0.0449 at iteration 1 with spectral norm's VJP kernel,
+# 2.3e-6 with autograd's VJP).  MNIST_SPREAD is therefore what
+# ``python3 -m rcgan_tpu_torch.diagnostics.sum_order --check mnist`` printed
+# on the card: per iteration, the largest median over the five data seeds
+# of any of nine arithmetics of the path's float32 kernels (spectral norm's
+# VJP as the kernel, as the closed form on the card, as autograd's on the
+# card, the CPU or both, in float64; sn's forward plain and in float64),
+# and the max over all of them (H100 80GB HBM3 at 700.00 W; the readings
+# repeat bit for bit between calls under deterministic algorithms).  Both
+# the median and the max over the seeds are held to MNIST_MARGIN times it,
+# or, where it was 0, to MNIST_MARGIN parameters of the group.  With the
+# kernel's dW rounded to bf16, or sigma held out of the VJP, the check fails
+# (medians 131x and 11.8x their limits at iteration 0); Miyato's
+# stop-gradient (u and v held) passes it: at these states the critic's
+# gradient through its norms' sigma is small (on the CPU alone the
+# stop-gradient moves ``mu.disc`` by 1.1-2.4e-5, sigma held by 3.4e-5), and
+# the PGGAN check and ``check_sn_vjp`` catch it.
 MNIST_CHECK = {"batch": 16, "data_seeds": (300, 301, 302, 303, 304)}
 MNIST_MARGIN = 3.0
 MNIST_SPREAD = {
-    0: {"cost": (8.89e-08, 1.12e-05), "u": (2.19e-06, 1.47e-05), "stats": (2.93e-04, 7.64e-04),
+    0: {"cost": (1.09e-07, 1.12e-05), "u": (2.35e-06, 1.47e-05), "stats": (3.12e-04, 7.64e-04),
         "params_max": (0.537, 1.02),
         "mu.disc": (1.08e-05, 3.9e-03), "nu.disc": (1.16e-05, 1.61e-03),
-        "dead.disc": (8.85e-08, 1.72e-07), "far.disc": (2.2e-05, 3.15e-05),
-        "mu.gen": (4.86e-03, 0.374), "nu.gen": (2.25e-03, 0.147),
-        "dead.gen": (3.97e-08, 4.72e-08), "far.gen": (5.11e-03, 0.391),
-        "mu.confusion": (7.18e-06, 7.24e-03), "nu.confusion": (7.42e-06, 2.31e-03),
+        "dead.disc": (1.19e-07, 1.72e-07), "far.disc": (2.2e-05, 3.15e-05),
+        "mu.gen": (0.026, 0.374), "nu.gen": (9.79e-03, 0.147),
+        "dead.gen": (4.54e-08, 5.7e-08), "far.gen": (0.0103, 0.391),
+        "mu.confusion": (9.21e-06, 7.25e-03), "nu.confusion": (8.34e-06, 2.32e-03),
         "far.confusion": (0.0, 0.21)},
-    1: {"cost": (3.81e-08, 4.27e-08), "u": (7.45e-08, 8.94e-08), "stats": (1.46e-04, 1.64e-04),
-        "params_max": (0.381, 0.41),
-        "mu.disc": (6.37e-06, 9.98e-06), "nu.disc": (6.48e-06, 6.84e-06),
-        "dead.disc": (1.26e-07, 1.58e-07), "far.disc": (0.0, 0.0),
-        "mu.gen": (2.16e-06, 2.33e-06), "nu.gen": (2.05e-06, 2.42e-06),
-        "dead.gen": (2.08e-08, 2.91e-08), "far.gen": (0.0, 2.83e-07),
-        "mu.confusion": (1.86e-06, 2.54e-06), "nu.confusion": (1.18e-06, 2.3e-06),
-        "far.confusion": (0.0, 0.0)},
+    1: {"cost": (7.97e-08, 1.16e-06), "u": (8.94e-08, 1.19e-07), "stats": (1.59e-04, 2.5e-04),
+        "params_max": (0.426, 0.98),
+        "mu.disc": (7.76e-06, 1.05e-05), "nu.disc": (7.33e-06, 1.42e-05),
+        "dead.disc": (1.52e-07, 1.77e-07), "far.disc": (0.0, 0.0),
+        "mu.gen": (2.85e-06, 0.18), "nu.gen": (2.68e-06, 0.0364),
+        "dead.gen": (2.6e-08, 3.93e-08), "far.gen": (1.42e-07, 0.131),
+        "mu.confusion": (2.38e-06, 3.56e-04), "nu.confusion": (2.58e-06, 1.05e-04),
+        "far.confusion": (0.0, 0.03)},
 }
 # one parameter's share of its group at this width (318 059 in disc, 7 065 211
 # in gen, 100 in confusion): the smallest nonzero ``far`` reading
@@ -2008,8 +2140,7 @@ MNIST_ONE_PARAM = {"far.disc": 1 / 318059, "far.gen": 1 / 7065211, "far.confusio
 
 def mnist_train_limits(it: int) -> dict:
     """``{reading: (median limit, max limit)}`` of iteration ``it``."""
-    return {k: tuple(MNIST_MARGIN * max(v, MNIST_ONE_PARAM.get(k, 0.0)) for v in spread)
-            for k, spread in MNIST_SPREAD[it].items()}
+    return spread_limits(MNIST_SPREAD[it], MNIST_MARGIN, MNIST_ONE_PARAM)
 
 
 MNIST_COST_KEYS = ("d_loss", "g_loss", "class_loss_real", "class_loss_fake")
@@ -2034,6 +2165,41 @@ def mnist_check_feeds(seed: int, data_seed: int, b: int):
     return feeds
 
 
+def mnist_check_readings(torch, dev, seed: int) -> dict:
+    """The MNIST card-vs-CPU check's readings (the note at ``MNIST_CHECK``):
+    ``{iteration: {reading: [(value, data seed, where)]}}``."""
+    import numpy as np
+
+    from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
+    from rcgan_tpu_torch.bridge import mnist_train_state_from_jax, to_jax_train_state
+    from rcgan_tpu_torch.models.dcgan import DCGANConfig
+    from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
+
+    acfg = MnistAlgoConfig(algorithm="rcgan", estimate_confuse=True, perm_regularizer=True)
+    tcfg = MnistTrainConfig()
+    b = MNIST_CHECK["batch"]
+    small = DCGANConfig(disc_type="projection", batch_size=b)
+    c_true = np.eye(10, dtype=np.float32)
+    spread = {0: {}, 1: {}}
+    with deterministic_algorithms(torch):
+        trainers = {side: MnistTrainer(small, acfg, tcfg, c_true, device=side)
+                    for side in (dev, "cpu")}
+        for data_seed in MNIST_CHECK["data_seeds"]:
+            ts_card = trainers[dev].init(seed + data_seed)
+            for it, (batch, z) in enumerate(mnist_check_feeds(seed, data_seed, b)):
+                ts_cpu = mnist_train_state_from_jax(to_jax_train_state(ts_card), small, acfg,
+                                                    tcfg, "cpu")
+                ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, batch, 0, z=z)
+                ts_card, m_card = trainers[dev].step(ts_card, batch, 0, z=z)
+                r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
+                                          m_cpu, m_card, tcfg.learning_rate,
+                                          {"disc": 1, "gen": 2, "confusion": 2},
+                                          cost_keys=MNIST_COST_KEYS)
+                for k, v in r.items():
+                    spread[it].setdefault(k, []).append((v, data_seed, where.get(k)))
+    return spread
+
+
 def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     """Phase 9: the MNIST slice on the card (module doc, item 9).  Returns
     the launches of each kernel over the timed full-width iterations and the
@@ -2047,7 +2213,6 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
 
     from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
     from rcgan_tpu_torch.apps import mnist_app
-    from rcgan_tpu_torch.bridge import mnist_train_state_from_jax, to_jax_train_state
     from rcgan_tpu_torch.data.mnist import load_mnist
     from rcgan_tpu_torch.models.dcgan import DCGANConfig
     from rcgan_tpu_torch.ops.kernels import runtime
@@ -2088,30 +2253,11 @@ def mnist_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
               f"({t['bound_by']})", flush=True)
 
     # ---- card against CPU, float32, TF32 off: two iterations from one state
-    b = MNIST_CHECK["batch"]
-    small = DCGANConfig(disc_type="projection", batch_size=b)
-    c_true = np.eye(10, dtype=np.float32)
-    spread = {0: {}, 1: {}}
-    with deterministic_algorithms(torch):
-        trainers = {side: MnistTrainer(small, acfg, tcfg, c_true, device=side)
-                    for side in (dev, "cpu")}
-        for data_seed in MNIST_CHECK["data_seeds"]:
-            ts_card = trainers[dev].init(seed + data_seed)
-            for it, (batch, z) in enumerate(mnist_check_feeds(seed, data_seed, b)):
-                ts_cpu = mnist_train_state_from_jax(to_jax_train_state(ts_card), small, acfg,
-                                                    tcfg, "cpu")
-                ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, batch, 0, z=z)
-                ts_card, m_card = trainers[dev].step(ts_card, batch, 0, z=z)
-                r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
-                                          m_cpu, m_card, tcfg.learning_rate,
-                                          {"disc": 1, "gen": 2, "confusion": 2},
-                                          cost_keys=MNIST_COST_KEYS)
-                for k, v in r.items():
-                    spread[it].setdefault(k, []).append((v, data_seed, where.get(k)))
-    for it, readings in spread.items():
+    for it, readings in mnist_check_readings(torch, dev, seed).items():
         check_spread(readings, mnist_train_limits(it), MNIST_MARGIN,
-                     f"MNIST training rcgan-u + perm, batch {b}, iteration {it}, float32, card vs "
-                     f"CPU from the same state over data seeds {list(MNIST_CHECK['data_seeds'])}")
+                     f"MNIST training rcgan-u + perm, batch {MNIST_CHECK['batch']}, iteration "
+                     f"{it}, float32, card vs CPU from the same state over data seeds "
+                     f"{list(MNIST_CHECK['data_seeds'])}")
 
     # ---- full width, bf16, batch 100, on the resident dataset: launches, times, profile
     t = time.perf_counter()
@@ -2288,6 +2434,17 @@ PG_BN_MAPS = (4, 8, 16, 32, 64)
 # (Shortcut, Conv1, Conv2), FromRGB.3, Blocks 3 to 1, Output, Embedding_y
 _PG_BLOCK = [(128, 128), (1152, 128), (1152, 128)]
 PG_SN_GROUP = [(3, 128)] + _PG_BLOCK + [(3, 128)] + _PG_BLOCK * 3 + [(128, 1), (300, 128)]
+# The sn VJP's groups: the forward's (a CIFAR D pass, D.Embedding_y, the perm
+# classifier, the ragged one), PGGAN's critic at stage 3 and at the stage-4
+# transition, MNIST's, and one at the widest cout, where u0, t and tbar
+# leave room for 1024 rows of a and abar, so the rows park in scratch.
+SN_VJP_GROUPS = {**SN_GROUPS, "PGGAN stage 3": [(3, 128)] + _PG_BLOCK * 3 + [(128, 1), (300, 128)],
+                 "PGGAN stage-4 transition": PG_SN_GROUP,
+                 **{f"MNIST {k}": v for k, v in MNIST_SN_GROUPS.items()},
+                 "the widest cout": [(9000, 16384), (5, 3)]}
+# the groups whose VJP is timed: a CIFAR critic step's (a D pass and
+# D.Embedding_y), PGGAN's stage-3 critic pass, MNIST's D pass
+SN_VJP_TIMED = ("a D pass", "D.Embedding_y", "PGGAN stage 3", "MNIST a projection D pass")
 
 
 def pggan_counts(stage: int) -> dict:
@@ -2297,8 +2454,9 @@ def pggan_counts(stage: int) -> dict:
     convs: 2 per block for a G forward, 2 for a D forward, 2 for each
     backward's input grads, so 2 (G) + 8 (D step) + 8 (G step) per block;
     two cond-BNs per block and G pass, two G passes; one sn group per D
-    pass.  The transition's extra layers are 1x1 (no conv3x3)."""
-    return {"cond_bn": 4 * stage, "conv3x3": 18 * stage, "sn": 3, "projection": 0,
+    pass, and one VJP launch for each of the D step's two.  The
+    transition's extra layers are 1x1 (no conv3x3)."""
+    return {"cond_bn": 4 * stage, "conv3x3": 18 * stage, "sn": 3, "sn_bwd": 2, "projection": 0,
             "dequant": 0}
 
 
@@ -2313,35 +2471,42 @@ def pggan_variants(stage: int) -> dict:
 # three phases (alpha 0.5 in the transition), each from the card's state
 # copied to the CPU bit for bit, with the same batch and z, at batch 8, over
 # the data seeds ``seed + PG_CHECK["data_seeds"]`` (every one checked; none
-# chosen).  PG_SPREAD holds the calibration run's (median, max) of each
-# reading over the five seeds by phase (H100 80GB HBM3 at 700.00 W; the
-# first run of this check, before any limit existed); both are held to
-# PG_MARGIN times it, or, where it was 0, to PG_MARGIN parameters of the
-# group.  The maxima of mu and nu (0.037 of a tensor's max) and of far.gen
-# (0.9%) are Adam's sign-like first steps on gradients zero but for
-# rounding, as in the MNIST check; the medians carry the check there.
-# ``params_max`` is left out: with beta1 = 0 one step moves a parameter at
-# most lr * sqrt((1 - beta2^t) / (1 - beta2)) at Adam's count t (lr, 1.41 lr
-# and 1.72 lr at t = 1 to 3), so card and CPU cannot part by more than that whatever
-# the kernels do; the cost, u, statistics and moments' medians hold them.
+# chosen).  As in the MNIST check, Adam's sign-like first steps on gradients
+# zero but for rounding put some seeds on near-ties (phases 1 and 2 most), so
+# PG_SPREAD is what ``python3 -m rcgan_tpu_torch.diagnostics.sum_order
+# --check pggan`` printed on the card: per phase, the largest median over the
+# five seeds of any of fourteen arithmetics of the path's float32 kernels
+# (MNIST's nine but sn's and its VJP's float64 together, conv3x3 in float64,
+# split first and unsplit, cond-BN plain and in float64, all four in
+# float64), and the max over all of them (H100 80GB HBM3 at 700.00 W).  Both
+# are held to PG_MARGIN times it, or, where it was 0, to PG_MARGIN
+# parameters of the group.  Sigma held out of the VJP, Miyato's
+# stop-gradient and the kernel's dW rounded to bf16 each fail every phase
+# (medians 53x to 9 190x their limits).  ``params_max`` is left out: with
+# beta1 = 0 one step moves a parameter at most lr * sqrt((1 - beta2^t) /
+# (1 - beta2)) at Adam's count t (lr, 1.41 lr and 1.72 lr at t = 1 to 3), so
+# card and CPU cannot part by more than that whatever the kernels do; the
+# cost, u, statistics and moments' medians hold them.
 PG_CHECK = {"batch": 8, "max_stage": 2, "data_seeds": (400, 401, 402, 403, 404)}
+# (stage, transition, alpha) of the check's three iterations
+PG_PHASES = [(1, False, 1.0), (2, True, 0.5), (2, False, 1.0)]
 PG_MARGIN = 3.0
 PG_SPREAD = {
-    0: {"cost": (2.7e-07, 3.57e-06), "u": (8.94e-08, 8.94e-08), "stats": (8.59e-05, 4.42e-04),
-        "mu.disc": (6.87e-06, 0.0368), "nu.disc": (5.97e-06, 0.0264),
-        "dead.disc": (1.23e-07, 1.54e-07), "far.disc": (1.69e-05, 5.93e-05),
-        "mu.gen": (3.64e-06, 2.98e-04), "nu.gen": (3.54e-06, 4.35e-04),
-        "dead.gen": (2.95e-08, 3.61e-08), "far.gen": (2.92e-05, 2.79e-04)},
-    1: {"cost": (1.44e-07, 3.77e-07), "u": (7.45e-08, 1.04e-07), "stats": (5.39e-05, 6.58e-05),
-        "mu.disc": (1.48e-05, 1.66e-05), "nu.disc": (1.56e-05, 2.87e-05),
-        "dead.disc": (1.46e-07, 2.26e-07), "far.disc": (7.5e-06, 1.8e-05),
-        "mu.gen": (3.82e-03, 0.0193), "nu.gen": (7.15e-03, 0.01),
-        "dead.gen": (4.58e-08, 5.2e-08), "far.gen": (1.62e-03, 5.33e-03)},
-    2: {"cost": (2.54e-07, 5.48e-07), "u": (1.04e-07, 1.04e-07), "stats": (4.2e-05, 5.18e-05),
-        "mu.disc": (1.77e-05, 4.12e-05), "nu.disc": (7.13e-06, 1.33e-05),
-        "dead.disc": (1.25e-07, 1.67e-07), "far.disc": (0.0, 1.5e-06),
-        "mu.gen": (3.23e-03, 0.037), "nu.gen": (1.94e-03, 0.0247),
-        "dead.gen": (3.38e-08, 4.44e-08), "far.gen": (1.14e-03, 8.88e-03)},
+    0: {"cost": (7.84e-07, 3.6e-06), "u": (1.64e-07, 1.64e-07), "stats": (8.59e-05, 4.58e-04),
+        "mu.disc": (7.22e-06, 0.0368), "nu.disc": (8.67e-06, 0.0264),
+        "dead.disc": (1.46e-07, 1.83e-07), "far.disc": (1.98e-05, 6.49e-05),
+        "mu.gen": (6.19e-06, 2.98e-04), "nu.gen": (6.03e-06, 4.42e-04),
+        "dead.gen": (3.08e-08, 4e-08), "far.gen": (3.61e-05, 2.82e-04)},
+    1: {"cost": (3.63e-07, 1.58e-05), "u": (1.19e-07, 1.34e-07), "stats": (6.13e-05, 2.79e-04),
+        "mu.disc": (7.56e-03, 0.0369), "nu.disc": (2.79e-03, 0.019),
+        "dead.disc": (1.77e-07, 2.95e-07), "far.disc": (1.65e-05, 2.37e-03),
+        "mu.gen": (0.0148, 0.117), "nu.gen": (0.0182, 0.113),
+        "dead.gen": (4.58e-08, 6.74e-08), "far.gen": (0.0397, 0.316)},
+    2: {"cost": (9e-07, 1.63e-05), "u": (1.04e-07, 1.34e-07), "stats": (5.45e-05, 6.83e-05),
+        "mu.disc": (4.55e-03, 0.0479), "nu.disc": (2.38e-03, 0.021),
+        "dead.disc": (1.78e-07, 2.42e-07), "far.disc": (4.56e-04, 0.0395),
+        "mu.gen": (0.013, 0.106), "nu.gen": (8.06e-03, 0.0733),
+        "dead.gen": (3.64e-08, 4.54e-08), "far.gen": (0.0548, 0.6)},
 }
 # full width, bf16, batch 64, max_stage 4: iterations per phase (the first
 # of each a warm-up), on 2 048 random images of 64x64 resident on the card
@@ -2367,8 +2532,7 @@ PG_ONE_PARAM = {"far.gen": 1 / 898566, "far.disc": 1 / 667065}
 
 def pggan_limits(phase: int) -> dict:
     """``{reading: (median limit, max limit)}`` of the check's ``phase``."""
-    return {k: tuple(PG_MARGIN * max(v, PG_ONE_PARAM.get(k, 0.0)) for v in spread)
-            for k, spread in PG_SPREAD.get(phase, {}).items()}
+    return spread_limits(PG_SPREAD.get(phase, {}), PG_MARGIN, PG_ONE_PARAM)
 
 
 def pggan_kernels(torch, dev, gen, max_err: dict) -> dict:
@@ -2447,6 +2611,44 @@ def pggan_check_feeds(seed: int, data_seed: int, b: int):
             for _ in range(3)]
 
 
+def pggan_check_readings(torch, dev, seed: int, verbose: bool = False) -> dict:
+    """The PGGAN card-vs-CPU check's readings (the note at ``PG_CHECK``):
+    ``{phase index: {reading: [(value, data seed, where)]}}``, one
+    iteration of each of ``PG_PHASES``."""
+    from rcgan_tpu_torch.bridge import pggan_train_state_from_jax, to_jax_train_state
+    from rcgan_tpu_torch.models.pggan import PGGANConfig
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
+
+    base = ResnetGANConfig(dim_g=PG_WIDTH["dim"], dim_d=PG_WIDTH["dim"],
+                           z_dim=PG_WIDTH["z_dim"])
+    tcfg = PGGANTrainConfig()
+    b = PG_CHECK["batch"]
+    small = PGGANConfig(max_stage=PG_CHECK["max_stage"], **PG_WIDTH)
+    spread = {i: {} for i in range(len(PG_PHASES))}
+    with deterministic_algorithms(torch):
+        trainers = {side: PGGANTrainer(small, base, tcfg, device=side) for side in (dev, "cpu")}
+        for data_seed in PG_CHECK["data_seeds"]:
+            ts_card = trainers[dev].init(seed + data_seed)
+            if verbose and data_seed == PG_CHECK["data_seeds"][0]:
+                sizes = {g: sum(p.numel() for p in ps.values()) for g, ps in ts_card.groups.items()}
+                print(f"  PGGAN check model (dim {small.dim}, max_stage {small.max_stage}): "
+                      f"parameters by group {sizes}", flush=True)
+            for i, ((stage, trans, alpha), (images, z)) in enumerate(
+                    zip(PG_PHASES, pggan_check_feeds(seed, data_seed, b))):
+                ts_cpu = pggan_train_state_from_jax(to_jax_train_state(ts_card), small, base,
+                                                    tcfg, "cpu")
+                ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, images, 0, alpha, stage, trans, z=z)
+                ts_card, m_card = trainers[dev].step(ts_card, images, 0, alpha, stage, trans, z=z)
+                r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
+                                          m_cpu, m_card, tcfg.lr, {"gen": 1, "disc": 1},
+                                          cost_keys=("d_cost", "g_cost"))
+                r.pop("params_max")  # bounded by Adam itself (PG_CHECK's note)
+                for k, v in r.items():
+                    spread[i].setdefault(k, []).append((v, data_seed, where.get(k)))
+    return spread
+
+
 def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     """Phase 10: the PGGAN family on the card (module doc, item 10).
     Returns the launches of each kernel over the counted full-width
@@ -2459,7 +2661,6 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     import numpy as np
 
     from rcgan_tpu_torch.apps import pggan_app
-    from rcgan_tpu_torch.bridge import pggan_train_state_from_jax, to_jax_train_state
     from rcgan_tpu_torch.core import rng as trng
     from rcgan_tpu_torch.models.pggan import PGGANConfig
     from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
@@ -2479,35 +2680,11 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     tcfg = PGGANTrainConfig()
 
     # ---- card against CPU, float32, TF32 off: one iteration of each phase
-    b = PG_CHECK["batch"]
-    small = PGGANConfig(max_stage=PG_CHECK["max_stage"], **PG_WIDTH)
-    phases = [(1, False, 1.0), (2, True, 0.5), (2, False, 1.0)]
-    spread = {i: {} for i in range(len(phases))}
-    with deterministic_algorithms(torch):
-        trainers = {side: PGGANTrainer(small, base, tcfg, device=side) for side in (dev, "cpu")}
-        for data_seed in PG_CHECK["data_seeds"]:
-            ts_card = trainers[dev].init(seed + data_seed)
-            if data_seed == PG_CHECK["data_seeds"][0]:
-                sizes = {g: sum(p.numel() for p in ps.values()) for g, ps in ts_card.groups.items()}
-                print(f"  PGGAN check model (dim {small.dim}, max_stage {small.max_stage}): "
-                      f"parameters by group {sizes}", flush=True)
-            for i, ((stage, trans, alpha), (images, z)) in enumerate(
-                    zip(phases, pggan_check_feeds(seed, data_seed, b))):
-                ts_cpu = pggan_train_state_from_jax(to_jax_train_state(ts_card), small, base,
-                                                    tcfg, "cpu")
-                ts_cpu, m_cpu = trainers["cpu"].step(ts_cpu, images, 0, alpha, stage, trans, z=z)
-                ts_card, m_card = trainers[dev].step(ts_card, images, 0, alpha, stage, trans, z=z)
-                r, where = train_readings(to_jax_train_state(ts_cpu), to_jax_train_state(ts_card),
-                                          m_cpu, m_card, tcfg.lr, {"gen": 1, "disc": 1},
-                                          cost_keys=("d_cost", "g_cost"))
-                r.pop("params_max")  # bounded by Adam itself (PG_CHECK's note)
-                for k, v in r.items():
-                    spread[i].setdefault(k, []).append((v, data_seed, where.get(k)))
-    for i, readings in spread.items():
+    for i, readings in pggan_check_readings(torch, dev, seed, verbose=True).items():
         check_spread(readings, pggan_limits(i), PG_MARGIN,
-                     f"PGGAN training, full width, max_stage 2, batch {b}, phase {phases[i][:2]}, "
-                     f"float32, card vs CPU from the same state over data seeds "
-                     f"{list(PG_CHECK['data_seeds'])}")
+                     f"PGGAN training, full width, max_stage 2, batch {PG_CHECK['batch']}, phase "
+                     f"{PG_PHASES[i][:2]}, float32, card vs CPU from the same state over data "
+                     f"seeds {list(PG_CHECK['data_seeds'])}")
 
     # ---- full width, bf16, batch 64, max_stage 4, every phase: launches, times, profile
     cfg = PGGANConfig(max_stage=4, **PG_WIDTH)
@@ -2645,13 +2822,14 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     # stage (bf16: 2 cond-BNs and 2 convs per block); the eval classifier's
     # float32 convs take the FFMA and cuDNN routes, which are not counted
     passes = -(-PG_APP_EVAL // PG_BATCH) + 1  # the eval's batches and the grid of 100
-    want = {"sn": 0, "cond_bn": 0, "wgmma": 0}
+    want = {"sn": 0, "sn_bwd": 0, "cond_bn": 0, "wgmma": 0}
     for s, _ in phases_app:
         want["sn"] += PG_APP_ITERS * pggan_counts(s)["sn"]
+        want["sn_bwd"] += PG_APP_ITERS * pggan_counts(s)["sn_bwd"]
         want["cond_bn"] += PG_APP_ITERS * pggan_counts(s)["cond_bn"] + passes * 2 * s
         want["wgmma"] += PG_APP_ITERS * pggan_variants(s)["wgmma"] + passes * 2 * s
-    got = {"sn": app_counts["sn"], "cond_bn": app_counts["cond_bn"],
-           "wgmma": app_variants["wgmma"]}
+    got = {"sn": app_counts["sn"], "sn_bwd": app_counts["sn_bwd"],
+           "cond_bn": app_counts["cond_bn"], "wgmma": app_variants["wgmma"]}
     check(got == want and stats["train"][1] == PG_APP_ITERS * len(phases_app)
           and [(r["stage"], r["trans"], r["iter"]) for r in rows]
           == [(s, t_, PG_APP_ITERS * (i + 1)) for i, (s, t_) in enumerate(phases_app)]
@@ -3782,7 +3960,7 @@ def dev_cost_counts(algorithm: str, perm: bool) -> dict:
     (``PATH_COUNTS``) with no gradient, the perm classifier's sn launch, and
     one dequantisation."""
     return {**PATH_COUNTS[f"disc_loss {algorithm}"], "sn": PATH_COUNTS[
-        f"disc_loss {algorithm}"]["sn"] + perm, "dequant": 1}
+        f"disc_loss {algorithm}"]["sn"] + perm, "sn_bwd": 0, "dequant": 1}
 
 
 def compiled_evals_slice(torch, dev, seed: int, card: str) -> dict:
@@ -4904,6 +5082,17 @@ def main(argv=None) -> int:
         check_sn_group(torch, [((torch.randn(m, cout, generator=gen_cpu) / m ** 0.5).to(dev),
                                 torch.randn(1, cout, generator=gen_cpu).to(dev))
                                for m, cout in shapes], tag, max_err)
+    # its VJP, each group in one launch, against sn_vjp_plain per weight;
+    # the same bits on a second run; the path's groups timed
+    sn_vjp_ms = {}
+    for tag, shapes in SN_VJP_GROUPS.items():
+        pairs = [((torch.randn(m, cout, generator=gen_cpu) / m ** 0.5).to(dev),
+                  torch.randn(1, cout, generator=gen_cpu).to(dev)) for m, cout in shapes]
+        check_sn_vjp(torch, pairs, tag, max_err, gen_cpu)
+        if tag in SN_VJP_TIMED:
+            sn_vjp_ms[tag] = sn_vjp_times(torch, pairs, gen_cpu)
+        del pairs
+    torch.cuda.empty_cache()
     for b in PROJ_BATCHES:
         feat = torch.randn(b, 128, generator=gen_cpu).to(dev)
         emb = torch.randn(10, 128, generator=gen_cpu).to(dev)
@@ -5192,6 +5381,7 @@ def main(argv=None) -> int:
     cycle_bound = conv["fwd"]["bound"] + conv["dx"]["bound"]
     cycle_ops = conv["fwd"]["bound_ops"] + conv["dx"]["bound_ops"]
     sn_w = [m * co for m, co in SN_SHAPES]
+    d_vjp = ("a D pass", "D.Embedding_y")  # a critic pass's VJP launches
     rows = {
         "cond_bn": ((cbn[100]["kernel"], cbn[100]["plain"]),
                     (cbn[100]["bound"], cbn[100]["bound_by"]), None),
@@ -5201,6 +5391,10 @@ def main(argv=None) -> int:
         "sn": ((sn_ms["graph"], sn_ms["plain_graph"]), bound(sum(5 * n for n in sn_w),
                             sum(4 * (2 * m * co + 2 * co + 1) for m, co in SN_SHAPES), PEAK_F32),
                None),
+        "sn_bwd": ((sum(sn_vjp_ms[t]["ms"] for t in d_vjp),
+                    sum(sn_vjp_ms[t]["plain_ms"] for t in d_vjp)),
+                   bound(sum(13 * n for n in sn_w),
+                         sum(4 * (3 * m * co + co) for m, co in SN_SHAPES), PEAK_F32), None),
         "projection": ((proj["alone"], per_pass["projection"][64][1]),
                        bound(2 * 64 * 128 * 10 + 64 * 10,
                              4 * (64 * 128 + 10 * 128 + 64 + 64 * 10), PEAK_F32),
@@ -5241,6 +5435,19 @@ def main(argv=None) -> int:
                        alone_ms_is="the same two launches issued alone (host included), CUDA "
                                    "events",
                        launches_per_d_pass=1, mnist_group=mnist["sn_group"])
+        if k == "sn_bwd":
+            row.update(ms_is="the VJP of a D pass's 16 weights as a critic step launches it "
+                             "(D's 15 layers in one launch, D.Embedding_y in another), "
+                             "cotangent of W/sigma alone, device time in CUDA graphs "
+                             "(plain_ms: sn_vjp_plain per weight, likewise)",
+                       autograd_ms=sum(sn_vjp_ms[t]["autograd_ms"] for t in d_vjp),
+                       autograd_ms_is="autograd's VJP of sn_plain per weight, in CUDA graphs: "
+                                      "the backward before the kernel",
+                       alone_ms=sum(sn_vjp_ms[t]["alone_ms"] for t in d_vjp),
+                       plain_alone_ms=sum(sn_vjp_ms[t]["plain_alone_ms"] for t in d_vjp),
+                       alone_ms_is="the same two launches issued alone (host included), CUDA "
+                                   "events",
+                       groups={t: sn_vjp_ms[t] for t in SN_VJP_TIMED})
         if k == "dequant":
             row.update(ms_is="one call at [64, 3072], device time in CUDA graphs (plain_ms: "
                              "dequantize_plain with row_noise, the same bits, likewise)",

@@ -32,16 +32,34 @@ can be derived from the spread over those arithmetics:
 3. with ``--times``, the six FFMA calls of a float32 generator pass at each
    serving bucket under each geometry, device time in CUDA graphs.
 
+With ``--check mnist`` or ``--check pggan`` it replays ``chip_smoke.py``'s
+MNIST or PGGAN card-vs-CPU check instead (``mnist_check_readings``,
+``pggan_check_readings``) under each arithmetic of the float32 kernels those
+paths run, spectral norm's VJP among them: the shipped kernel, autograd's
+VJP of ``sn_plain`` on the card, on the CPU and on both (the arithmetic
+before the VJP kernel), the closed form on the card, float64; for PGGAN the
+conv3x3 and cond-BN arithmetics above too.  It prints the spread over them
+(the largest median over the data seeds of any arithmetic, and the max of
+all), as the dict ``MNIST_SPREAD`` or ``PG_SPREAD`` from which
+``chip_smoke.py`` derives the check's limits, and then, for every
+arithmetic and for three wrong VJPs on the card (sigma held constant; u
+and v held, Miyato's stop-gradient; the kernel's dW rounded to bfloat16),
+the readings over the limits that ``chip_smoke.py`` holds now and over
+those the spread gives, with each one's worst reading against its new
+limit.
+
 Needs a card; run from the repository's root (it reads the check's data,
 readings and limits from ``chip_smoke.py``):
 
     python3 -m rcgan_tpu_torch.diagnostics.sum_order [--data_seeds 200 201 ...] [--scan] [--times]
+    python3 -m rcgan_tpu_torch.diagnostics.sum_order --check mnist|pggan
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import statistics
 import sys
 from pathlib import Path
@@ -80,15 +98,44 @@ def _float64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _conv64(x, w).to(x.dtype).contiguous()
 
 
-def _sn64(w: torch.Tensor, u0: torch.Tensor):
-    """``sn_plain`` in float64, each output rounded once."""
-    w, u0 = w.double(), u0.double()
-    v = u0 @ w.T
+def _sn_steps(w: torch.Tensor, u0: torch.Tensor, hold_v=False, hold_u=False, hold_sigma=False):
+    """``sn_plain``'s steps in ``w``'s precision, with v, u' or sigma held
+    out of the gradient where asked (the wrong VJPs)."""
+    v = u0.to(w.dtype) @ w.T
     v = v / (torch.sqrt(torch.sum(v * v)) + 1e-12)
+    v = v.detach() if hold_v else v
     u = v @ w
     u = u / (torch.sqrt(torch.sum(u * u)) + 1e-12)
+    u = u.detach() if hold_u else u
     sigma = (v @ w @ u.T)[0, 0]
-    return (w / sigma).float(), u.float(), sigma.float()
+    sigma = sigma.detach() if hold_sigma else sigma
+    return w / sigma, u, sigma
+
+
+def _sn64(w: torch.Tensor, u0: torch.Tensor):
+    """``sn_plain`` in float64, each output rounded once."""
+    return tuple(t.float() for t in _sn_steps(w.double(), u0))
+
+
+def _vjp_of(fn):
+    """The VJP of ``fn(w, u0) -> (W/σ, u', σ)`` with respect to ``w`` by
+    autograd, as ``sn_kernel.sn_vjp_plain`` takes and returns it (float32
+    leaves; ``fn`` may compute in float64, rounded once on the way back)."""
+    def vjp(w, u0, g_wbar=None, g_u=None, g_sigma=None):
+        with torch.enable_grad():
+            x = w.detach().float().requires_grad_(True)
+            keep = [(o, c) for o, c in zip(fn(x, u0.detach().float()), (g_wbar, g_u, g_sigma))
+                    if c is not None]
+            (dw,) = torch.autograd.grad([o for o, _ in keep], (x,),
+                                        [c.to(o.dtype) for o, c in keep])
+        return dw
+
+    return vjp
+
+
+def _vjp_group_by(fn):
+    """A stand-in for ``sn_kernel._launch_vjp`` that runs ``fn`` per weight."""
+    return lambda items: [fn(*item) for item in items]
 
 
 def _sn_group_by(fn):
@@ -121,7 +168,8 @@ def _cond_bn64(x, labels, scale_table, offset_table, eps, relu=False):
 
 
 SHIPPED = {"ffma_geometry": conv_kernel.ffma_geometry, "_launch_ffma": conv_kernel._launch_ffma,
-           "sn": sn_kernel._launch_group, "cond_bn": norm_kernel._launch}
+           "sn": sn_kernel._launch_group, "cond_bn": norm_kernel._launch,
+           "sn_bwd": sn_kernel._launch_vjp, "sn_bwd_cpu": sn_kernel.sn_vjp_plain}
 ARITHMETICS = {
     "shipped": {},
     "all three float64": {"_launch_ffma": _float64, "sn": _sn_group_by(_sn64),
@@ -136,11 +184,102 @@ ARITHMETICS = {
 }
 
 
+_AUTOGRAD = _vjp_of(sn_kernel.sn_plain)
+_VJP64 = _vjp_of(lambda w, u0: _sn_steps(w.double(), u0))
+# the MNIST check's float32 path runs sn and its VJP of these kernels
+VJP_ARITHMETICS = {
+    "shipped": {},
+    "sn_bwd autograd on card and CPU": {"sn_bwd": _vjp_group_by(_AUTOGRAD),
+                                        "sn_bwd_cpu": _AUTOGRAD},
+    "sn_bwd autograd on the card": {"sn_bwd": _vjp_group_by(_AUTOGRAD)},
+    "sn_bwd autograd on the CPU": {"sn_bwd_cpu": _AUTOGRAD},
+    "sn_bwd closed form on the card": {"sn_bwd": _vjp_group_by(SHIPPED["sn_bwd_cpu"])},
+    "sn_bwd float64": {"sn_bwd": _vjp_group_by(_VJP64)},
+    "sn float64": {"sn": _sn_group_by(_sn64)},
+    "sn plain": {"sn": _sn_group_by(sn_kernel.sn_plain)},
+    "sn and sn_bwd float64": {"sn": _sn_group_by(_sn64), "sn_bwd": _vjp_group_by(_VJP64)},
+}
+# PGGAN's also runs the FFMA conv3x3 and cond-BN in float32
+PG_ARITHMETICS = {
+    **{k: v for k, v in VJP_ARITHMETICS.items() if k != "sn and sn_bwd float64"},
+    **{k: ARITHMETICS[k] for k in ("conv3x3 float64", "conv3x3 split first", "conv3x3 unsplit",
+                                   "cond_bn float64", "cond_bn plain")},
+    "all four float64": {**ARITHMETICS["all three float64"], "sn_bwd": _vjp_group_by(_VJP64)},
+}
+# wrong gradients on the card, which the check's limits have to fail
+FAULTS = {
+    "fault: sigma held": {"sn_bwd": _vjp_group_by(
+        _vjp_of(functools.partial(_sn_steps, hold_sigma=True)))},
+    "fault: u and v held": {"sn_bwd": _vjp_group_by(
+        _vjp_of(functools.partial(_sn_steps, hold_u=True, hold_v=True)))},
+    "fault: dW rounded to bf16": {"sn_bwd": lambda items: [
+        dw.bfloat16().float() for dw in SHIPPED["sn_bwd"](items)]},
+}
+
+
 def _use(patch: dict) -> None:
     conv_kernel.ffma_geometry = patch.get("ffma_geometry", SHIPPED["ffma_geometry"])
     conv_kernel._launch_ffma = patch.get("_launch_ffma", SHIPPED["_launch_ffma"])
     sn_kernel._launch_group = patch.get("sn", SHIPPED["sn"])
     norm_kernel._launch = patch.get("cond_bn", SHIPPED["cond_bn"])
+    sn_kernel._launch_vjp = patch.get("sn_bwd", SHIPPED["sn_bwd"])
+    sn_kernel.sn_vjp_plain = patch.get("sn_bwd_cpu", SHIPPED["sn_bwd_cpu"])
+
+
+def _scan_check(cs, check: str, dev) -> int:
+    """``--check mnist|pggan``: the check's readings under every arithmetic
+    and every fault, the spread over the arithmetics, and which readings
+    each arithmetic and fault puts over the limits of now and of the
+    spread."""
+    if check == "mnist":
+        readings_of = cs.mnist_check_readings
+        arithmetics, name, margin, one_param = (VJP_ARITHMETICS, "MNIST_SPREAD", cs.MNIST_MARGIN,
+                                                cs.MNIST_ONE_PARAM)
+        limits_now = {it: cs.mnist_train_limits(it) for it in cs.MNIST_SPREAD}
+    else:
+        readings_of = cs.pggan_check_readings
+        arithmetics, name, margin, one_param = (PG_ARITHMETICS, "PG_SPREAD", cs.PG_MARGIN,
+                                                cs.PG_ONE_PARAM)
+        limits_now = {i: cs.pggan_limits(i) for i in cs.PG_SPREAD}
+    got = {}
+    for arith, patch in {**arithmetics, **FAULTS}.items():
+        _use(patch)
+        got[arith] = readings_of(torch, dev, 0)
+        _use({})
+        for it, readings in got[arith].items():
+            for k, vs in sorted(readings.items()):
+                print(f"  [{arith}] {it} {k}: " + ", ".join(f"{v:.3g} (seed {s})"
+                                                            for v, s, _ in vs), flush=True)
+    # the check holds each reading's median over the data seeds and its max:
+    # the spread is the largest such median of any arithmetic, and the max
+    # over all of them
+    spread = {}
+    for it, readings in sorted(got["shipped"].items()):
+        spread[it] = {}
+        for k in sorted(readings):
+            med = max(statistics.median(v for v, _, _ in got[a][it][k]) for a in arithmetics)
+            top = max(v for a in arithmetics for v, _, _ in got[a][it][k])
+            spread[it][k] = (float(f"{med:.3g}"), float(f"{top:.3g}"))
+    print(f"spread over {len(arithmetics)} arithmetics (the largest median over the data seeds, "
+          f"the max) per iteration:", flush=True)
+    print(f"{name} = {spread!r}", flush=True)
+    limits_new = {it: cs.spread_limits(sp, margin, one_param) for it, sp in spread.items()}
+
+    def worst(r, lim, at):  # the reading nearest its limit, or furthest over it
+        stat = statistics.median if at == 0 else max
+        ratio, k = max((stat([v for v, _, _ in vs]) / max(lim[k][at], 1e-30), k)
+                       for k, vs in r.items())
+        return f"{ratio:.3g}x ({k})"
+
+    print(f"readings over the limits, per iteration: now ({name} in chip_smoke.py) | from "
+          f"this spread, with the worst median and max against their new limits", flush=True)
+    for arith in {**arithmetics, **FAULTS}:
+        cells = [f"{it} " + (",".join(cs.over_limits(r, limits_now[it])) or "pass") + " | "
+                 + (",".join(cs.over_limits(r, limits_new[it])) or "pass")
+                 + f" (median {worst(r, limits_new[it], 0)}, max {worst(r, limits_new[it], 1)})"
+                 for it, r in got[arith].items()]
+        print(f"  {arith:34s} " + " ; ".join(cells), flush=True)
+    return 0
 
 
 def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -158,12 +297,18 @@ def main(argv=None) -> int:
                         "and the arithmetics: chip_smoke.py's TRAIN_SPREAD")
     p.add_argument("--times", action="store_true",
                    help="also time a float32 G pass's FFMA convs under each geometry")
+    p.add_argument("--check", choices=("cifar", "mnist", "pggan"), default="cifar",
+                   help="the card-vs-CPU training check to replay (default: CIFAR's)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("CUDA is not available: this diagnostic needs an NVIDIA GPU", flush=True)
         return 2
     sys.path.insert(0, str(_ROOT))
     import chip_smoke as cs
+
+    if args.check != "cifar":
+        print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
+        return _scan_check(cs, args.check, torch.device("cuda"))
 
     from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
     from rcgan_tpu_torch.bridge import to_jax_train_state, train_state_from_jax

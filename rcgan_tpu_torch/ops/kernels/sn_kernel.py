@@ -27,12 +27,14 @@ sharding rule (``register_sharding``) replicates every input and output: a
 weight sharded on a mesh dimension is gathered before the launch.
 
 Autograd: :class:`SpectralNormGroupFn` calls the op on both devices.  Its
-backward re-runs :func:`sn_plain` under ``torch.enable_grad()`` per weight
-that needs a gradient and takes the VJP with respect to W, as the TPU
-kernel's ``_bwd`` re-runs ``sn_math`` under ``jax.vjp``: gradients flow
-*through* the power iteration (the reference differentiates its
-``tf.while_loop``), not Miyato's stop-gradient.  ``u0`` is state and gets
-no gradient.
+backward is the VJP with respect to W of every weight that needs one, from
+the saved ``(W, u0)``, as the TPU kernel's ``_bwd`` re-runs ``sn_math``
+under ``jax.vjp``: gradients flow *through* the power iteration (the
+reference differentiates its ``tf.while_loop``), not Miyato's
+stop-gradient.  ``u0`` is state and gets no gradient.  On the card the
+group's VJPs are one launch of ``csrc/sn.cu``'s ``sn_group_kernel_vjp``
+(counted as ``sn_bwd``); on the CPU :func:`sn_vjp_plain` per weight, its
+closed form in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -69,6 +71,17 @@ class _SnGroup(ctypes.Structure):
                 ("v_cap", ctypes.c_int), ("tile_cap", ctypes.c_int)]
 
 
+class _SnVjpWeight(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p), ("u0", ctypes.c_void_p), ("gbar", ctypes.c_void_p),
+                ("gu", ctypes.c_void_p), ("gsigma", ctypes.c_void_p), ("dw", ctypes.c_void_p),
+                ("m", ctypes.c_int), ("cout", ctypes.c_int)]
+
+
+class _SnVjpGroup(ctypes.Structure):
+    _fields_ = [("w", _SnVjpWeight * MAX_WEIGHTS), ("scratch", ctypes.c_void_p),
+                ("col_cap", ctypes.c_int), ("row_cap", ctypes.c_int), ("tile_cap", ctypes.c_int)]
+
+
 def sn_plain(w_mat: torch.Tensor, u0: torch.Tensor):
     """Plain version (JAX ``sn_math``): ``w_mat [m, cout]``, ``u0 [1, cout]``
     → ``(W/σ [m, cout], u' [1, cout], σ [])``, float32."""
@@ -79,6 +92,40 @@ def sn_plain(w_mat: torch.Tensor, u0: torch.Tensor):
     u = u / (torch.sqrt(torch.sum(u * u)) + _EPS)
     sigma = (v @ w @ u.T)[0, 0]
     return w / sigma, u, sigma
+
+
+def sn_vjp_plain(w_mat: torch.Tensor, u0: torch.Tensor, g_wbar=None, g_u=None, g_sigma=None):
+    """The VJP of :func:`sn_plain` with respect to ``w_mat``, in closed form
+    (``csrc/sn.cu``'s ``sn_group_kernel_vjp`` computes the same): the
+    cotangents ``g_wbar [m, cout]``, ``g_u [1, cout]`` and ``g_sigma []`` of
+    its three outputs, each None for zero → ``dW [m, cout]``, float32.  The
+    forward is taken again from ``(w_mat, u0)``; σ and u' are
+    :func:`sn_plain`'s own::
+
+        σ̄ = gσ − Σ(Ḡ ⊙ W) / σ²,  ū = gu + σ̄ t
+        t̄ = σ̄ u' + ū / (‖t‖ + ε) − t (t · ū) / ((‖t‖ + ε)² ‖t‖)
+        ā = t̄ Wᵀ / (‖a‖ + ε) − a (a · t̄ Wᵀ) / ((‖a‖ + ε)² ‖a‖)
+        dW = Ḡ / σ + vᵀ t̄ + āᵀ u0
+
+    with ``a = u0 Wᵀ``, ``v = a / (‖a‖ + ε)``, ``t = v W``."""
+    w, u0 = w_mat.float(), u0.float()
+    _, u, sigma = sn_plain(w, u0)
+    a = u0 @ w.T
+    a_norm = torch.sqrt(torch.sum(a * a))
+    v = a / (a_norm + _EPS)
+    t = v @ w
+    t_norm = torch.sqrt(torch.sum(t * t))
+    tn, an = t_norm + _EPS, a_norm + _EPS
+    sigma_bar = -torch.sum(g_wbar * w) / (sigma * sigma) if g_wbar is not None \
+        else torch.zeros((), dtype=w.dtype, device=w.device)
+    if g_sigma is not None:
+        sigma_bar = g_sigma + sigma_bar
+    u_bar = sigma_bar * t if g_u is None else g_u + sigma_bar * t
+    t_bar = sigma_bar * u + u_bar / tn - t * (torch.sum(t * u_bar) / (tn * tn * t_norm))
+    v_bar = t_bar @ w.T
+    a_bar = v_bar / an - a * (torch.sum(a * v_bar) / (an * an * a_norm))
+    dw = v.T @ t_bar + a_bar.T @ u0
+    return dw if g_wbar is None else g_wbar / sigma + dw
 
 
 def cluster_rows(m: int) -> List[Tuple[int, int]]:
@@ -100,6 +147,32 @@ def group_smem(shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int, int]:
     v_cap = min(up4(max(rows)), _V_CAP_MAX)
     tile = up4(max(r * cout for r, (_, cout) in zip(rows, shapes)))
     return t_cap, v_cap, max(0, min(tile, _SMEM_FLOATS - t_cap - v_cap))
+
+
+def vjp_smem(shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int, int]:
+    """``(col_cap, row_cap, tile_cap)`` in floats, each a multiple of 4, for
+    one VJP launch over weights of ``shapes``: three column vectors (u0, t,
+    t̄) of the longest ``cout``, two row vectors (a, ā) of the longest row
+    range (up to a limit; a longer range takes scratch, :func:`vjp_scratch`)
+    and two tiles (W's and Ḡ's rows) as large as the rest allows."""
+    def up4(n):
+        return (n + 3) // 4 * 4
+
+    col_cap = up4(max(cout for _, cout in shapes))
+    rows = [max(hi - lo for lo, hi in cluster_rows(m)) for m, _ in shapes]
+    row_cap = min(up4(max(rows)), _V_CAP_MAX, (_SMEM_FLOATS - 3 * col_cap) // 8 * 4)
+    tile = up4(max(r * cout for r, (_, cout) in zip(rows, shapes)))
+    rest = _SMEM_FLOATS - 3 * col_cap - 2 * row_cap
+    return col_cap, row_cap, max(0, min(tile, rest // 8 * 4))
+
+
+def vjp_scratch(shapes: Sequence[Tuple[int, int]], row_cap: int) -> int:
+    """Floats of the scratch one VJP launch needs: 2 m a weight (a and ā in
+    device memory) when a row range of any weight exceeds ``row_cap``, else
+    none."""
+    if all(max(hi - lo for lo, hi in cluster_rows(m)) <= row_cap for m, _ in shapes):
+        return 0
+    return 2 * sum(m for m, _ in shapes)
 
 
 def _check(w_mat: torch.Tensor, u0: torch.Tensor) -> None:
@@ -209,7 +282,8 @@ class SpectralNormGroupFn(torch.autograd.Function):
     """``(w_0, u_0, w_1, u_1, ...) → (W_0/σ_0, u'_0, σ_0, W_1/σ_1, ...)``
     through :data:`sn_group_op`: one kernel launch for the group on CUDA,
     :func:`sn_plain` per weight on the CPU; backward through the power
-    iteration on both, per weight that needs it."""
+    iteration, one VJP launch for the weights that need it on CUDA,
+    :func:`sn_vjp_plain` per weight on the CPU."""
 
     @staticmethod
     def forward(ctx, *flat):
@@ -231,21 +305,74 @@ def _sn_group_backward(needs, n_cts: int, *tensors):
     """The gradients of :class:`SpectralNormGroupFn`'s inputs from its
     saved ``(w, u)`` pairs and the cotangents (None where there are none):
     the VJP of :func:`sn_plain` with respect to each ``w`` that ``needs``
-    one."""
+    one and has a cotangent; on the card one launch for all of them
+    (:func:`_launch_vjp`), on the CPU :func:`sn_vjp_plain` per weight."""
     flat, cts = tensors[:-n_cts], tensors[-n_cts:]
     grads = [None] * len(flat)
-    for i in range(len(flat) // 2):
-        cot = cts[3 * i:3 * i + 3]
-        if not needs[2 * i] or all(c is None for c in cot):
-            continue
-        w_mat, u0 = flat[2 * i], flat[2 * i + 1]
-        with torch.enable_grad():
-            w = w_mat.detach().requires_grad_(True)
-            outs = sn_plain(w, u0.detach())
-            keep = [(o, c) for o, c in zip(outs, cot) if c is not None]
-            (dw,) = torch.autograd.grad([o for o, _ in keep], (w,), [c for _, c in keep])
-        grads[2 * i] = dw.to(w_mat.dtype)
+    todo = [i for i in range(len(flat) // 2)
+            if needs[2 * i] and any(c is not None for c in cts[3 * i:3 * i + 3])]
+    if not todo:
+        return tuple(grads)
+    items = [(flat[2 * i], flat[2 * i + 1], *cts[3 * i:3 * i + 3]) for i in todo]
+    if runtime.on_cuda(*[t for item in items for t in item if t is not None]):
+        dws = _launch_vjp(items)
+    else:
+        dws = [sn_vjp_plain(*item) for item in items]
+    for i, dw in zip(todo, dws):
+        grads[2 * i] = dw
     return tuple(grads)
+
+
+def _cotangent(c, shape, what: str):
+    if c is None:
+        return None
+    if c.dtype != torch.float32 or c.shape != shape:
+        raise TypeError(f"spectral norm's VJP takes a float32 cotangent of {what} shaped "
+                        f"{tuple(shape)}; got {c.dtype} {tuple(c.shape)}")
+    return c.contiguous()
+
+
+def _launch_vjp(items):
+    """``[(w, u0, Ḡ, gu, gσ), ...]`` (cotangents None for zero) → ``[dW,
+    ...]``: one launch of the VJP kernel per ``MAX_WEIGHTS`` weights, dW
+    written into views of one buffer."""
+    ws, gbars, gus, gsigmas = [], [], [], []
+    for w, u0, gbar, gu, gsigma in items:
+        _check(w, u0)
+        gbar = _cotangent(gbar, w.shape, "W/σ")
+        ws.append(w)
+        gbars.append(torch.zeros_like(w) if gbar is None else gbar)
+        gus.append(_cotangent(gu, u0.shape, "u'"))
+        gsigmas.append(_cotangent(gsigma, torch.Size([]), "σ"))
+    big = torch.empty((sum(w.numel() for w in ws),), dtype=torch.float32, device=ws[0].device)
+    dws = [t.view(w.shape) for t, w in zip(big.split([w.numel() for w in ws]), ws)]
+    lib = runtime.cuda_library("sn")
+    fn = lib.sn_vjp_f32
+    if fn.argtypes is None:  # first use of this entry point
+        if lib.sn_vjp_bytes() != ctypes.sizeof(_SnVjpGroup) or lib.sn_max_weights() != MAX_WEIGHTS:
+            raise RuntimeError("sn: the library's VJP descriptor differs from the wrapper's")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for start in range(0, len(items), MAX_WEIGHTS):
+        chunk = range(start, min(start + MAX_WEIGHTS, len(items)))
+        shapes = [tuple(ws[i].shape) for i in chunk]
+        group = _SnVjpGroup()
+        group.col_cap, group.row_cap, group.tile_cap = vjp_smem(shapes)
+        scratch = torch.empty((vjp_scratch(shapes, group.row_cap),), dtype=torch.float32,
+                              device=big.device)
+        group.scratch = scratch.data_ptr() or None  # an empty buffer's is null
+        for k, i in enumerate(chunk):
+            d = group.w[k]
+            d.w, d.u0, d.gbar, d.dw = (t.data_ptr() for t in (ws[i], items[i][1], gbars[i],
+                                                              dws[i]))
+            d.gu = gus[i].data_ptr() if gus[i] is not None else None
+            d.gsigma = gsigmas[i].data_ptr() if gsigmas[i] is not None else None
+            d.m, d.cout = ws[i].shape
+        smem = 4 * (3 * group.col_cap + 2 * group.row_cap + 2 * group.tile_cap)
+        code = runtime.on_device(big, fn, ctypes.addressof(group), len(chunk), smem)
+        runtime.check_cuda_status(lib, "sn_error_string", code, "sn VJP launch")
+        runtime.count_launch("sn_bwd")
+    return dws
 
 
 def spectral_norm_group(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
