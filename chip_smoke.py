@@ -259,7 +259,25 @@ and the CIFAR app's Inception-v3 scorer:
    ``restore_sharded`` onto a ``(2, 2)`` mesh of four gloo ranks on the CPU
    (bit-equal, the five tensor-parallel leaves sharded on ``model``), and
    one full-width rcgan-u cycle there counting the bytes a rank gathers for
-   the cond-BN and sn rules.  It writes ``_smoke_gspmd/`` and removes it.
+   the cond-BN and sn rules.  It writes ``_smoke_gspmd/`` and removes it;
+17. BigGAN-128 (``models/biggan.py``, ``BigGANConfig()``: ch 96, 1,000
+   classes) at its own shapes, each against its plain version: spectral
+   norm and its VJP on the generator's whole group (41 weights up to
+   ``[13824, 1536]``, ``G.Input`` transposed) and the critic's; conv3x3 in
+   bf16 at every shape of the path (``biggan_convs``: G's at batch 256, D's
+   at 256 and at the critic step's 512), forward and both grads, on the
+   route each takes (wgmma, or cuDNN at 96 or 3 channels); the
+   dequantisation at 128x128x3 bytes a row, bit for bit; cond-BN with
+   256-row per-sample tables at C = 1,536 and C = 96 on 128x128 maps; the
+   attention op (``ops/attention.py``) forward and backward at G's and D's
+   shapes against the plain softmax on the first rows, the fused backend
+   named (``fused_backend``, and its kernels where the profiler reads the
+   card) and the peak memory of a call held below the logits' size; then
+   the cell's rcgan cycles at batch 256 one call each (eager, captured,
+   replayed) and three rcgan-u cycles in one call (the projection on its
+   ``addmm`` route), finite costs and every kernel's launches, by route,
+   equal to those read from the code (``biggan_cycle_counts``).
+   ``--only biggan`` runs phases 1, 2 and 17 alone.
 
 The line before the last is ``{"kernels": [...]}`` with all five kernels,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -287,7 +305,7 @@ the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
 any check fails.
 
-    python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0]
+    python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0] [--only biggan]
 """
 
 from __future__ import annotations
@@ -855,7 +873,7 @@ def projection_host_breakdown(torch, feat, emb, wgan, n: int = 2000) -> dict:
             torch._C._cuda_getDevice()),
         "data_ptr x4": lambda: (feat.data_ptr(), emb.data_ptr(), wgan.data_ptr(), out.data_ptr()),
         "ctypes call": lambda: fn(*args),
-        "launch count": lambda: runtime.count_launch("projection"),
+        "launch count": lambda: runtime.count_launch("projection", variant="cuda"),
         "former device and stream (context)": context_stream,
     }
     us = {}
@@ -930,13 +948,16 @@ def check_cond_bn(torch, x, labels, scale, offset, dtype_name: str, tag: str,
           f"{res[1][2]:.3e})")
 
 
-def check_conv3x3(torch, x, w, dtype_name: str, tag: str, max_err: dict, cotangent=None) -> str:
+def check_conv3x3(torch, x, w, dtype_name: str, tag: str, max_err: dict, cotangent=None,
+                  dw_tol=None) -> str:
     """conv3x3 on float32 ``x [B, H, W, C]`` and ``w [3, 3, C, O]`` cast to
     ``dtype_name``, against the plain version, each call on the route that
     ``conv3x3_variant`` names and on no other; with ``cotangent`` (float32
     ``[B, H, W, O]``) also the backward: the input grad through conv3x3, the
-    weight grad on cuDNN.  The forward's and the input grad's largest errors
-    go to ``max_err`` by dtype and route.  Returns the forward's route."""
+    weight grad on cuDNN, held to ``dw_tol`` of its largest magnitude where
+    that is given, else to ``TOL``.  The forward's and the input grad's
+    largest errors go to ``max_err`` by dtype and route.  Returns the
+    forward's route."""
     from rcgan_tpu_torch.ops.kernels import runtime
     from rcgan_tpu_torch.ops.kernels.conv_kernel import (conv3x3, conv3x3_plain,
                                                          conv3x3_variant, ffma_geometry)
@@ -959,6 +980,9 @@ def check_conv3x3(torch, x, w, dtype_name: str, tag: str, max_err: dict, cotange
     ran = {k: n - before[k] for k, n in runtime.variant_counts("conv3x3").items()}
     torch.cuda.synchronize()
     res = [compare(torch, a, r.detach(), dtype_name) for a, r in zip(got, ref)]
+    if dw_tol is not None and len(res) == 3:
+        ok, err = compare_scaled(torch, got[2], ref[2].detach(), dw_tol)
+        res[2] = (ok, err * max(ref[2].abs().max().item(), 1e-6), err)
     for route, (_, err, _) in zip(routes, res):
         if dtype_name == "bfloat16":
             max_err["conv3x3_bf16"][route] = max(max_err["conv3x3_bf16"][route], err)
@@ -4902,11 +4926,325 @@ def _restore_plain(torch, seed: int, ckpt: str):
     return Checkpointer(ckpt).restore(tr.init(seed + 1))
 
 
+# Phase 17, BigGAN-128 at its published widths (``BigGANConfig()``).
+BIGGAN_BATCH = 256
+# cuDNN's bf16 weight gradient of a 3x3 conv summed over 256 maps of
+# 64x64 or 128x128 (1-4 M positions a tap) lies up to about one bf16 ulp
+# of the gradient's largest magnitude from float32 (3.1e-3 of it at
+# [256, 128, 128, 192] -> 96 on an H100, 700 W): it rounds its partial sums
+# to bf16, where TOL assumes one rounding of each output.  2^-7 of the
+# largest magnitude is 2.5x that reading.
+BIGGAN_DW_TOL = 2.0 ** -7
+# The attention op against the plain softmax, bf16: both read the same
+# bf16 q, k, v; the fused backends round the weights to bf16 before their
+# product with v (2^-8 relative) and the output once, and sum 1,024 terms
+# in float32 in their own order; 2^-6 of the output's scale covers that
+# with room.  The backward's cotangents sum the same terms through the
+# recomputed softmax, likewise.
+ATTN_TOL = 2.0 ** -6
+
+
+def biggan_convs(cfg) -> tuple:
+    """The 3x3 convs of one BigGAN generator forward and of one critic pass,
+    in order, as ``(map side, C, O)``: each G block's two at the block's
+    output resolution, then the output conv; each D block's two at the
+    block's input resolution (it pools after them), the first taking the
+    images."""
+    from rcgan_tpu_torch.models.biggan import d_arch, g_arch
+
+    ga, da = g_arch(cfg.dim_g, cfg.img_size), d_arch(cfg.dim_d, cfg.img_size)
+    g = [(r, c, o) for cin, cout, r in zip(ga["in"], ga["out"], ga["resolution"])
+         for c, o in ((cin, cout), (cout, cout))] + [(cfg.img_size, ga["out"][-1], cfg.img_dim)]
+    d, r = [], cfg.img_size
+    for cin, cout, down in zip(da["in"], da["out"], da["down"]):
+        d += [(r, cin, cout), (r, cout, cout)]
+        r = r // 2 if down else r
+    return g, d
+
+
+def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
+    """Launches of one BigGAN training cycle in bf16 (perm classifier off),
+    read from the code as :func:`cycle_counts` reads CIFAR's: ``{"counts":
+    by kernel, "conv3x3", "projection": by route, "attn", "attn_bwd": by
+    variant}``.  A G forward runs its 3x3 convs (:func:`biggan_convs`),
+    two cond-BN a block and the output norm's, one SN launch for its group
+    and its attention blocks; a D pass its convs, one SN launch for its
+    group, one for the projection table (``projection(labels)``, or
+    ``all_label_logits`` in rcgan-u's fake pass and G step, which also
+    calls the projection op, on its ``addmm`` route at 1,000 x 1,536) and
+    its attention.  The G step runs G then D on the fakes: every conv of
+    both takes its input grad, every attention its backward, G's SN its VJP
+    and D's frozen weights none.  A critic step runs G frozen, then one D
+    pass on real and fake rows joined (rcgan-u: real alone, then fake
+    against every label), each conv but the first (its input is data)
+    taking its input grad, each SN launch its VJP, and dequantises the real
+    rows once.  A conv's route is :func:`conv3x3_variant`'s, its input grad
+    a conv from O to C; 1x1 convs and linears are products, not counted."""
+    from rcgan_tpu_torch.models.biggan import d_arch, g_arch
+    from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3_variant
+    from rcgan_tpu_torch.ops.kernels.projection_kernel import projection_route
+
+    ga, da = g_arch(cfg.dim_g, cfg.img_size), d_arch(cfg.dim_d, cfg.img_size)
+    g_convs, d_convs = biggan_convs(cfg)
+    g_attn = sum(r == cfg.attention_g for r in ga["resolution"])
+    d_attn = sum(r == cfg.attention_d for r in da["resolution"])
+    route = projection_route(cfg.vocab_size, da["out"][-1])
+    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0}
+    out = {"counts": counts, "conv3x3": {"wgmma": 0, "ffma": 0, "cudnn": 0},
+           "projection": {"cuda": 0, "addmm": 0}, "attn": 0, "attn_bwd": 0}
+
+    def convs(shapes, first_grad: bool, grads: bool = True):
+        for i, (r, c, o) in enumerate(shapes):
+            out["conv3x3"][conv3x3_variant((1, r, r, c), o, torch.bfloat16)] += 1
+            if grads and (i > 0 or first_grad):
+                out["conv3x3"][conv3x3_variant((1, r, r, o), c, torch.bfloat16)] += 1
+
+    def g_pass(grads: bool):
+        convs(g_convs, True, grads)
+        counts["cond_bn"] += 2 * len(ga["in"]) + 1
+        counts["sn"] += 1
+        counts["sn_bwd"] += grads
+        out["attn"] += g_attn
+        out["attn_bwd"] += grads * g_attn
+
+    def d_pass(weight_grads: bool, all_labels: bool):
+        convs(d_convs, not weight_grads)
+        counts["sn"] += 2
+        counts["sn_bwd"] += 2 * weight_grads
+        out["attn"] += d_attn
+        out["attn_bwd"] += d_attn
+        out["projection"][route] += all_labels
+
+    u = algorithm == "rcgan-u"
+    if g_step:
+        g_pass(True)
+        d_pass(False, u)
+    for _ in range(2):  # n_critic
+        g_pass(False)
+        for fake_all_labels in ((False, True) if u else (False,)):
+            d_pass(True, fake_all_labels)
+        counts["dequant"] += 1
+    counts["conv3x3"] = out["conv3x3"]["wgmma"] + out["conv3x3"]["ffma"]
+    counts["projection"] = out["projection"]["cuda"]
+    return out
+
+
+def biggan_cycles(torch, dev, cfg, b: int, seed: int) -> dict:
+    """Phase 17's cycles: the cell's rcgan cycles one call each (iteration 0
+    eager, 1 captured, 2 replayed), then three rcgan-u cycles in one call
+    (the projection's addmm route), each call's launches held to
+    :func:`biggan_cycle_counts`.  Returns ``{algorithm: {"launches" of the
+    last call, "peak_bytes"}}``."""
+    import numpy as np
+
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+
+    out = {}
+    c = np.full((cfg.vocab_size, cfg.vocab_size), 0.4 / (cfg.vocab_size - 1), np.float64)
+    np.fill_diagonal(c, 0.6)
+    n_data = 4 * b
+    ds = {"images": torch.randint(0, 256, (n_data, cfg.output_dim), device=dev,
+                                  dtype=torch.uint8),
+          "labels": torch.randint(0, cfg.vocab_size, (n_data,), device=dev, dtype=torch.int32),
+          "labels_random": torch.randint(0, cfg.vocab_size, (n_data,), device=dev,
+                                         dtype=torch.int32),
+          "labels_biased": torch.randint(0, cfg.vocab_size, (n_data,), device=dev,
+                                         dtype=torch.int32),
+          "labels_inv_weights": torch.as_tensor(np.linalg.inv(c), dtype=torch.float32,
+                                                device=dev)[torch.zeros(n_data, dtype=torch.long,
+                                                                        device=dev)]}
+    rs = np.random.RandomState(seed)
+
+    def launches():
+        return {"counts": runtime.launch_counts(), "conv3x3": runtime.variant_counts("conv3x3"),
+                "projection": runtime.variant_counts("projection"),
+                "attn": runtime.variant_counts("attn")["sdpa"],
+                "attn_bwd": runtime.variant_counts("attn_bwd")["sdpa"]}
+
+    def summed(ws):
+        return {k: (sum(w[k] for w in ws) if isinstance(ws[0][k], int)
+                    else {kk: sum(w[k][kk] for w in ws) for kk in ws[0][k]}) for k in ws[0]}
+
+    for alg, calls in (("rcgan", (1, 1, 1)), ("rcgan-u", (3,))):
+        acfg = dataclasses.replace(cfg, algorithm=alg)
+        tr = CifarTrainer(acfg, CifarAlgoConfig(algorithm=alg, vocab_size=cfg.vocab_size),
+                          CifarTrainConfig(lr=1e-4, d_lr=4e-4, beta2=0.999, n_critic=2,
+                                           gen_bs_multiple=1, decay=False),
+                          c, dev, compute_dtype=torch.bfloat16, device_dataset=ds)
+        ts = tr.init(seed)
+        torch.cuda.reset_peak_memory_stats()
+        it = 0
+        for k in calls:
+            runtime.reset_launch_counts()
+            t = time.perf_counter()
+            ts, ms = tr.step_scan(ts, rs.randint(0, n_data, (k, 2, b)),
+                                  rs.randint(0, cfg.vocab_size, (k, b)),
+                                  rs.randint(0, cfg.vocab_size, (k, b)), seed=seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            costs = torch.stack([ms["d_cost"], ms["g_cost"]]).cpu()
+            got = launches()
+            want = summed([biggan_cycle_counts(torch, cfg, alg, j > 0)
+                           for j in range(it, it + k)])
+            check(bool(torch.isfinite(costs).all()) and got == want,
+                  f"BigGAN {alg}, cycles {it} to {it + k - 1} in one call at batch {b}: costs "
+                  f"{costs.tolist()}, launches {got} (want {want}), {wall:.1f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            it += k
+        out[alg] = {"launches": got, "peak_bytes": torch.cuda.max_memory_allocated()}
+        del tr, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ds
+    return out
+
+
+def biggan_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 17 (module doc).  Returns ``{"attention": {"backend",
+    "kernels"}, "rcgan": ..., "rcgan-u": {"launches" of the last call,
+    "peak_bytes"}}``."""
+    from rcgan_tpu_torch.core import rng as trng
+    from rcgan_tpu_torch.models import biggan
+    from rcgan_tpu_torch.ops import attention as attn
+    from rcgan_tpu_torch.ops.kernels import runtime
+    from rcgan_tpu_torch.ops.kernels.dequant_kernel import (dequantize, dequantize_plain,
+                                                            row_noise)
+    from rcgan_tpu_torch.ops.sn import sn_layers
+
+    cfg = biggan.BigGANConfig()
+    gen = torch.Generator().manual_seed(seed + 17)
+    max_err = {"sn": 0.0, "sn_bwd": 0.0, "conv3x3": 0.0, "conv3x3_cudnn": 0.0,
+               "conv3x3_bf16": {"wgmma": 0.0, "ffma": 0.0, "cudnn": 0.0}}
+    out: dict = {}
+    b = BIGGAN_BATCH
+
+    # spectral norm on the whole groups, as the forwards prepare them
+    g_mod, d_mod = biggan.Generator(cfg, seed, device="cpu"), biggan.Discriminator(cfg, seed)
+    for tag, mod in (("BigGAN G", g_mod), ("BigGAN D", d_mod)):
+        pairs = []
+        for layer in sn_layers(mod):
+            w = getattr(layer, layer.sn_weight).detach()
+            w = w.T.contiguous() if layer.sn_transposed else w.reshape(-1, w.shape[-1])
+            pairs.append((w.to(dev), layer.u.detach().to(dev)))
+        check_sn_group(torch, pairs, tag, max_err)
+        check_sn_vjp(torch, pairs, tag, max_err, gen)
+    del g_mod, d_mod
+
+    # conv3x3 at every shape of the path: G's convs at its batch, D's at the
+    # generator step's batch and at the critic step's (real and fake rows
+    # joined), on the route each takes (the 96- and 3-channel ones on cuDNN)
+    dgen = torch.Generator(device=dev).manual_seed(seed + 1717)
+    g_convs, d_convs = biggan_convs(cfg)
+    for n, (r, c, o) in sorted({(b, sh) for sh in g_convs} | {(nb, sh) for nb in (b, 2 * b)
+                                                             for sh in d_convs}):
+        x = torch.randn((n, r, r, c), generator=dgen, device=dev)
+        w = torch.randn((3, 3, c, o), generator=dgen, device=dev) / math.sqrt(9 * c)
+        cot = torch.randn((n, r, r, o), generator=dgen, device=dev)
+        check_conv3x3(torch, x, w, "bfloat16", "BigGAN conv3x3", max_err, cotangent=cot,
+                      dw_tol=BIGGAN_DW_TOL)
+        del x, w, cot
+    torch.cuda.empty_cache()
+
+    # dequantisation at the cell's rows of 128x128x3 bytes: the kernel bit
+    # for bit against its plain version on the card and on the CPU
+    xq = torch.randint(0, 256, (b, cfg.output_dim), generator=dgen, device=dev,
+                       dtype=torch.uint8)
+    sq = torch.from_numpy(trng.example_seeds(seed + 17, b)).to(dev)
+    got = dequantize(xq, sq, cfg.img_size, cfg.img_dim)
+    plain = dequantize_plain(xq, row_noise(sq, cfg.output_dim), cfg.img_size, cfg.img_dim)
+    on_cpu = dequantize(xq.cpu(), sq.cpu(), cfg.img_size, cfg.img_dim)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and got.shape == (b, cfg.output_dim)
+          and torch.equal(got, plain) and torch.equal(got.cpu(), on_cpu),
+          f"BigGAN dequant [{b},{cfg.output_dim}] ({cfg.img_size}x{cfg.img_size}x{cfg.img_dim}): "
+          f"kernel bit-equal to its plain version on the card and on the CPU (max abs err "
+          f"{(got - plain).abs().max().item():.1e})")
+    del xq, sq, got, plain, on_cpu
+
+    # cond-BN with per-sample tables of B rows
+    cbn_err = {"cond_bn": 0.0}
+    rows = torch.arange(b, device=dev)
+    for hw, c in ((4 * 4, 1536), (8 * 8, 1536), (128 * 128, 96)):
+        x = (torch.randn((b, hw, c), generator=gen) * 2 + 0.5).to(dev)
+        scale = (1 + 0.2 * torch.randn((b, c), generator=gen)).to(dev)
+        offset = (0.2 * torch.randn((b, c), generator=gen)).to(dev)
+        for dt in ("float32", "bfloat16"):
+            check_cond_bn(torch, x, rows, scale, offset, dt, f"BigGAN cond-BN, {b}-row tables",
+                          cbn_err)
+        del x
+    torch.cuda.empty_cache()
+
+    # the attention op at G's and D's shapes: the fused forward and
+    # backward against the plain softmax on the first rows
+    names, backends = set(), set()
+    for tag, n, ch in (("G", b, 2 * cfg.dim_g), ("D", 2 * b, cfg.dim_d)):
+        q, k = (torch.randn((n, nn, ch // 8), generator=gen).to(dev, torch.bfloat16)
+                for nn in (4096, 1024))
+        v = torch.randn((n, 1024, ch // 2), generator=gen).to(dev, torch.bfloat16)
+        g = torch.randn((n, 4096, ch // 2), generator=gen).to(dev, torch.bfloat16)
+        ins = [t.requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        runtime.reset_launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            y = attn.attention(*ins)
+            grads = torch.autograd.grad(y, ins, g)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        logits = n * 4096 * 1024 * 2
+        # the backend by name, where the profiler reads the card (after the
+        # earlier phases' traces it may read nothing); the peak, below the
+        # logits' size, is what shows that no backend held them
+        kernels = sorted({e.key for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and any(key in e.key for key in ("flash", "fmha", "attention"))})
+        names.update(kernels)
+        backend = attn.fused_backend(q, k, v)
+        backends.add(backend)
+        m = 32
+        ref_in = [t[:m].detach().float().requires_grad_(True) for t in ins]
+        with torch.no_grad():
+            ref_y = attn.attention_plain(*ref_in)
+        ref_g = attn.attention_backward_plain(g[:m].float(), *ref_in)
+        res = [compare_scaled(torch, a[:m].float(), r, ATTN_TOL)
+               for a, r in zip((y, *grads), (ref_y, *ref_g))]
+        counted = (runtime.variant_counts("attn"), runtime.variant_counts("attn_bwd"))
+        check(all(ok for ok, _ in res) and peak < logits
+              and counted == ({"sdpa": 1}, {"sdpa": 1}) and backend in attn.FUSED,
+              f"BigGAN attention ({tag}: q [{n}, 4096, {ch // 8}], v [{n}, 1024, {ch // 2}]) "
+              f"bf16 on {backend}, forward and backward against the plain softmax on {m} rows: "
+              f"max err of "
+              f"scale " + ", ".join(f"{nm} {e:.3e}" for nm, (_, e) in
+                                    zip(("y", "dq", "dk", "dv"), res))
+              + f" (limit {ATTN_TOL:.3e}); peak {peak / 2**30:.2f} GiB against logits of "
+              f"{logits / 2**30:.2f} GiB; kernels {kernels or 'not read by the profiler'}; "
+              f"counted {counted}")
+        del q, k, v, g, ins, y, grads
+    out["attention"] = {"backend": sorted(backends), "kernels": sorted(names)}
+    torch.cuda.empty_cache()
+
+    out.update(biggan_cycles(torch, dev, cfg, b, seed))
+    return out
+
+
+def compare_scaled(torch, got, ref, tol: float):
+    """(ok, max abs err over the reference's largest magnitude) within ``tol``."""
+    scale = max(ref.abs().max().item(), 1e-6)
+    err = (got.float() - ref).abs().max().item() / scale
+    return bool(torch.isfinite(got).all()) and err <= tol, err
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint_dir", default=None,
                    help="serve this generator.npz instead of seeded random weights")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--only", choices=("biggan",), default=None,
+                   help="run the device check, the builds and this phase alone")
     args = p.parse_args(argv)
     # the phases' host seconds, printed as each ends
     clock = [time.perf_counter(), time.perf_counter()]
@@ -4978,6 +5316,15 @@ def main(argv=None) -> int:
     print("  conv3x3 (FFMA) dynamic shared memory per block: " + ", ".join(
         f"{bm} x {bm} tile {smem(bm, size)} bytes ({name})"
         for bm in (128, 64) for size, name in ((4, "float32"), (2, "bf16"))), flush=True)
+    if args.only == "biggan":
+        biggan = biggan_slice(torch, dev, args.seed, card)
+        lap("phase 17")
+        print(json.dumps({"biggan": biggan}), flush=True)
+        if failures:
+            print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
+            return 1
+        print(json.dumps({"ok": True, "only": "biggan"}), flush=True)
+        return 0
 
     # ---- the float32 policy, before any Sampler exists: a float32 entry()
     # turns TF32 off itself (core.module.float32_policy); its logits are held
@@ -5355,6 +5702,11 @@ def main(argv=None) -> int:
     gspmd = gspmd_slice(torch, dev, args.seed, card)
     lap("phase 16")
     print(json.dumps({"compiled_parallel": {**dp["rows"], **gspmd["rows"]}}), flush=True)
+
+    # ------------------------------------------------------------ 17. BigGAN
+    biggan = biggan_slice(torch, dev, args.seed, card)
+    lap("phase 17")
+    print(json.dumps({"biggan": biggan}), flush=True)
 
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)

@@ -29,9 +29,8 @@ from rcgan_tpu_torch.algorithms.losses import d_fake_loss, d_real_loss, g_loss, 
 from rcgan_tpu_torch.core import initializers as inits
 from rcgan_tpu_torch.core.module import (Scoped, float32_policy, set_compute_dtype,
                                           sn_updates)
-from rcgan_tpu_torch.models.resnet_gan import (Discriminator, DiscriminatorProjection,
-                                               Generator, PermClassifier, ResnetGANConfig,
-                                               projection_logits)
+from rcgan_tpu_torch.models import biggan, resnet_gan
+from rcgan_tpu_torch.models.resnet_gan import PermClassifier, ResnetGANConfig, projection_logits
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.ops.linear import take_rows
 
@@ -77,18 +76,22 @@ class ConfusionLogits(Scoped):
 
 
 class CifarGAN(nn.Module):
-    """The trainer's layers and the CIFAR loss forwards.  Parameters are
-    drawn from ``seed`` and placed on ``device``; every layer computes in
-    ``compute_dtype`` (float32 or bfloat16) at its conv or matmul."""
+    """The trainer's layers and the CIFAR loss forwards.  The architecture
+    is the config's: the paper's SNGAN (``ResnetGANConfig``) or BigGAN
+    (``models.biggan.BigGANConfig``), whose modules have the same
+    interfaces.  Parameters are drawn from ``seed`` and placed on
+    ``device``; every layer computes in ``compute_dtype`` (float32 or
+    bfloat16) at its conv or matmul."""
 
     def __init__(self, cfg: ResnetGANConfig = ResnetGANConfig(),
                  acfg: CifarAlgoConfig = CifarAlgoConfig(), seed: int = 0, device="cuda",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.acfg = cfg, acfg
-        self.G = Generator(cfg, seed, device="cpu")  # built on the CPU, moved below
-        self.D = Discriminator(cfg, seed)
-        self.projection = DiscriminatorProjection(cfg, seed)
+        arch = biggan if isinstance(cfg, biggan.BigGANConfig) else resnet_gan
+        self.G = arch.Generator(cfg, seed, device="cpu")  # built on the CPU, moved below
+        self.D = arch.Discriminator(cfg, seed)
+        self.projection = arch.DiscriminatorProjection(cfg, seed)
         self.perm = PermClassifier(cfg, seed) if acfg.perm_classifier else None
         self.confusion = ConfusionLogits(acfg, seed) if acfg.algorithm == "rcgan-u" else None
         set_compute_dtype(self, compute_dtype)

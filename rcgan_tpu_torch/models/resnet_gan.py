@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rcgan_tpu_torch.core.module import sn_updates
 from rcgan_tpu_torch.ops.conv import Conv2dLib, mean_pool, upsample_depth_to_space
 from rcgan_tpu_torch.ops.kernels.projection_kernel import all_label_projection_logits
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
@@ -319,6 +320,7 @@ def sample(generator: Generator, z: torch.Tensor, labels: torch.Tensor) -> torch
     """Counterpart of ``CifarTrainer.sample``: the generator forward with
     batch statistics in cond-BN (``train=True`` in JAX; there is no other
     mode), under ``torch.inference_mode``, returned as float32
-    ``[B, output_dim]``."""
-    with torch.inference_mode():
+    ``[B, output_dim]``.  A spectral-normed generator (BigGAN's) keeps its
+    ``u``: a sample is no training step."""
+    with torch.inference_mode(), sn_updates(generator, False):
         return generator(z, labels).float()

@@ -16,8 +16,14 @@ epilogue.  The wrapper keeps the host's cost of a call small: the entry
 point's ``argtypes`` are set once, the checks are the kernel's needs, and
 the stream is found by ``runtime.on_device``'s raw lookups.
 
+The kernel stages ``emb`` whole in shared memory, so a CUDA call takes it
+only where V·D is at most 12,288 (:func:`projection_route`, a rule of shape
+as conv3x3's is): a wider table (BigGAN's 1000 x 1536) goes to cuBLAS, one
+``torch.addmm`` in float32, counted under its variant ``addmm`` and left out
+of the kernel's own count (``runtime.LIBRARY_VARIANTS``).
+
 The call is the ``torch.library`` op ``rcgan::projection_logits(feat, emb,
-wgan)``: a CPU implementation (the plain version), a CUDA one (the launch,
+wgan)``: a CPU implementation (the plain version), a CUDA one (the route,
 counted there: :func:`projection_logits_cuda`) and a fake one, with two
 DTensor sharding rules: rows sharded on dim 0 with ``emb`` replicated, or
 everything replicated.
@@ -63,6 +69,20 @@ def _check(feat, emb, wgan):
         raise ValueError("projection wants contiguous tensors")
 
 
+def projection_route(v: int, d: int) -> str:
+    """The route of a CUDA call against ``emb [v, d]``: ``"cuda"`` (the
+    kernel) where the table fits its shared memory, else ``"addmm"``."""
+    return "cuda" if v * d <= _MAX_EMB else "addmm"
+
+
+def _addmm(feat, emb, wgan):
+    """The ``"addmm"`` route: ``wgan + feat · embᵀ`` in float32 by cuBLAS."""
+    _check(feat, emb, wgan)
+    out = torch.addmm(wgan.float(), feat.float(), emb.float().T)
+    runtime.count_launch("projection", variant="addmm")
+    return out
+
+
 def _launch(feat, emb, wgan):
     _check(feat, emb, wgan)
     b, d = feat.shape
@@ -84,16 +104,18 @@ def _launch(feat, emb, wgan):
                              DTYPE_CODES[emb.dtype], wgan.data_ptr(), DTYPE_CODES[wgan.dtype],
                              out.data_ptr(), b, v, d)
     runtime.check_cuda_status(lib, "projection_error_string", code, "projection launch")
-    runtime.count_launch("projection")
+    runtime.count_launch("projection", variant="cuda")
     return out
 
 
 def projection_logits_cuda(feat, emb, wgan):
-    """The op's CUDA implementation: the launch on the current stream, or an
-    error; tensors that are not all on one CUDA device raise
-    (``runtime.on_cuda``)."""
+    """The op's CUDA implementation: the route of ``emb``'s shape
+    (:func:`projection_route`) on the current stream, or an error; tensors
+    that are not all on one CUDA device raise (``runtime.on_cuda``)."""
     if not runtime.on_cuda(feat, emb, wgan):
         raise ValueError("projection_logits' CUDA implementation takes CUDA tensors")
+    if emb.dim() == 2 and projection_route(*emb.shape) == "addmm":
+        return _addmm(feat, emb, wgan)
     return _launch(feat, emb, wgan)
 
 
@@ -142,6 +164,6 @@ class ProjectionLogitsFn(torch.autograd.Function):
 def all_label_projection_logits(feat: torch.Tensor, emb: torch.Tensor,
                                 wgan: torch.Tensor) -> torch.Tensor:
     """``feat [B, D]``, ``emb [V, D]``, ``wgan [B, 1]`` → float32 ``[B, V]``.
-    CPU tensors take :func:`projection_plain`; CUDA tensors launch the CUDA
-    kernel on the current stream (or raise)."""
+    CPU tensors take :func:`projection_plain`; CUDA tensors take the route
+    of ``emb``'s shape on the current stream (or raise)."""
     return ProjectionLogitsFn.apply(feat, emb, wgan)

@@ -50,11 +50,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("cond_bn", "conv3x3", "sn", "sn_bwd", "projection", "dequant")
 # A kernel with several implementations also counts each call under its
 # variant.  A variant in LIBRARY_VARIANTS is a call routed by shape to a
-# library (cuDNN), not a launch of a hand-written kernel: it is counted by
-# variant, so that a run shows where every call went, and left out of the
-# kernel's own count, which is the total of the other variants.
-VARIANTS = {"conv3x3": ("wgmma", "ffma", "cudnn")}
-LIBRARY_VARIANTS = {"conv3x3": ("cudnn",)}
+# library (cuDNN, cuBLAS), not a launch of a hand-written kernel: it is
+# counted by variant, so that a run shows where every call went, and left
+# out of the kernel's own count, which is the total of the other variants.
+# The attention op's forward and backward (``ops/attention.py``) have only a
+# library route so far, PyTorch's fused scaled-dot-product attention.
+VARIANTS = {"conv3x3": ("wgmma", "ffma", "cudnn"), "projection": ("cuda", "addmm"),
+            "attn": ("sdpa",), "attn_bwd": ("sdpa",)}
+LIBRARY_VARIANTS = {"conv3x3": ("cudnn",), "projection": ("addmm",), "attn": ("sdpa",),
+                    "attn_bwd": ("sdpa",)}
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}
 _variant_counts: Dict[str, Dict[str, int]] = {k: dict.fromkeys(v, 0) for k, v in VARIANTS.items()}
 _count_lock = threading.Lock()

@@ -39,11 +39,16 @@ from rcgan_tpu_torch.ops.kernels.sn_kernel import spectral_norm_group
 _SLOT = "_sn_prepared"
 
 
-def add_sn_state(layer: Scoped, cout: int, weight: str) -> None:
+def add_sn_state(layer: Scoped, cout: int, weight: str, transposed: bool = False) -> None:
     """The layer's persistent ``u [1, cout]``, truncated-normal(1.0) as in
-    JAX; ``weight`` names the parameter that is normalized."""
+    JAX; ``weight`` names the parameter that is normalized.  ``transposed``:
+    the 2-D weight ``[m, n]`` is normalized as its transpose ``[n, m]``
+    (the same σ), so that ``u`` lies on its input side and ``cout`` is
+    ``m``: for a layer whose output is wider than the kernel's ``u`` holds
+    (``sn_kernel.MAX_COUT``)."""
     layer.add_stat("u", (1, cout), inits.truncated_normal(1.0))
     layer.sn_weight = weight
+    layer.sn_transposed = transposed
 
 
 def sn_layers(module: torch.nn.Module) -> List[Scoped]:
@@ -62,15 +67,18 @@ def _steps(layers: List[Scoped], weights: List[torch.Tensor]):
                     f"{layer.scope}: spectral-norm u update under torch.inference_mode would "
                     "keep an inference tensor as state; use torch.no_grad(), or "
                     "sn_updates(module, False)")
-    pairs = [(w.float().reshape(-1, w.shape[-1]), layer.u) for layer, w in zip(layers, weights)]
+    flip = [getattr(layer, "sn_transposed", False) for layer in layers]
+    pairs = [(w.float().T.contiguous() if t else w.float().reshape(-1, w.shape[-1]), layer.u)
+             for layer, w, t in zip(layers, weights, flip)]
     out = []
-    for layer, w, (w_bar, u_new, sigma) in zip(layers, weights, spectral_norm_group(pairs)):
+    for layer, w, t, (w_bar, u_new, sigma) in zip(layers, weights, flip,
+                                                   spectral_norm_group(pairs)):
         if layer.update_sn:
             # rebind, never copy_: autograd saved the old u for the backward;
             # a trainer's step copies the last u back into the buffer it
             # started from (train/state.py::state_in_place)
             layer.u = u_new.detach()
-        out.append((w_bar.reshape(w.shape).to(w.dtype), sigma))
+        out.append(((w_bar.T if t else w_bar.reshape(w.shape)).to(w.dtype), sigma))
     return out
 
 

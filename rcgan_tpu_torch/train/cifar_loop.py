@@ -99,6 +99,9 @@ class CifarTrainConfig:
     confuse_lr_decay: bool = False
     # Adam moments stored in a narrower dtype ("bfloat16"); None: float32
     moment_dtype: Optional[str] = None
+    # the critic's learning rate where it differs from ``lr`` (G's), as
+    # BigGAN's two time-scales; decayed as ``lr`` is
+    d_lr: Optional[float] = None
 
 
 def optimizers(tcfg: CifarTrainConfig) -> Dict[str, ScalelessAdam]:
@@ -240,6 +243,7 @@ class CifarTrainer:
         if noise is not None:
             row.update({k: self._rows(self._host(noise[k]), 0 if k == "zg" else 1)
                         for k in ("zg", "z", "u")})
+        d_lr = lr if tcfg.d_lr is None else tcfg.d_lr * decay
         adam = np.zeros((2 + tcfg.n_critic, 5), np.float32)
         if iteration > 0:  # the reference skips the G step at iteration 0
             for i, (g, g_lr) in enumerate((("gen", lr), ("confusion", confuse_lr))):
@@ -250,7 +254,7 @@ class CifarTrainer:
         st = ts.opt_states["disc"]
         for k in range(tcfg.n_critic):
             st.count += 1
-            adam[2 + k] = self.optimizers["disc"].scalars(st.count, lr)
+            adam[2 + k] = self.optimizers["disc"].scalars(st.count, d_lr)
         row["adam"] = adam
         return row
 

@@ -28,7 +28,15 @@ returns its totals beside the capture counters:
   steps.  The totals start again at each capture, so that they cover the
   steps of the graph that runs and not the eager steps and capture before
   it; and a start or stop of the profiler drops the one ``between`` it
-  falls in.
+  falls in;
+- nested device spans, ``with span(name):`` inside a phase: a mark that
+  opens ``name`` and, at the block's end, a mark that opens the enclosing
+  phase again, so that the phase's total leaves out the nested span's and
+  the two add up to what the phase alone reads.  An op calls it in its
+  forward and its backward (``ops/attention.py``); autograd runs a card's
+  backward on a thread of its own, on the step's stream, so a thread
+  outside any body takes the spans of the body that the process runs.
+  Nested spans take their slots from the same ``_SLOTS``.
 
 The device marks are on by default; :data:`device_marks` turns them off (it
 is read as a body runs, so a graph keeps what its capture found).  The
@@ -42,7 +50,7 @@ import ctypes
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -55,6 +63,7 @@ BETWEEN = "between"     # the device span from a step's last mark to the next st
 _SLOTS = 31             # device spans a program may name (slot 0 of the buffer: the last stamp)
 
 _running = threading.local()  # .spans: the Spans of the body this thread runs
+_process: Optional["Spans"] = None  # the Spans of the body the process runs, for other threads
 
 
 def _profiling() -> bool:
@@ -89,6 +98,23 @@ def mark(name: str) -> None:
     spans = getattr(_running, "spans", None)
     if spans is not None:
         spans.mark(name)
+
+
+@contextlib.contextmanager
+def span(name: str) -> Iterator[None]:
+    """A device span ``name`` nested in the phase open when the block
+    starts, which opens again when it ends (module doc); nothing outside a
+    program's body."""
+    spans = getattr(_running, "spans", None) or _process
+    if spans is None or not device_marks:
+        yield
+        return
+    outer = spans._open
+    spans.mark(name)
+    try:
+        yield
+    finally:
+        spans.mark(outer)
 
 
 class _HostSpan:
@@ -150,12 +176,14 @@ class Spans:
     def active(self):
         """Inside the block this thread's :func:`mark` calls go to these
         spans (a step's body runs there), its first closing ``between``."""
-        prev = getattr(_running, "spans", None)
-        _running.spans, self._open = self, BETWEEN
+        global _process
+        prev, prev_process = getattr(_running, "spans", None), _process
+        _running.spans = _process = self
+        self._open = BETWEEN
         try:
             yield
         finally:
-            _running.spans = prev
+            _running.spans, _process = prev, prev_process
 
     def mark(self, name: str) -> None:
         """Close the span the previous mark opened and open ``name``: on a

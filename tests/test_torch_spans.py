@@ -231,3 +231,76 @@ class _Null:
 
     def __exit__(self, *exc):
         return None
+
+
+class _Clock:
+    """A host clock that moves only when the test moves it."""
+
+    def __init__(self):
+        self.ns = 1_000
+
+    def perf_counter_ns(self):
+        return self.ns
+
+    def perf_counter(self):
+        return self.ns * 1e-9
+
+
+def _phases(monkeypatch, nested: bool, thread: bool = False):
+    """The device totals of one body of three phases on the fake clock,
+    with or without a nested span of 7 ns in ``d.backward`` (from another
+    thread with ``thread``, as autograd runs a card's backward)."""
+    import threading
+
+    clock = _Clock()
+    monkeypatch.setattr(profiling, "time", clock)
+    spans = profiling.Spans("cpu")
+
+    def attention():
+        with profiling.span("attn.bwd"):
+            clock.ns += 7
+
+    with spans.active():
+        profiling.mark("d.forward")
+        clock.ns += 5
+        profiling.mark("d.backward")
+        clock.ns += 3
+        if nested and thread:
+            t = threading.Thread(target=attention)
+            t.start()
+            t.join()
+        elif nested:
+            attention()
+        else:
+            clock.ns += 7
+        clock.ns += 4
+        profiling.mark("d.update")
+        clock.ns += 2
+        profiling.mark("between")
+    spans.steps = 1
+    return {k[len("device_s."):]: round(v * 1e9) for k, v in spans.stats().items()
+            if k.startswith("device_s.")}
+
+
+@pytest.mark.parametrize("thread", [False, True])
+def test_nested_spans_split_their_phase(monkeypatch, thread):
+    """A nested span takes its own time out of the phase open around it and
+    the phase resumes after it: the phase's total plus the nested one's is
+    the phase's total without nested marks, every other phase reads the
+    same, and a body without nested marks reads what a body of plain
+    marks reads; a thread outside the body (autograd's) marks into the
+    body's spans."""
+    plain = _phases(monkeypatch, nested=False)
+    assert plain == {"between": 0, "d.forward": 5, "d.backward": 14, "d.update": 2}
+    got = _phases(monkeypatch, nested=True, thread=thread)
+    assert got["attn.bwd"] == 7 and got["d.backward"] + got["attn.bwd"] == plain["d.backward"]
+    assert {k: v for k, v in got.items() if k not in ("attn.bwd", "d.backward")} == \
+        {k: v for k, v in plain.items() if k != "d.backward"}
+
+
+def test_a_nested_span_outside_a_body_marks_nothing(monkeypatch):
+    monkeypatch.setattr(profiling, "_process", None)
+    with profiling.span("attn.fwd"):
+        pass
+    spans = profiling.Spans("cpu")
+    assert spans.stats() == {}

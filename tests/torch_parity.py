@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
+from rcgan_tpu_torch.ops import attention
 from rcgan_tpu_torch.ops.kernels import (conv_kernel, dequant_kernel, norm_kernel,
                                          projection_kernel, runtime, sn_kernel)
 
@@ -112,7 +113,8 @@ def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
     """Until the test ends, CPU and meta tensors reach the CUDA
     implementations of the ``rcgan`` ops named in ``ops`` (``"conv3x3"``,
     ``"cond_batchnorm"``, ``"sn_group"``, ``"projection_logits"``,
-    ``"dequantize"``), looked up at each call so that a test may patch
+    ``"dequantize"``, ``"attention"``, ``"attention_backward"``), looked up
+    at each call so that a test may patch
     the launches under them, as tensors on a card do: with
     ``runtime.on_cuda`` and the libraries mocked, a test drives the launch
     path on this machine.  The overriding ``torch.library.Library`` is held
@@ -122,7 +124,9 @@ def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
              "cond_batchnorm": lambda *a: norm_kernel.cond_batchnorm_cuda(*a),
              "sn_group": lambda ws, us: sn_kernel.sn_group_cuda(ws, us),
              "projection_logits": lambda *a: projection_kernel.projection_logits_cuda(*a),
-             "dequantize": lambda *a: dequant_kernel.dequantize_cuda(*a)}
+             "dequantize": lambda *a: dequant_kernel.dequantize_cuda(*a),
+             "attention": lambda *a: attention.attention_cuda(*a),
+             "attention_backward": lambda *a: attention.attention_backward_cuda(*a)}
     lib = torch.library.Library("rcgan", "IMPL")
     for op in ops:
         for key in ("CPU", "Meta"):
