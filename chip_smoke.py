@@ -12,7 +12,7 @@ app's default width (``apps/pggan_app.py``: 64x64, max_stage 4, dim 128)
 and the CIFAR app's Inception-v3 scorer:
 
 1. device check (CUDA required), card name and power limit, versions;
-2. build of the hand-written kernels from the repo's sources (the six
+2. build of the hand-written kernels from the repo's sources (the seven
    nvcc builds in parallel),
    with what ``ptxas -v`` reports for each CUDA kernel (registers, spills,
    static shared memory) and the dynamic shared memory each conv tile asks
@@ -99,7 +99,7 @@ and the CIFAR app's Inception-v3 scorer:
    on cuDNN in bf16 and on the plain version; weight grads), beside their
    bound at the H100's peaks and the share of it each reaches;
 8. the CIFAR app at full width (bf16, batch 64, rcgan-u with the perm
-   classifier and ``confuse_init``, so that all five kernels run) on
+   classifier and ``confuse_init``, so that every kernel runs) on
    synthetic data, under PyTorch's deterministic algorithms: 12 iterations
    in blocks of 4 with the inception score, the dev cost, the sample grid,
    the generated-label accuracy and checkpoints landing inside the run;
@@ -277,9 +277,25 @@ and the CIFAR app's Inception-v3 scorer:
    replayed) and three rcgan-u cycles in one call (the projection on its
    ``addmm`` route), finite costs and every kernel's launches, by route,
    equal to those read from the code (``biggan_cycle_counts``).
-   ``--only biggan`` runs phases 1, 2 and 17 alone.
+   ``--only biggan`` runs phases 1, 2 and 17 alone;
+18. the 2x2 mean pool and nearest upsample (``csrc/resample.cu``,
+   ``ops/kernels/resample_kernel.py``): every call of the two ops in a bf16
+   forward and backward of CIFAR's, PGGAN's (every phase) and BigGAN's G
+   and D and in float32 serving passes is recorded, no CUDA tensor
+   reaching a plain version; at each recorded shape, at its model's
+   batches (``RESAMPLE_BATCHES``), the pool, its gradient (the upsample at
+   1/4), the upsample of one map and of four distinct maps bit-equal to
+   ``mean_pool_plain`` and ``upsample_plain`` on the card, and the
+   upsample's gradient through autograd bit-equal to autograd of the
+   replaced form, one launch a kernel call; both ops' gradients where the
+   input feeds a second consumer too; and at CIFAR's and BigGAN's largest
+   maps, each kernel, forward and backward through autograd beside the
+   replaced form's, the plain form and the one PyTorch call
+   (``F.avg_pool2d``, ``F.interpolate``, timed only) in CUDA graphs, each
+   kernel held to ``RESAMPLE_MIN_SHARE`` of its bytes bound at BigGAN's.
+   ``--only resample`` runs phases 1, 2 and 18 alone.
 
-The line before the last is ``{"kernels": [...]}`` with all five kernels,
+The line before the last is ``{"kernels": [...]}`` with every kernel,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
 PyTorch call computing the same function where there is one
 (``library_ms``), ``launches`` summed over every phase's counted runs
@@ -305,7 +321,7 @@ the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
 any check fails.
 
-    python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0] [--only biggan]
+    python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0] [--only biggan|resample]
 """
 
 from __future__ import annotations
@@ -375,16 +391,23 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 # operations.
 DEQUANT_OPS = 48
 # Launches per path (perm classifier off): conv3x3 (hand-written kernels
-# only), cond_bn, sn, projection.
+# only), cond_bn, sn, projection, pool2x2, up2x2.
 # sn: one launch per D pass (its 15 layers are one group) and one per call
 # of D.Embedding_y (once per ``projection(labels)``, once per
-# ``all_label_logits``); cond_bn: one launch per call, seven calls per G pass.
+# ``all_label_logits``); cond_bn: one launch per call, seven calls per G pass;
+# up2x2: two upsamples in each of G's three blocks; pool2x2: two pools in
+# each of D's first two blocks, per D pass.
 PATH_COUNTS = {
-    "entry() bfloat16": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 0},
-    "entry() float32": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 0},
-    "disc_loss rcgan": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 0},
-    "disc_loss rcgan-u": {"conv3x3": 28, "cond_bn": 7, "sn": 4, "projection": 1},
-    "gen_loss rcgan-u": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 1},
+    "entry() bfloat16": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 0, "pool2x2": 4,
+                         "up2x2": 6},
+    "entry() float32": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 0, "pool2x2": 4,
+                        "up2x2": 6},
+    "disc_loss rcgan": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 0, "pool2x2": 4,
+                        "up2x2": 6},
+    "disc_loss rcgan-u": {"conv3x3": 28, "cond_bn": 7, "sn": 4, "projection": 1, "pool2x2": 8,
+                          "up2x2": 6},
+    "gen_loss rcgan-u": {"conv3x3": 17, "cond_bn": 7, "sn": 2, "projection": 1, "pool2x2": 4,
+                         "up2x2": 6},
 }
 # conv3x3 per route on those paths: G's output conv (O = 3) and D's first
 # (C = 3, once per D pass) on cuDNN; the rest on the tensor cores in bf16
@@ -538,6 +561,10 @@ KERNEL_INFO = {
                    "replaces": "rcgan_tpu/ops/pallas/projection_kernel.py:32"},
     "dequant": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/dequant.cu",
                 "replaces": "rcgan_tpu/ops/pallas/dequant_kernel.py:51"},
+    "pool2x2": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/resample.cu",
+                "replaces": "none: rcgan_tpu/ops/conv.py::mean_pool, left to XLA"},
+    "up2x2": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/resample.cu",
+              "replaces": "none: rcgan_tpu/ops/conv.py::upsample_depth_to_space, left to XLA"},
 }
 CONV_SOURCES = {"wgmma": "rcgan_tpu_torch/csrc/conv3x3_wgmma.cu",
                 "ffma": "rcgan_tpu_torch/csrc/conv3x3.cu"}
@@ -1426,19 +1453,27 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
     all its convs but the first, whose input is data; each of its SN
     launches has one VJP launch (``sn_bwd``) in the backward.  conv3x3
     counts the hand-written kernels' launches only: the ragged convs
-    (:func:`ragged_convs`) go to cuDNN."""
-    g_conv, g_bn, d_conv, d_sn = 7, 7, 12, 1
+    (:func:`ragged_convs`) go to cuDNN.  A G forward upsamples 6 times
+    (``up2x2``), a D pass pools 4 times (``pool2x2``, the first on the
+    images); a pool's backward is one ``up2x2`` launch (every pool in the G
+    step, all but the images' in a critic step), an upsample's backward
+    launches nothing (autograd adds its phases)."""
+    g_conv, g_bn, d_conv, d_sn, g_up, d_pool = 7, 7, 12, 1, 6, 4
     u = algorithm == "rcgan-u"
-    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0}
+    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0,
+              "pool2x2": 0, "up2x2": 0}
     if g_step:
         counts["conv3x3"] += 2 * (g_conv + d_conv)
         counts["cond_bn"] += g_bn
         counts["sn"] += d_sn + 1 + perm
         counts["projection"] += u
+        counts["up2x2"] += g_up + d_pool
+        counts["pool2x2"] += d_pool
     passes = 2 if u else 1
     per_d_step = {"conv3x3": g_conv + passes * (2 * d_conv - 1), "cond_bn": g_bn,
                   "sn": passes * (d_sn + 1) + perm, "sn_bwd": passes * (d_sn + 1) + perm,
-                  "projection": int(u), "dequant": 1}
+                  "projection": int(u), "dequant": 1, "pool2x2": passes * d_pool,
+                  "up2x2": g_up + passes * (d_pool - 1)}
     for k, v in per_d_step.items():
         counts[k] += n_critic * v
     counts["conv3x3"] -= ragged_convs(algorithm, n_critic, g_step)
@@ -2100,7 +2135,7 @@ def app_slice(torch, seed: int, card: str) -> dict:
 MNIST_SN_GROUPS = {"a projection D pass": [(25, 64)] + [(1600, 64)] * 3,
                    "concat_y at layer 1": [(275, 64)] + [(1600, 64)] * 3}
 MNIST_PATH_COUNTS = {"sn": 4, "sn_bwd": 2, "cond_bn": 0, "conv3x3": 0, "projection": 0,
-                     "dequant": 0}
+                     "dequant": 0, "pool2x2": 0, "up2x2": 0}
 MNIST_RECIPE = ["--algorithm", "rcgan", "--alpha", "0.3", "--disc_type", "projection",
                 "--estimate_confuse", "--aux_classifier", "--noadd_noise", "--noconcat_y",
                 "--spectral_norm", "--max_norm"]
@@ -2471,17 +2506,23 @@ SN_VJP_GROUPS = {**SN_GROUPS, "PGGAN stage 3": [(3, 128)] + _PG_BLOCK * 3 + [(12
 SN_VJP_TIMED = ("a D pass", "D.Embedding_y", "PGGAN stage 3", "MNIST a projection D pass")
 
 
-def pggan_counts(stage: int) -> dict:
-    """Launches per PGGAN iteration at ``stage`` (either phase): the D step
-    runs G (no grad) and two D passes with their backward, the G step G and
-    one D pass with the backward through both.  Each block holds two 3x3
+def pggan_counts(stage: int, trans: bool = False) -> dict:
+    """Launches per PGGAN iteration at ``stage`` and phase: the D step runs
+    G (no grad) and two D passes with their backward, the G step G and one
+    D pass with the backward through both.  Each block holds two 3x3
     convs: 2 per block for a G forward, 2 for a D forward, 2 for each
     backward's input grads, so 2 (G) + 8 (D step) + 8 (G step) per block;
     two cond-BNs per block and G pass, two G passes; one sn group per D
     pass, and one VJP launch for each of the D step's two.  The
-    transition's extra layers are 1x1 (no conv3x3)."""
+    transition's extra layers are 1x1 (no conv3x3).  Each G block
+    upsamples twice and each D block pools twice, and each pool's backward
+    is one ``up2x2`` launch (an upsample's launches nothing): ``up2x2`` 2
+    (G) + 4 (D step's backward) + 2 + 2 (G step) per block, ``pool2x2`` 4
+    (D step) + 2 (G step).  A transition adds the low RGB's upsample to
+    each G pass and the images' pool to each D pass (its backward in the G
+    step alone: real images and frozen fakes need none)."""
     return {"cond_bn": 4 * stage, "conv3x3": 18 * stage, "sn": 3, "sn_bwd": 2, "projection": 0,
-            "dequant": 0}
+            "dequant": 0, "pool2x2": 6 * stage + 3 * trans, "up2x2": 10 * stage + 3 * trans}
 
 
 def pggan_variants(stage: int) -> dict:
@@ -2749,7 +2790,8 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
                 counts[kk] += v
             for kk, v in got_v.items():
                 variants[kk] += v
-            ok_counts = ok_counts and got == pggan_counts(stage) and got_v == pggan_variants(stage)
+            ok_counts = ok_counts and got == pggan_counts(stage, trans) \
+                and got_v == pggan_variants(stage)
             seen.append((stage, trans, got, got_v))
             if i:
                 ts_ms.append(a.elapsed_time(e))
@@ -2758,7 +2800,7 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
                      f"the 7 phases: launches per iteration as pggan_counts and pggan_variants "
                      f"say (stage 4: {pggan_counts(4)}, {pggan_variants(4)}; last seen "
                      f"{seen[-1][2]}, {seen[-1][3]}; wrong: "
-                     f"{[s[:2] for s in seen if s[2] != pggan_counts(s[0])][:3]})")
+                     f"{[s[:2] for s in seen if s[2] != pggan_counts(*s[:2])][:3]})")
     finite = all(math.isfinite(float(v)) for v in m.values()) and all(
         bool(torch.isfinite(p).all()) for p in state["ts"].gan.parameters())
     check(finite, f"PGGAN bf16: costs and parameters finite after {state['it']} iterations "
@@ -2887,9 +2929,10 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
                            lambda n: rng.standard_normal((n, PG_WIDTH["z_dim"])).astype(np.float32),
                            PG_SERVE_BUCKETS, {"/sample?labels=3&seed=1": 1, "/sample?n=8&seed=2": 8},
                            SLICE_ATOL, "cond-BN on the bucket's statistics")
-    check(served["cond_bn"] == 2 * 8 and served["conv3x3"] == 2 * 8 and served["sn"] == 0,
-          f"PGGAN serving, two passes at stage 4: launches {served} (want 8 cond_bn and 8 "
-          f"FFMA conv3x3 a pass, no sn)")
+    check(served["cond_bn"] == 2 * 8 and served["conv3x3"] == 2 * 8 and served["sn"] == 0
+          and served["up2x2"] == 2 * 8 and served["pool2x2"] == 0,
+          f"PGGAN serving, two passes at stage 4: launches {served} (want 8 cond_bn, 8 FFMA "
+          f"conv3x3 and 8 up2x2 a pass, no sn, no pool2x2)")
     os.environ.pop("RCGAN_SYNTH_CACHE", None)
     shutil.rmtree(root, ignore_errors=True)
     per_iteration = {st: dict(c_) for st, _, c_, _ in seen}
@@ -3607,9 +3650,10 @@ def parallel_slice(torch, dev, seed: int, card: str) -> dict:
                            lambda n: rng.standard_normal((n, 128)).astype(np.float32),
                            (1, 100), {"/sample?labels=3&seed=1": 1, "/sample?n=100&seed=2": 100},
                            SLICE_ATOL, "the data-parallel app's checkpoint")
-    check(served["cond_bn"] == 2 * 7 and served["conv3x3"] == 2 * 6 and served["sn"] == 0,
-          f"CIFAR serving of the app's checkpoint, two passes: launches {served} (want 7 cond_bn "
-          f"and 6 FFMA conv3x3 a pass)")
+    check(served["cond_bn"] == 2 * 7 and served["conv3x3"] == 2 * 6 and served["sn"] == 0
+          and served["up2x2"] == 2 * 6 and served["pool2x2"] == 0,
+          f"CIFAR serving of the app's checkpoint, two passes: launches {served} (want 7 cond_bn, "
+          f"6 FFMA conv3x3 and 6 up2x2 a pass)")
     add(served)
     shutil.rmtree(root, ignore_errors=True)
     os.environ.pop("RCGAN_SYNTH_CACHE", None)
@@ -3901,7 +3945,7 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
         first, got, _ = counted(lambda: s_graph.sample_with_z(z, labels))   # warm-up, capture
         again, got, _ = counted(lambda: s_graph.sample_with_z(z, labels))   # a replay
         ref = s_eager.sample_with_z(z, labels)
-        want = {**dict.fromkeys(runtime.KERNELS, 0), "conv3x3": 6, "cond_bn": 7}
+        want = {**dict.fromkeys(runtime.KERNELS, 0), "conv3x3": 6, "cond_bn": 7, "up2x2": 6}
         check(np.array_equal(first, ref) and np.array_equal(again, ref) and got == want,
               f"CIFAR sampler, bucket {bucket}, float32: the captured pass (warm-up and replay) "
               f"bit-equal to the eager one {list(ref.shape)}, a replay's launches {got} (want "
@@ -4089,12 +4133,13 @@ def compiled_evals_slice(torch, dev, seed: int, card: str) -> dict:
                     f"replay {graph.program.captured.replays}"
                 check(not differ and same and digests[0] == digests[1]
                       and all(torch.equal(m_g[k], m_e[k]) for k in m_e)
-                      and got == pggan_counts(stage) and var == pggan_variants(stage),
+                      and got == pggan_counts(stage, trans) and var == pggan_variants(stage),
                       f"PGGAN step, stage {stage} {'trans' if trans else 'stab'} (alpha "
                       f"{alpha:.5f}), iteration {i} ({how}) against the eager body: {compared} "
                       f"tensors, {len(differ)} differ {differ[:3]}"
                       + (f", sha256 {digests[0][:12]} / {digests[1][:12]}" if last else "")
-                      + f", costs equal, launches {got} (want {pggan_counts(stage)}), conv3x3 "
+                      + f", costs equal, launches {got} (want "
+                      f"{pggan_counts(stage, trans)}), conv3x3 "
                       f"by route {var}")
         check(graph.program.captured.captures == 3
               and graph.program.captured.replays == 3 * (ce["pg_iters"] - 1),
@@ -4333,9 +4378,9 @@ def compiled_evals_slice(torch, dev, seed: int, card: str) -> dict:
 # exported through the CLI (``python -m rcgan_tpu_torch.serving --export``)
 # and reported on by ``python -m rcgan_tpu_torch.evals.msssim_report`` at
 # its defaults.  Launches a call of each exported program, exactly:
-EXPORT_COUNTS = {"cifar": ({"cond_bn": 7, "conv3x3": 6},
+EXPORT_COUNTS = {"cifar": ({"cond_bn": 7, "conv3x3": 6, "up2x2": 6},
                            {"wgmma": 0, "ffma": 6, "cudnn": 1}),
-                 "pggan": ({"cond_bn": 8, "conv3x3": 8},
+                 "pggan": ({"cond_bn": 8, "conv3x3": 8, "up2x2": 8},
                            {"wgmma": 0, "ffma": 8, "cudnn": 0})}
 EXPORT = {"cifar_buckets": (1, 100), "pggan_bucket": 8, "pggan_max_stage": 4, "reps": 12,
           "msssim_pairs": 2000, "msssim_tol": 1e-5, "timeout": 300}
@@ -4979,7 +5024,11 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
     against every label), each conv but the first (its input is data)
     taking its input grad, each SN launch its VJP, and dequantises the real
     rows once.  A conv's route is :func:`conv3x3_variant`'s, its input grad
-    a conv from O to C; 1x1 convs and linears are products, not counted."""
+    a conv from O to C; 1x1 convs and linears are products, not counted.
+    Each G block upsamples twice (``up2x2``) and each downsampling D block
+    pools twice (``pool2x2``, the first block once on the images); a
+    pool's backward is one ``up2x2`` launch (every pool in the G step, all
+    but the images' in a critic step), an upsample's launches nothing."""
     from rcgan_tpu_torch.models.biggan import d_arch, g_arch
     from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3_variant
     from rcgan_tpu_torch.ops.kernels.projection_kernel import projection_route
@@ -4989,7 +5038,9 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
     g_attn = sum(r == cfg.attention_g for r in ga["resolution"])
     d_attn = sum(r == cfg.attention_d for r in da["resolution"])
     route = projection_route(cfg.vocab_size, da["out"][-1])
-    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0}
+    g_up, d_pool = 2 * len(ga["in"]), 2 * sum(da["down"])
+    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0,
+              "pool2x2": 0, "up2x2": 0}
     out = {"counts": counts, "conv3x3": {"wgmma": 0, "ffma": 0, "cudnn": 0},
            "projection": {"cuda": 0, "addmm": 0}, "attn": 0, "attn_bwd": 0}
 
@@ -5004,6 +5055,7 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
         counts["cond_bn"] += 2 * len(ga["in"]) + 1
         counts["sn"] += 1
         counts["sn_bwd"] += grads
+        counts["up2x2"] += g_up
         out["attn"] += g_attn
         out["attn_bwd"] += grads * g_attn
 
@@ -5011,6 +5063,8 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
         convs(d_convs, not weight_grads)
         counts["sn"] += 2
         counts["sn_bwd"] += 2 * weight_grads
+        counts["pool2x2"] += d_pool
+        counts["up2x2"] += d_pool - int(weight_grads and da["down"][0])
         out["attn"] += d_attn
         out["attn_bwd"] += d_attn
         out["projection"][route] += all_labels
@@ -5231,6 +5285,260 @@ def biggan_slice(torch, dev, seed: int, card: str) -> dict:
     return out
 
 
+# Phase 18: the resampling kernels (``csrc/resample.cu``).  Batches at which
+# every resampling shape of each model's path is checked, by kind: CIFAR's
+# critic step and its G step (the concatenated D pass and the G step's G
+# hold 128 rows), PGGAN's batch, BigGAN's G (256 rows) and its critic at the
+# G step and the critic step (real and fake rows joined), and the float32
+# serving buckets of the CIFAR and PGGAN generators.
+RESAMPLE_BATCHES = {"CIFAR": {"pool": (64, 128), "up": (64, 128)},
+                    "PGGAN": {"pool": (PG_BATCH,), "up": (PG_BATCH,)},
+                    "BigGAN": {"pool": (256, 512), "up": (256,)},
+                    "serving": {"up": BUCKETS}}
+# Timed in CUDA graphs at each model's largest pooled and upsampled maps of a
+# G step (BigGAN: [256, 128, 128, 96] pooled, [256, 64, 64, 192] upsampled).
+RESAMPLE_TIMED = {"BigGAN": 256, "CIFAR": 64}
+# Each kernel's share of its bytes bound (1.25 N elements at 3.35 TB/s) at
+# BigGAN's largest maps must reach this.
+RESAMPLE_MIN_SHARE = 0.6
+
+
+def resample_shapes(torch, dev, seed: int) -> dict:
+    """``{(model, kind, per-image shape, dtype)}`` of every forward call of
+    the two resampling ops (``kind`` "pool" for ``mean_pool``, "up" for
+    ``upsample_depth_to_space``; the shape is the op's input's) in one bf16
+    forward and backward of each model's G and D at batch 2 (PGGAN at every
+    phase, D also on images in bf16 and float32 as the critic step gets
+    them), and in a float32 serving pass of the CIFAR and PGGAN generators.
+    Returns ``{"shapes": {...}, "calls": n, "plain_on_cuda": n}``: the plain
+    versions wrapped while the passes run, so that a CUDA tensor that
+    reached one would be counted."""
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
+    from rcgan_tpu_torch.models import biggan
+    from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import resample_kernel as rk
+
+    shapes, model = set(), [""]
+    seen = {"calls": 0, "plain_on_cuda": 0}
+    ops = (rk.mean_pool_op, rk.upsample2x_op, rk.mean_pool_plain, rk.upsample_plain)
+
+    def dtype_name(x):
+        return str(x.dtype).split(".")[-1]
+
+    def pool_op(x):
+        seen["calls"] += 1
+        shapes.add((model[0], "pool", tuple(x.shape[1:]), dtype_name(x)))
+        return ops[0](x)
+
+    def up_op(x00, x01, x10, x11, scale):
+        seen["calls"] += 1
+        if scale == 1.0:  # the forward; at 1/4 it is a pool's gradient
+            shapes.add((model[0], "up", tuple(x00.shape[1:]), dtype_name(x00)))
+        return ops[1](x00, x01, x10, x11, scale)
+
+    def plain(fn):
+        def run(x, *args):
+            seen["plain_on_cuda"] += x.is_cuda
+            return fn(x, *args)
+        return run
+
+    z_of = lambda n, d: torch.randn(n, d, device=dev)  # noqa: E731
+    labels = torch.arange(2, device=dev)
+    rk.mean_pool_op, rk.upsample2x_op = pool_op, up_op
+    rk.mean_pool_plain, rk.upsample_plain = plain(ops[2]), plain(ops[3])
+    try:
+        for name, cfg in (("CIFAR", ResnetGANConfig()), ("BigGAN", biggan.BigGANConfig())):
+            model[0] = name
+            gan = CifarGAN(cfg, CifarAlgoConfig(vocab_size=cfg.vocab_size), seed, dev,
+                           torch.bfloat16)
+            images = gan.G(z_of(2, cfg.z_dim), labels)
+            gan.D(images, labels)[1].float().sum().backward()
+            model[0] = "serving"
+            if name == "CIFAR":
+                f32 = CifarGAN(cfg, CifarAlgoConfig(), seed, dev, torch.float32)
+                with torch.no_grad():
+                    f32.G(z_of(1, cfg.z_dim), labels[:1])
+            del gan
+        cfg = PGGANConfig(max_stage=4, **PG_WIDTH)
+        base = ResnetGANConfig(dim_g=PG_WIDTH["dim"], dim_d=PG_WIDTH["dim"],
+                               z_dim=PG_WIDTH["z_dim"])
+        pg = PGGAN(cfg, base, seed, dev, torch.bfloat16)
+        model[0] = "PGGAN"
+        for stage in range(1, cfg.max_stage + 1):
+            for trans in (False, True) if stage > 1 else (False,):
+                images = pg.G(z_of(2, cfg.z_dim), labels, stage, trans, 0.5)
+                pg.D(images, stage, trans, 0.5, labels)[1].float().sum().backward()
+                with torch.no_grad():
+                    for dt in (torch.bfloat16, torch.float32):
+                        pg.D(images.detach().to(dt), stage, trans, 0.5, labels)
+        model[0] = "serving"
+        f32 = PGGAN(cfg, base, seed, dev, torch.float32)
+        with torch.no_grad():
+            f32.G(z_of(1, cfg.z_dim), labels[:1], cfg.max_stage)
+        torch.cuda.synchronize()
+    finally:
+        rk.mean_pool_op, rk.upsample2x_op, rk.mean_pool_plain, rk.upsample_plain = ops
+    return {"shapes": shapes, **seen}
+
+
+def resample_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 18 (module doc).  Returns the phase's checks in numbers, the
+    times per model and op, and the recorded shapes."""
+    import torch.nn.functional as F
+
+    from rcgan_tpu_torch.ops.kernels import resample_kernel as rk
+    from rcgan_tpu_torch.ops.kernels import runtime
+
+    t0 = time.perf_counter()
+    rec = resample_shapes(torch, dev, seed)
+    by_model = {}
+    for m, kind, shape, dt in sorted(rec["shapes"]):
+        by_model.setdefault(m, []).append((kind, shape, dt))
+    check(rec["plain_on_cuda"] == 0 and rec["calls"] > 0
+          and {m for m, *_ in rec["shapes"]} == set(RESAMPLE_BATCHES),
+          f"resampling on the card: {rec['calls']} op calls in the recorded forwards and "
+          f"backwards, {rec['plain_on_cuda']} CUDA tensors reached a plain version; shapes by "
+          f"model: " + "; ".join(f"{m}: {len(v)}" for m, v in sorted(by_model.items())))
+    print(f"  [recorded in {time.perf_counter() - t0:.1f} s]", flush=True)
+    for m, rows in sorted(by_model.items()):
+        print(f"  {m} resampling inputs: " + ", ".join(
+            f"{kind} {list(shape)} {dt}" for kind, shape, dt in rows), flush=True)
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    def old_up(x):  # the replaced upsample, autograd's graph and all
+        return rk.upsample_plain(x, x, x, x)
+
+    # ---- every shape at its model's batches: the pool, its gradient (the
+    # upsample at 1/4), the upsample of one map and of four, each against its
+    # plain version; the upsample's gradient through autograd against
+    # autograd of the replaced form; all bit-equal, one launch a kernel call
+    dgen = torch.Generator(device=dev).manual_seed(seed + 18)
+    checked, differ, want = 0, [], {"pool2x2": 0, "up2x2": 0}
+    runtime.reset_launch_counts()
+    for m, rows in sorted(by_model.items()):
+        for kind, shape, dt in rows:
+            for b in RESAMPLE_BATCHES[m][kind]:
+                h, w, c = shape
+                big = (b, *shape) if kind == "pool" else (b, 2 * h, 2 * w, c)
+                small = (b, h // 2, w // 2, c) if kind == "pool" else (b, *shape)
+
+                def draw(s):
+                    return torch.randn(s, generator=dgen, device=dev).to(getattr(torch, dt))
+
+                xb, xs = draw(big), draw(small)
+                maps = [draw(small) for _ in range(4)]
+                xr, yr = xs.clone().requires_grad_(), xs.clone().requires_grad_()
+                pairs = (("pool", rk.mean_pool_op(xb), rk.mean_pool_plain(xb)),
+                         ("pool's gradient", rk.upsample2x_op(xs, xs, xs, xs, 0.25),
+                          rk.upsample_plain(xs, xs, xs, xs, 0.25)),
+                         ("upsample", rk.upsample2x_op(xs, xs, xs, xs, 1.0), old_up(xs)),
+                         ("four maps", rk.upsample2x_op(*maps, 1.0), rk.upsample_plain(*maps)),
+                         ("upsample's gradient",
+                          torch.autograd.grad(rk.upsample_depth_to_space(xr), xr, xb)[0],
+                          torch.autograd.grad(old_up(yr), yr, xb)[0]))
+                want["pool2x2"] += 1
+                want["up2x2"] += 4
+                for direction, got, ref in pairs:
+                    checked += 1
+                    if not torch.equal(bits(got), bits(ref)):
+                        differ.append((m, direction, list(big), dt))
+                del xb, xs, maps, xr, yr, pairs
+    counts = runtime.launch_counts()
+    launched = {k: counts[k] for k in want}
+    check(not differ and launched == want,
+          f"pool2x2 and up2x2 against mean_pool_plain and upsample_plain on the card, every "
+          f"recorded shape at its model's batches {RESAMPLE_BATCHES}: the pool, its gradient, "
+          f"the upsample of one map and of four, and the upsample's gradient through autograd: "
+          f"{checked} results, {len(differ)} not bit-equal {differ[:4]}; launches {launched} "
+          f"(want {want})")
+
+    # ---- both ops' gradients where the input feeds a second consumer too,
+    # before and after the op, against autograd of the replaced forms: the
+    # pool's value-equal, the upsample's bit-equal (autograd adds its phases
+    # in the replaced form's order around the other gradient)
+    grads_ok = []
+    for shape in ((256, 128, 128, 96), (64, 32, 32, 128)):
+        small = (shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+        for op, old, x_shape, g_shape in ((rk.mean_pool, rk.mean_pool_plain, shape, small),
+                                          (rk.upsample_depth_to_space, old_up, small, shape)):
+            x = torch.randn(x_shape, generator=dgen, device=dev).to(torch.bfloat16)
+            other = torch.randn(x_shape, generator=dgen, device=dev).to(torch.bfloat16)
+            g = torch.randn(g_shape, generator=dgen, device=dev).to(torch.bfloat16)
+            for first in (True, False):
+                got = []
+                for fn in (op, old):
+                    xg = x.clone().requires_grad_()
+                    outs = (xg * other, fn(xg)) if first else (fn(xg), xg * other)
+                    cot = (torch.ones_like(other), g) if first else (g, torch.ones_like(other))
+                    got.append(torch.autograd.grad(outs, xg, cot)[0])
+                grads_ok.append(torch.equal(*got) if op is rk.mean_pool
+                                else torch.equal(bits(got[0]), bits(got[1])))
+            del x, other, g, got
+    check(all(grads_ok), f"the ops' gradients on the card where the input also feeds a product "
+                         f"(taken before and after the op), bf16 at [256, 128, 128, 96] and "
+                         f"[64, 32, 32, 128] and their pooled maps, against autograd of the "
+                         f"replaced forms: the pool's value-equal, the upsample's bit-equal: "
+                         f"{grads_ok}")
+
+    # ---- times in CUDA graphs at each model's largest maps of a G step
+    times = {}
+    for m, b in RESAMPLE_TIMED.items():
+        for kind in ("pool", "up"):
+            shape = max((s for k, s, dt in by_model[m] if k == kind and dt == "bfloat16"),
+                        key=lambda s: math.prod(s))
+            h, w, c = shape
+            big = (b, *shape) if kind == "pool" else (b, 2 * h, 2 * w, c)
+            small = (big[0], big[1] // 2, big[2] // 2, c)
+            xb = torch.randn(big, generator=dgen, device=dev).to(torch.bfloat16)
+            xs = torch.randn(small, generator=dgen, device=dev).to(torch.bfloat16)
+            xin, gout = (xb, xs) if kind == "pool" else (xs, xb)
+            x_op, x_old = xin.clone().requires_grad_(), xin.clone().requires_grad_()
+            if kind == "pool":
+                op, old = rk.mean_pool, rk.mean_pool_plain
+                library = lambda: F.avg_pool2d(xb.permute(0, 3, 1, 2), 2)  # noqa: E731
+            else:
+                op, old = rk.upsample_depth_to_space, old_up
+                library = lambda: F.interpolate(xs.permute(0, 3, 1, 2), scale_factor=2,  # noqa
+                                                mode="nearest")
+            row = {"shape": list(xin.shape),
+                   "bound_ms": 1.25 * xb.numel() * xb.element_size() / PEAK_BYTES * 1e3,
+                   "ms": graph_ms(torch, lambda: op(xin)),
+                   "plain_ms": graph_ms(torch, lambda: old(xin)),
+                   "op_autograd_ms": graph_ms(
+                       torch, lambda: torch.autograd.grad(op(x_op), x_op, gout)),
+                   "autograd_ms": graph_ms(
+                       torch, lambda: torch.autograd.grad(old(x_old), x_old, gout)),
+                   "library_ms": graph_ms(torch, library)}
+            row["share"] = row["bound_ms"] / row["ms"]
+            if kind == "pool":  # its gradient, the upsample at 1/4
+                row["grad_ms"] = graph_ms(torch, lambda: rk.upsample2x_op(xs, xs, xs, xs, 0.25))
+                row["grad_share"] = row["bound_ms"] / row["grad_ms"]
+            times[f"{m} {kind}"] = row
+            print(f"  {m} {'mean_pool' if kind == 'pool' else 'upsample'} of "
+                  f"{row['shape']} bf16 on {card}: kernel {row['ms']:.4f} ms "
+                  f"({row['share']:.1%} of the bound {row['bound_ms']:.4f} ms)"
+                  + (f", its gradient {row['grad_ms']:.4f} ms ({row['grad_share']:.1%})"
+                     if kind == "pool" else "")
+                  + f"; forward and backward through autograd {row['op_autograd_ms']:.4f} ms, "
+                  f"the replaced form's {row['autograd_ms']:.4f} ms; the plain forward "
+                  f"{row['plain_ms']:.4f} ms; "
+                  f"{'F.avg_pool2d' if kind == 'pool' else 'F.interpolate'} "
+                  f"{row['library_ms']:.4f} ms (CUDA graphs)", flush=True)
+            del xb, xs, xin, gout, x_op, x_old
+    shares = {"pool2x2": times["BigGAN pool"]["share"],
+              "up2x2 (the pool's gradient)": times["BigGAN pool"]["grad_share"],
+              "up2x2": times["BigGAN up"]["share"]}
+    check(all(v >= RESAMPLE_MIN_SHARE for v in shares.values()),
+          f"the kernels at BigGAN's largest maps reach {RESAMPLE_MIN_SHARE:.0%} of their bytes "
+          f"bound at {PEAK_BYTES / 1e12:.2f} TB/s: "
+          + ", ".join(f"{k} {v:.1%}" for k, v in shares.items()))
+    return {"checked": checked, "differ": len(differ), "times": times,
+            "shapes": {m: [f"{k} {list(s)} {dt}" for k, s, dt in v] for m, v in by_model.items()}}
+
+
 def compare_scaled(torch, got, ref, tol: float):
     """(ok, max abs err over the reference's largest magnitude) within ``tol``."""
     scale = max(ref.abs().max().item(), 1e-6)
@@ -5243,8 +5551,8 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint_dir", default=None,
                    help="serve this generator.npz instead of seeded random weights")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("biggan",), default=None,
-                   help="run the device check, the builds and this phase alone")
+    p.add_argument("--only", choices=("biggan", "resample"), default=None,
+                   help="run the device check, the builds and this phase alone (17 or 18)")
     args = p.parse_args(argv)
     # the phases' host seconds, printed as each ends
     clock = [time.perf_counter(), time.perf_counter()]
@@ -5292,7 +5600,8 @@ def main(argv=None) -> int:
         return time.perf_counter() - t
 
     t_all = time.perf_counter()
-    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn", "projection", "cond_bn", "dequant")
+    cuda_sources = ("conv3x3", "conv3x3_wgmma", "sn", "projection", "cond_bn", "dequant",
+                    "resample")
     with concurrent.futures.ThreadPoolExecutor(len(cuda_sources)) as pool:
         builds = {name: pool.submit(timed_build, name) for name in cuda_sources}
         for name, fut in builds.items():
@@ -5316,14 +5625,17 @@ def main(argv=None) -> int:
     print("  conv3x3 (FFMA) dynamic shared memory per block: " + ", ".join(
         f"{bm} x {bm} tile {smem(bm, size)} bytes ({name})"
         for bm in (128, 64) for size, name in ((4, "float32"), (2, "bf16"))), flush=True)
-    if args.only == "biggan":
-        biggan = biggan_slice(torch, dev, args.seed, card)
-        lap("phase 17")
-        print(json.dumps({"biggan": biggan}), flush=True)
+    if args.only is not None:
+        if args.only == "biggan":
+            print(json.dumps({"biggan": biggan_slice(torch, dev, args.seed, card)}), flush=True)
+        else:
+            print(json.dumps({"resample": resample_slice(torch, dev, args.seed, card)}),
+                  flush=True)
+        lap(f"phase {17 if args.only == 'biggan' else 18}")
         if failures:
             print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
             return 1
-        print(json.dumps({"ok": True, "only": "biggan"}), flush=True)
+        print(json.dumps({"ok": True, "only": args.only}), flush=True)
         return 0
 
     # ---- the float32 policy, before any Sampler exists: a float32 entry()
@@ -5708,6 +6020,12 @@ def main(argv=None) -> int:
     lap("phase 17")
     print(json.dumps({"biggan": biggan}), flush=True)
 
+    # ------------------------------------------------ 18. mean pool, upsample
+    resample = resample_slice(torch, dev, args.seed, card)
+    lap("phase 18")
+    print(json.dumps({"resample": resample}), flush=True)
+    max_err["pool2x2"] = max_err["up2x2"] = float(resample["differ"])
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -5753,6 +6071,9 @@ def main(argv=None) -> int:
                        proj_library_ms),
         "dequant": ((t_res["dequant_ms"]["graph"], t_res["dequant_ms"]["plain_graph"]),
                     bound(DEQUANT_OPS * 64 * 3072, t_res["dequant_bytes"], PEAK_INT32), None),
+        **{k: ((r["ms"], r["plain_ms"]), (r["bound_ms"], "bytes"), r["library_ms"])
+           for k, r in (("pool2x2", resample["times"]["BigGAN pool"]),
+                        ("up2x2", resample["times"]["BigGAN up"]))},
     }
 
     def bound_by(r):
@@ -5808,6 +6129,13 @@ def main(argv=None) -> int:
                        alone_ms_is="the same call issued alone (host included), CUDA events",
                        launches_per_cycle=app["dequant_per_cycle"],
                        app_launches=app["counts"]["dequant"])
+        if k in ("pool2x2", "up2x2"):
+            kind = "pool" if k == "pool2x2" else "up"
+            row.update(ms_is=f"one forward call at BigGAN's largest bf16 map of a G step "
+                             f"{resample['times'][f'BigGAN {kind}']['shape']}, device time in "
+                             f"CUDA graphs (plain_ms: the plain version, likewise; library_ms: "
+                             f"{'F.avg_pool2d' if kind == 'pool' else 'F.interpolate'})",
+                       times={m: resample["times"][f"{m} {kind}"] for m in RESAMPLE_TIMED})
         if k == "projection":
             row.update(ms_is="one call at batch 64, float32, issued alone (host included), CUDA "
                              "events; library_ms: torch.addmm the same way",

@@ -2,12 +2,13 @@
 with ``torch.export`` (a ``.pt2`` file), and :func:`load_exported`, the
 counterpart of ``rcgan_tpu/serving.py::load_exported``.
 
-The file holds the program (ATen ops and the ``rcgan::conv3x3`` and
-``rcgan::cond_batchnorm`` ops), its weights, and a small JSON record of
-what it serves (:data:`META`: the model, the bucket, ``z_dim`` and the
-number of labels).  Loading it needs no model code and no checkpoint:
-this module imports only ``rcgan_tpu_torch.ops.kernels``, which registers
-the two ops, and ``core.module`` for the float32 policy.  The program runs
+The file holds the program (ATen ops and the ``rcgan::conv3x3``,
+``rcgan::cond_batchnorm`` and ``rcgan::upsample2x`` ops), its weights,
+and a small JSON record of what it serves (:data:`META`: the model, the
+bucket, ``z_dim`` and the number of labels).  Loading it needs no model
+code and no checkpoint: this module imports only
+``rcgan_tpu_torch.ops.kernels``, which registers the three ops, and
+``core.module`` for the float32 policy.  The program runs
 on the device it is loaded onto, whatever device it was exported from: on
 the card its ops launch the hand-written kernels (and count, as the live
 sampler's do), on the CPU they take their plain versions.

@@ -3,9 +3,11 @@
 ``conv_type`` "conv2d", "depthwise_conv2d" and "separable_conv2d", any
 stride, SAME or VALID padding, optional spectral norm, weight norm and
 PixelCNN masks), ``conv1d_lib`` (:class:`Conv1dLib`, with its causal mask),
-``mean_pool``, ``upsample_depth_to_space``, and the MNIST stack's DCGAN
-ops ``conv2d`` (5x5, stride 2, optional spectral norm), ``deconv2d``,
-``conv_cond_concat`` and ``lrelu``.
+and the MNIST stack's DCGAN ops ``conv2d`` (5x5, stride 2, optional
+spectral norm), ``deconv2d``, ``conv_cond_concat`` and ``lrelu``.
+``mean_pool`` and ``upsample_depth_to_space`` live beside their CUDA
+kernels (``ops/kernels/resample_kernel.py``) and are imported here, where
+the models find them.
 
 Every 3x3 / stride 1 / SAME call goes to
 :func:`rcgan_tpu_torch.ops.kernels.conv_kernel.conv3x3`, which routes it by
@@ -36,6 +38,8 @@ from rcgan_tpu_torch.core import initializers as inits
 from rcgan_tpu_torch.core.module import Scoped
 from rcgan_tpu_torch.ops.kernels import runtime
 from rcgan_tpu_torch.ops.kernels.conv_kernel import conv3x3
+from rcgan_tpu_torch.ops.kernels.resample_kernel import (  # noqa: F401  (the models' import)
+    mean_pool, upsample_depth_to_space)
 from rcgan_tpu_torch.ops.sn import add_sn_state, spectral_normed_weight
 
 
@@ -274,23 +278,6 @@ class Conv1dLib(Scoped):
         if self.Biases is not None:
             out = out + self.Biases.to(out.dtype)
         return out
-
-
-def mean_pool(x: torch.Tensor) -> torch.Tensor:
-    """2x2 mean pool of NHWC ``x`` by the reference's 4-phase slicing
-    (JAX ``ops/conv.py::mean_pool``), summed in the same order."""
-    return (x[:, ::2, ::2, :] + x[:, 1::2, ::2, :] + x[:, ::2, 1::2, :]
-            + x[:, 1::2, 1::2, :]) / 4.0
-
-
-def upsample_depth_to_space(x: torch.Tensor) -> torch.Tensor:
-    """2x nearest-neighbour upsample of NHWC ``x``: channel-concat x4 then
-    depth_to_space, exactly as the JAX function writes it.  (``F.pixel_shuffle``
-    on NCHW groups channels as ``c*4+k`` and would mix channels.)"""
-    b, h, w, c = x.shape
-    y = torch.cat([x, x, x, x], dim=3)
-    y = y.reshape(b, h, w, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
-    return y.reshape(b, h * 2, w * 2, c)
 
 
 class Conv2d(Scoped):

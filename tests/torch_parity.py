@@ -12,7 +12,7 @@ import torch
 from rcgan_tpu_torch.bridge import load_tree, to_jax_tree
 from rcgan_tpu_torch.ops import attention
 from rcgan_tpu_torch.ops.kernels import (conv_kernel, dequant_kernel, norm_kernel,
-                                         projection_kernel, runtime, sn_kernel)
+                                         projection_kernel, resample_kernel, runtime, sn_kernel)
 
 # narrow widths, full 32x32 images: the CIFAR layer graph at test size
 TINY = dict(dim_g=8, dim_d=16, embedding_dim=24)
@@ -113,9 +113,9 @@ def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
     """Until the test ends, CPU and meta tensors reach the CUDA
     implementations of the ``rcgan`` ops named in ``ops`` (``"conv3x3"``,
     ``"cond_batchnorm"``, ``"sn_group"``, ``"projection_logits"``,
-    ``"dequantize"``, ``"attention"``, ``"attention_backward"``), looked up
-    at each call so that a test may patch
-    the launches under them, as tensors on a card do: with
+    ``"dequantize"``, ``"attention"``, ``"attention_backward"``,
+    ``"mean_pool"``, ``"upsample2x"``), looked up at each call so that a
+    test may patch the launches under them, as tensors on a card do: with
     ``runtime.on_cuda`` and the libraries mocked, a test drives the launch
     path on this machine.  The overriding ``torch.library.Library`` is held
     by ``monkeypatch``; its undo drops the last reference, and torch's
@@ -126,7 +126,9 @@ def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
              "projection_logits": lambda *a: projection_kernel.projection_logits_cuda(*a),
              "dequantize": lambda *a: dequant_kernel.dequantize_cuda(*a),
              "attention": lambda *a: attention.attention_cuda(*a),
-             "attention_backward": lambda *a: attention.attention_backward_cuda(*a)}
+             "attention_backward": lambda *a: attention.attention_backward_cuda(*a),
+             "mean_pool": lambda *a: resample_kernel.mean_pool_cuda(*a),
+             "upsample2x": lambda *a: resample_kernel.upsample2x_cuda(*a)}
     lib = torch.library.Library("rcgan", "IMPL")
     for op in ops:
         for key in ("CPU", "Meta"):
