@@ -3163,8 +3163,8 @@ def dp_nccl_run(group, seed: int, card: str):
                     for a, b, c in zip(got["metrics"], eager["metrics"], alone["metrics"])
                     for k in a),
                 "graphs": [tr.graphs for tr in trainers.values()],
-                "captures": trainers["captured"].captured.captures,
-                "replays": trainers["captured"].captured.replays}
+                "captures": trainers["captured"].program.captured.captures,
+                "replays": trainers["captured"].program.captured.replays}
 
     for alg, perm in (("rcgan", False), ("rcgan-u", True)):
         acfg = CifarAlgoConfig(algorithm=alg, perm_classifier=perm, confuse_init=perm)
@@ -3205,7 +3205,7 @@ def dp_nccl_run(group, seed: int, card: str):
         eager_vs_captured(torch, card, out["rows"],
                           f"data parallel NCCL world 1, CIFAR {alg} cycle, bf16, batch {b}",
                           timed_cycle("eager"), timed_cycle("captured"),
-                          trainers["captured"].captured, reps=DP["nccl_timed"],
+                          trainers["captured"].program.captured, reps=DP["nccl_timed"],
                           collectives=True)
         del trainers, runs, state
 
@@ -3245,7 +3245,8 @@ def dp_nccl_run(group, seed: int, card: str):
     eager_vs_captured(torch, card, out["rows"],
                       f"data parallel NCCL world 1, MNIST iteration, float32, batch {mb}",
                       timed_iteration("eager"), timed_iteration("captured"),
-                      trainers["captured"].captured, reps=DP["nccl_timed"], collectives=True)
+                      trainers["captured"].program.captured, reps=DP["nccl_timed"],
+                      collectives=True)
     return out
 
 
@@ -3846,7 +3847,7 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
                 want = cycle_counts(alg, perm, nc, g_step=it > 0)
                 want_v = cycle_variants(alg, perm, nc, g_step=it > 0)
                 how = ("eager (no G step)" if it == 0 else "the warm-up before the capture"
-                       if it == 1 else f"replay {graph.captured.replays}")
+                       if it == 1 else f"replay {graph.program.captured.replays}")
                 check(not differ and same and digests[0] == digests[1]
                       and all(torch.equal(m_g[k], m_e[k]) for k in m_e)
                       and got == want and var == want_v,
@@ -3854,16 +3855,16 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
                       f"body: {compared} tensors, {len(differ)} differ {differ[:3]}"
                       + (f", sha256 {digests[0][:12]} / {digests[1][:12]}" if last else "")
                       + f", metrics equal, launches {got} (want {want}), conv3x3 by route {var}")
-            check(graph.captured.captures == 1 and graph.captured.replays == COMPILED["cycles"] - 2,
-                  f"CIFAR {alg}: {graph.captured.captures} capture, {graph.captured.replays} "
-                  f"replays")
+            cap = graph.program.captured
+            check(cap.captures == 1 and cap.replays == COMPILED["cycles"] - 2,
+                  f"CIFAR {alg}: {cap.captures} capture, {cap.replays} replays")
             # step_scan: a block of K through one copy, against K eager cycles
             k = COMPILED["scan"]
             blk = [feed() for _ in range(k)]
             idx = np.stack([x for x, _ in blk])
             gr = np.stack([y_gen[gi] for _, gi in blk])
             gb = np.stack([y_fake[gi] for _, gi in blk])
-            before = graph.captured.replays
+            before = graph.program.captured.replays
             (ts_g, ms_g), got, _ = counted(lambda: graph.step_scan(ts_g, idx, gr, gb, seed))
             ms_e = []
             for j in range(k):
@@ -3876,7 +3877,7 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
                   and all(torch.equal(ms_g[kk], torch.stack([m[kk] for m in ms_e]))
                           for kk in ms_g) and got == want,
                   f"CIFAR {alg} step_scan, a block of {k} (one capture for the block's rows, "
-                  f"{graph.captured.replays - before} replays) against {k} eager cycles: "
+                  f"{graph.program.captured.replays - before} replays) against {k} eager cycles: "
                   f"{compared} tensors, {len(differ)} differ {differ[:3]}, metrics [K] equal, "
                   f"launches {got} (want {want})")
 
@@ -3890,7 +3891,7 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
             return run
 
         timed(f"CIFAR {alg} cycle, bf16, batch {b}", cycle_of(eager, {"ts": ts_e}),
-              cycle_of(graph, {"ts": ts_g}), graph.captured)
+              cycle_of(graph, {"ts": ts_g}), graph.program.captured)
         del eager, graph, ts_e, ts_g
         print(f"  [CIFAR {alg}: {time.perf_counter() - t0:.1f} s into phase 13]", flush=True)
 
@@ -3918,9 +3919,10 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
         want = {kk: blk_n * v for kk, v in MNIST_PATH_COUNTS.items()}
         check(not differ and same and state_digest(torch, ts_g) == state_digest(torch, ts_e)
               and all(torch.equal(ms_g[kk], ms_e[kk]) for kk in ms_e) and got == want
-              and mgraph.captured.captures == 1 and mgraph.captured.replays == blk_n - 1,
+              and mgraph.program.captured.captures == 1
+              and mgraph.program.captured.replays == blk_n - 1,
               f"MNIST rcgan-u + perm step_scan, bf16, batch {mb}, a block of {blk_n} (the warm-up, "
-              f"then {mgraph.captured.replays} replays) against the eager body: {compared} "
+              f"then {mgraph.program.captured.replays} replays) against the eager body: {compared} "
               f"tensors, {len(differ)} differ {differ[:3]}, metrics equal, launches {got} "
               f"(want {want})")
 
@@ -3932,7 +3934,7 @@ def compiled_slice(torch, dev, seed: int, card: str) -> dict:
         return run
 
     timed(f"MNIST rcgan-u + perm iteration, bf16, batch {mb}", iteration_of(meager, {"ts": ts_e}),
-          iteration_of(mgraph, {"ts": ts_g}), mgraph.captured)
+          iteration_of(mgraph, {"ts": ts_g}), mgraph.program.captured)
     del meager, mgraph, ts_e, ts_g, mds
     print(f"  [MNIST: {time.perf_counter() - t0:.1f} s into phase 13]", flush=True)
 
@@ -4797,10 +4799,10 @@ def gspmd_nccl_run(seed: int, ckpt_dir: str, card: str) -> dict:
             digests = [state_digest(torch, states[name]) for name in ("captured", "eager", "alone")]
         if alg == "rcgan":
             Checkpointer(ckpt_dir).save(states["captured"].step, states["captured"], wait=True)
-        captured = steps["captured"].captured
+        captured = steps["captured"].program.captured
         out[alg] = {"counts": counts, "digests": digests, "dispatches": dispatches,
                     "captures": captured.captures, "replays": captured.replays,
-                    "capture": captured.capture and not steps["eager"].captured.capture,
+                    "capture": captured.capture and not steps["eager"].program.captured.capture,
                     "metrics_equal": all(
                         torch.equal(a[k], e[k]) and torch.equal(a[k], o[k])
                         for a, e, o in zip(metrics["captured"], metrics["eager"],

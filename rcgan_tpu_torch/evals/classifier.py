@@ -43,8 +43,8 @@ from rcgan_tpu_torch.core.module import float32_policy, param_tree, scoped_modul
 from rcgan_tpu_torch.ops.conv import Conv2dLib, mean_pool
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.ops.linear import LinearLib
-from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on, state_key
-from rcgan_tpu_torch.train.state import AdamState, ScalelessAdam
+from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on
+from rcgan_tpu_torch.train.state import AdamState, ScalelessAdam, train_state_key
 
 
 class _Block(nn.Module):
@@ -193,10 +193,9 @@ class EvalClassifier:
         opt = ScalelessAdam(0.9, 0.999)
         state = opt.init(params)
         prog = self.train_program = Program(
-            functools.partial(self._train_step, params, opt, state),
+            functools.partial(self._train_step, params, opt),
             {"x": torch.float32, "y": torch.int64, "adam": torch.float32}, self.device,
             self.train_graphs, {"acc": (torch.float32, ())})
-        key = state_key(params + state.mu + state.nu)
         n = len(x)
         stepped = False
         rs = np.random.RandomState(0)
@@ -206,14 +205,15 @@ class EvalClassifier:
                 idx = perm[i: i + batch_size]
                 state.count += 1
                 prog.run([{"x": np.asarray(x[idx], np.float32), "y": np.asarray(y[idx], np.int64),
-                           "adam": opt.scalars(state.count, lr)}], key, held=state)
+                           "adam": opt.scalars(state.count, lr)}], state,
+                         lambda: train_state_key(None, params, state.mu, state.nu))
                 stepped = True
         acc = float(prog.read(1)["acc"][0]) if stepped else 0.0
         prog.captured.reset()  # the graph and its pool go; its counts and times stay
         return acc
 
-    def _train_step(self, params: List[torch.Tensor], opt: ScalelessAdam, state: AdamState,
-                    blk: StepBlock) -> None:
+    def _train_step(self, params: List[torch.Tensor], opt: ScalelessAdam, blk: StepBlock,
+                    state: AdamState) -> None:
         """One Adam step on the block's row ``counter`` (the batch and
         :meth:`ScalelessAdam.scalars` of the step's count), in place on the
         net's parameters and ``state``; the batch's accuracy to the row."""

@@ -31,7 +31,8 @@ import torch
 
 from rcgan_tpu_torch.core import rng as trng
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.graphs import Program, StepBlock, capture_on, state_key
+from rcgan_tpu_torch.train.graphs import Program, StepBlock, capture_on
+from rcgan_tpu_torch.train.state import train_state_key
 
 
 def preds_to_score(preds: np.ndarray, splits: int = 10) -> Tuple[float, float]:
@@ -75,7 +76,7 @@ class InceptionScore:
         self.sample_fn, self.logits_fn, self.batch = sample_fn, logits_fn, batch
         self.program = Program(self._body, {"seeds": torch.int64}, dev, capture_on(dev, graphs))
 
-    def _body(self, blk: StepBlock) -> None:
+    def _body(self, blk: StepBlock, state) -> None:
         with torch.no_grad():
             imgs = self.sample_fn(blk.row("seeds"), self.batch)
             blk.write("probs", torch.softmax(self.logits_fn(imgs).float(), dim=-1))
@@ -90,8 +91,8 @@ class InceptionScore:
         one of them has moved."""
         k = n // self.batch
         state = tuple(state)
-        self.program.run([{"seeds": batch_seeds(seed, i)} for i in range(k)], state_key(state),
-                         held=state)
+        self.program.run([{"seeds": batch_seeds(seed, i)} for i in range(k)], state,
+                         lambda: train_state_key(None, state))
         probs = self.program.block.outputs["probs"][:k]
         return preds_to_score(probs.reshape(-1, probs.shape[-1]).cpu().numpy(), splits)
 
@@ -106,7 +107,7 @@ def real_data_score(images: np.ndarray, logits_fn: Callable[[torch.Tensor], torc
     probabilities stay there until one fetch at the end."""
     dev = resolve_device(device)
 
-    def body(blk: StepBlock) -> torch.Tensor:
+    def body(blk: StepBlock, state) -> torch.Tensor:
         with torch.no_grad():
             return torch.softmax(logits_fn(blk.row("x")).float(), dim=-1)
 

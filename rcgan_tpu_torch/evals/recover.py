@@ -85,7 +85,7 @@ def recover_labels(sampler: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     imgs = images.float()[:, None]
     y_actual = y_actual.to(dev)
 
-    def step(blk: StepBlock) -> None:
+    def step(blk: StepBlock, state) -> None:
         gen = sampler(z, hard_y).float().reshape((b, y_dim) + tuple(imgs.shape[2:]))
         sq = torch.mean((imgs - gen) ** 2, dim=(-1, -2, -3))  # [B, y]
         loss = torch.mean(torch.sum(sq * torch.softmax(y_logits, dim=-1), dim=-1))

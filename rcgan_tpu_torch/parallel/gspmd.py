@@ -4,7 +4,7 @@
 
 JAX jits the single-program cycle (``_cycle(..., axis=None)``) with
 sharding annotations and lets XLA insert the collectives.  The port runs
-the same body, :meth:`CifarTrainer._cycle_on`, on
+the same body, :meth:`CifarTrainer._cycle`, on
 ``torch.distributed.tensor`` DTensors, one process per mesh device, and
 DTensor's dispatch inserts the collectives:
 
@@ -58,8 +58,8 @@ from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distr
 from rcgan_tpu_torch.core.module import scoped_modules
 from rcgan_tpu_torch.data.cifar10 import DATASET_KEYS
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.graphs import CapturedStep, StepBlock, capture_on, load_block, state_key
-from rcgan_tpu_torch.train.state import ParamKey, TrainState, train_state_tensors
+from rcgan_tpu_torch.train.graphs import Program, StepBlock, capture_on
+from rcgan_tpu_torch.train.state import ParamKey, TrainState, train_state_key
 
 Placements = Tuple[Placement, ...]  # one per mesh dimension: (data, model)
 
@@ -239,28 +239,21 @@ def _check_placed(ts: TrainState, want: TrainStateShardings) -> None:
                                  f"{getattr(p, 'placements', None)}")
 
 
-def _addresses(ts: TrainState, trainer) -> tuple:
-    """The addresses of the local tensors a cycle reads and writes."""
-    with torch.no_grad():
-        local = [t.to_local() if isinstance(t, DTensor) else t for t in train_state_tensors(ts)]
-    return state_key(local + list((trainer.device_dataset or {}).values())
-                     + [trainer.confusion_actual])
-
-
 class _MeshCycle:
-    """:func:`gspmd_cycle`'s step: the cycle's block (``block``) and its
-    :class:`CapturedStep` (``captured``), which captures the body at the
+    """:func:`gspmd_cycle`'s step: the cycle as a :class:`Program`
+    (``program``) over this rank's rows, which captures the body at the
     first cycle of a state (after iteration 0, which has no G step and runs
     eagerly) and replays it for the next."""
 
     def __init__(self, trainer, mesh: DeviceMesh, rules, capture: bool):
         self.trainer, self.mesh, self.rules = trainer, mesh, rules
-        self.block: Optional[StepBlock] = None
-        self.captured = CapturedStep(self._body, trainer.device, capture)
+        self.program = Program(self._body, trainer._DTYPES, trainer.device, capture,
+                               {k: (torch.float32, ()) for k in trainer.METRICS})
 
-    def _body(self) -> None:
+    def _body(self, blk: StepBlock, ts: TrainState) -> None:
         with _on_mesh(self.trainer, self.mesh):
-            self.trainer._cycle_on(_MeshRow(self.block, self.trainer, self.mesh))
+            self.trainer._cycle(_MeshRow(blk, self.trainer, self.mesh), ts,
+                                not self.program.eager_row)
 
     def __call__(self, ts: TrainState, d_batches: Mapping, g_labels: Mapping, iteration: int,
                  seed: int, noise: Optional[Mapping] = None):
@@ -268,18 +261,12 @@ class _MeshCycle:
         _check_placed(ts, train_state_shardings(self.mesh, ts, self.rules))
         row = _local_row(tr._cycle_row(ts, d_batches, g_labels, iteration, seed, noise),
                          self.mesh)
-        self.block = load_block(self.block, [row], tr._DTYPES, tr.device,
-                                {k: (torch.float32, ()) for k in tr.METRICS}, self.captured)
-        tr._ts, tr._g_step = ts, iteration > 0
-        try:
-            if tr._g_step:
-                self.captured((id(ts), id(self.mesh), _addresses(ts, tr)), held=ts)
-            else:  # the reference skips the G step at iteration 0
-                self.captured.eager()
-        finally:
-            tr._ts = None
+        # the addresses of the local tensors the cycle reads and writes
+        self.program.run([row], ts, lambda: (id(self.mesh),) + train_state_key(
+            ts, (tr.device_dataset or {}).values(), [tr.confusion_actual]),
+            eager=int(iteration == 0))
         ts.step += 1
-        return ts, {k: v[0] for k, v in self.block.read(1).items()}
+        return ts, {k: v[0] for k, v in self.program.read(1).items()}
 
 
 def gspmd_cycle(trainer, mesh: DeviceMesh,
@@ -294,8 +281,8 @@ def gspmd_cycle(trainer, mesh: DeviceMesh,
     batches, dim 0 of the generator labels); the metrics come back whole
     on every rank.  ``graphs``: capture the cycle into a CUDA graph and
     replay it; by default on a CUDA mesh, never on a CPU mesh
-    (``graphs=True`` there raises).  The step's ``captured`` holds the
-    graph and its stats."""
+    (``graphs=True`` there raises).  The step's ``program.captured`` holds
+    the graph and its stats."""
     if trainer.group is not None:
         raise ValueError("gspmd_cycle runs the single-program cycle; the trainer has a group")
     if trainer.device.type != mesh.device_type:

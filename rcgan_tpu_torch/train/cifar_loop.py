@@ -47,11 +47,12 @@ while its step runs, and the noise of the global batch is then drawn by
 each rank for its rows of the mesh's data axis, by global row, and sharded
 there.
 
-Spans (:mod:`rcgan_tpu_torch.utils.profiling`, in the cycle's
+Spans (:mod:`rcgan_tpu_torch.utils.profiling`, in the cycle program's
 ``captured.spans``): the host part of :meth:`CifarTrainer.step_scan` and
-:meth:`CifarTrainer.step` is timed as ``rows`` (the cycles' rows), ``key``
-(the state's addresses), ``load`` (the block's copy), ``launch`` (the
-cycles run or replayed) and ``read`` (the metrics); the cycle marks its
+:meth:`CifarTrainer.step` is timed as ``rows`` (the cycles' rows), then by
+the program (``train/graphs.py::Program``) as ``key`` (the state's
+addresses), ``load`` (the block's copy), ``launch`` (the cycles run or
+replayed) and ``read`` (the metrics); the cycle marks its
 device phases: ``d.input`` (the rows read, the index gather, each critic
 step's dequantisation and ``z``), ``g.input`` (``zg``), ``g.forward`` and
 ``d.forward`` (up to the gradients), ``g.backward`` and ``d.backward``
@@ -79,11 +80,10 @@ from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.gspmd import data_rows
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
-from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, Program, StepBlock, capture_on,
-                                          load_block, state_key)
+from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of,
                                          init_train_state, mean_over_ranks, state_in_place,
-                                         train_state_tensors, trainable)
+                                         train_state_key, trainable)
 from rcgan_tpu_torch.utils.profiling import mark
 
 
@@ -158,17 +158,21 @@ class CifarTrainer:
         # the DeviceMesh of a GSPMD step while it runs (parallel/gspmd.py),
         # with confusion_actual a replicated DTensor on it
         self.mesh = None
-        self.block: Optional[StepBlock] = None   # the cycle's inputs and metrics
-        self.captured = CapturedStep(self._cycle, self.device, self.graphs, self.group)
-        self._ts: Optional[TrainState] = None    # what the cycle and dev-cost bodies run on
-        self._g_step = True
-        # the evals' programs, each in a graph and pool of its own (one device:
-        # with a group the evals run on the main rank, and have no collective)
+        # the cycle over the rows of its block, and the evals' programs, each in
+        # a graph and pool of its own (one device: with a group the evals run
+        # on the main rank, and have no collective)
+        self.program = Program(lambda blk, ts: self._cycle(blk, ts, not self.program.eager_row),
+                               self._DTYPES, self.device, self.graphs,
+                               {m: (torch.float32, ()) for m in self.METRICS}, self.group)
         self.dev_program = Program(self._dev_cost, self._DTYPES, self.device, self.graphs,
                                    {"cost": (torch.float32, ())})
-        self._eval_dataset: Optional[Mapping[str, torch.Tensor]] = None
         self._samples = Passes(self._sample_pass, {"z": torch.float32, "labels": torch.int64},
                                self.device, self.graphs)
+
+    @property
+    def captured(self):
+        """The cycle program's step: its graph, its counters and its spans."""
+        return self.program.captured
 
     def init(self, seed: int = 0) -> TrainState:
         """A fresh train state with parameters drawn from ``seed``.  (JAX's
@@ -265,35 +269,6 @@ class CifarTrainer:
                "zg": torch.float32, "z": torch.float32, "u": torch.float32}
     METRICS = ("d_cost", "d_cost_mean", "g_cost", "lr")
 
-    def _run(self, ts: TrainState, rows, iterations) -> Dict[str, torch.Tensor]:
-        """The cycles of ``rows`` (each at its iteration), in place on
-        ``ts``: the cycle at iteration 0 eagerly (no G step), every other one
-        through :attr:`captured`.  Returns the metrics ``[K]``."""
-        spans, k = self.captured.spans, len(rows)
-        with spans.host("load", k):
-            self.block = load_block(self.block, rows, self._DTYPES, self.device,
-                                    {m: (torch.float32, ()) for m in self.METRICS},
-                                    self.captured)
-        self._ts = ts
-        # the addresses the graph reads: a new state or dataset captures
-        # again (a new block did in load_block)
-        with spans.host("key", k):
-            key = (id(ts), state_key(train_state_tensors(ts) + list(
-                (self.device_dataset or {}).values())))
-        try:
-            with spans.host("launch", k):
-                for it in iterations:
-                    self._g_step = it > 0
-                    if self._g_step:
-                        self.captured(key, held=ts)
-                    else:
-                        self.captured.eager()
-                    ts.step += 1
-        finally:
-            self._ts = None
-        with spans.host("read", k):
-            return self.block.read(k)
-
     # ------------------------------------------------------------- steps
     def _g_step_update(self, ts: TrainState, g_random, g_biased, zg, adam) -> torch.Tensor:
         names = [g for g in ("gen", "confusion") if g in ts.groups]
@@ -329,19 +304,16 @@ class CifarTrainer:
         self.optimizers["disc"].apply_(params, grads, ts.opt_states["disc"], scalars)
         return out["disc_cost"].detach()
 
-    def _cycle(self) -> None:
-        """The body of one cycle (JAX's ``_cycle``), on the block's row
-        ``counter``; it reads only device tensors, so that one body runs
-        eagerly and in a CUDA graph: the G step (unless this is iteration
-        0), then the ``n_critic`` D steps, the state kept at its addresses
-        (:func:`state_in_place`); the metrics go to the block's row; the
-        phases are marked as device spans (module doc)."""
-        self._cycle_on(self.block)
-
-    def _cycle_on(self, blk) -> None:
-        """:meth:`_cycle` on the row ``counter`` of ``blk``, a
-        :class:`StepBlock` or a GSPMD step's row of DTensors."""
-        ts, cfg, tcfg = self._ts, self.cfg, self.tcfg
+    def _cycle(self, blk, ts: TrainState, g_step: bool) -> None:
+        """The body of one cycle (JAX's ``_cycle``) on ``ts``, on the row
+        ``counter`` of ``blk``, a :class:`StepBlock` or a GSPMD step's row of
+        DTensors; it reads only device tensors, so that one body runs eagerly
+        and in a CUDA graph: the G step (unless ``g_step`` is off: the row
+        :attr:`program` runs eagerly at iteration 0), then the ``n_critic`` D
+        steps, the state kept at its addresses (:func:`state_in_place`); the
+        metrics go to the row; the phases are marked as device spans (module
+        doc)."""
+        cfg, tcfg = self.cfg, self.tcfg
         mark("d.input")
         f = {k: blk.row(k) for k in blk.fields}
         if "index" in f:
@@ -354,7 +326,7 @@ class CifarTrainer:
         noise = "zg" in f
         adam, z_base = f["adam"], f["z_base"]
         with state_in_place(ts.gan):
-            if self._g_step:
+            if g_step:
                 mark("g.input")
                 zg = f["zg"] if noise else self._normal_rows(z_base[0], gb)
                 g_cost = self._g_step_update(ts, f["g_labels"][0], f["g_labels"][1], zg, adam)
@@ -411,10 +383,13 @@ class CifarTrainer:
         ``g_cost``, ``lr``.  With a group, the batches, labels and ``noise``
         are the global ones (every rank is given the same), the rank runs on
         its rows, and the costs are meaned over the ranks."""
-        with self.captured.spans.host("rows"):
+        with self.program.captured.spans.host("rows"):
             row = self._cycle_row(ts, d_batches, g_labels, iteration, seed, noise)
-        ms = self._run(ts, [row], [iteration])
-        return ts, {k: v[0] for k, v in ms.items()}
+        # the addresses the graph reads: a new state or dataset captures again
+        self.program.run([row], ts, lambda: train_state_key(
+            ts, (self.device_dataset or {}).values()), eager=int(iteration == 0))
+        ts.step += 1
+        return ts, {k: v[0] for k, v in self.program.read(1).items()}
 
     def step_scan(self, ts: TrainState, idx, g_random, g_biased, seed: int,
                   noise: Optional[Mapping] = None):
@@ -435,14 +410,17 @@ class CifarTrainer:
             raise ValueError("step_scan needs the trainer's device_dataset")
         idx, g_random, g_biased = (self._host(x) for x in (idx, g_random, g_biased))
         first = ts.step
-        with self.captured.spans.host("rows", len(idx)):
+        with self.program.captured.spans.host("rows", len(idx)):
             rows = [self._cycle_row(ts, {"index": idx[j]},
                                     {"random": g_random[j], "biased": g_biased[j]},
                                     first + j, rng.fold_in(seed, first + j),
                                     None if noise is None else
                                     {k: v[j] for k, v in noise.items()})
                     for j in range(len(idx))]
-        return ts, self._run(ts, rows, range(first, first + len(idx)))
+        self.program.run(rows, ts, lambda: train_state_key(ts, self.device_dataset.values()),
+                         eager=int(first == 0))
+        ts.step += len(rows)
+        return ts, self.program.read(len(rows))
 
     def eval_disc_cost(self, ts: TrainState, batch: Mapping, seed: int,
                        noise: Optional[Mapping] = None) -> torch.Tensor:
@@ -453,7 +431,8 @@ class CifarTrainer:
         ``fold_in(seed, 1)``.  ``noise``, when given, supplies ``z [B,
         z_dim]`` and ``u [B, 3072]``.  A device scalar of its own."""
         row = self._dev_cost_row({k: self._host(batch[k]) for k in DATASET_KEYS}, seed, noise)
-        return self._run_dev_cost(ts, [row], None)[0]
+        self.dev_program.run([row], (ts, None), lambda: train_state_key(ts))
+        return self.dev_program.read(1)["cost"][0]
 
     def eval_disc_cost_scan(self, ts: TrainState, dataset: Mapping[str, torch.Tensor], idx,
                             seed: int, noise: Optional[Mapping] = None) -> torch.Tensor:
@@ -471,7 +450,8 @@ class CifarTrainer:
                                    None if noise is None else
                                    {"z": noise["z"][k], "u": noise["u"][k]})
                 for k in range(len(idx))]
-        return self._run_dev_cost(ts, rows, dataset).mean()
+        self.dev_program.run(rows, (ts, dataset), lambda: train_state_key(ts, dataset.values()))
+        return self.dev_program.read(len(rows))["cost"].mean()
 
     def _dev_cost_row(self, batch: Mapping, seed: int,
                       noise: Optional[Mapping]) -> Dict[str, np.ndarray]:
@@ -488,28 +468,18 @@ class CifarTrainer:
                        q_seeds=rng.example_seeds(rng.fold_in(seed, 1), b))
         return row
 
-    def _run_dev_cost(self, ts: TrainState, rows, dataset) -> torch.Tensor:
-        """The dev-cost body once per row of ``rows`` through
-        :attr:`dev_program`; returns the costs ``[K]``."""
-        self._ts, self._eval_dataset = ts, dataset
-        key = (id(ts), state_key(train_state_tensors(ts) + list((dataset or {}).values())))
-        try:
-            self.dev_program.run(rows, key, held=(ts, dataset))
-        finally:
-            self._ts = self._eval_dataset = None
-        return self.dev_program.read(len(rows))["cost"]
-
-    def _dev_cost(self, blk: StepBlock) -> None:
-        """The body of one dev-cost batch on the block's row ``counter``:
-        the batch gathered on the device (or read from the row), the real
-        images dequantised, ``z`` drawn, and D's cost on them with SN
+    def _dev_cost(self, blk: StepBlock, state) -> None:
+        """The body of one dev-cost batch on the block's row ``counter``, on
+        ``state``, the train state and the split resident on the device (or
+        None): the batch gathered on the device (or read from the row), the
+        real images dequantised, ``z`` drawn, and D's cost on them with SN
         frozen, into the row's ``cost``."""
-        ts, cfg = self._ts, self.cfg
+        (ts, dataset), cfg = state, self.cfg
         f = {k: blk.row(k) for k in blk.fields}
         with torch.no_grad():
             if "index" in f:
                 sb = self._batch_to_device({k: v[f["index"]]
-                                            for k, v in self._eval_dataset.items()})
+                                            for k, v in dataset.items()})
             else:
                 sb = {k: f[k] for k in DATASET_KEYS}
             b = sb["labels"].shape[0]

@@ -34,7 +34,11 @@ too: its collectives are captured into each rank's graph
 - :class:`Program` is a body over the rows of a block of its own, run once
   per row by a :class:`CapturedStep` of its own (JAX's ``lax.scan`` of one
   jitted body), so that an owner holds one graph, and one pool, per
-  program: a trainer's cycle graph outlives its evals';
+  program: a trainer's cycle graph outlives its evals'.  It is the one
+  runner of a block of steps: it loads the block, keys the state, binds the
+  state to the body for the call, runs any leading rows eagerly (the CIFAR
+  cycle at iteration 0, which has no G step) and the rest through its
+  step, and reads the outputs;
 - :class:`Passes` is a forward pass captured once per input layout (JAX's
   jit per shape), one :class:`Program` each, returning a copy of the
   output.  Called inside another program's warm-up or capture, a pass runs
@@ -60,8 +64,9 @@ the same way (``DataGroup.recorded_bytes``).
 Spans: each :class:`CapturedStep` owns a
 :class:`~rcgan_tpu_torch.utils.profiling.Spans` (``spans``), whose totals
 its ``stats()`` returns: a body's device marks go there, eagerly and in its
-graph, and :class:`Program` times the host part of its calls (``load``,
-``launch``, ``read``).
+graph, and :class:`Program` times the host part of its calls, in this order
+for every program: ``key``, ``load``, ``launch``, ``read`` (the caller
+times ``rows``, the host part that builds them, before).
 """
 
 from __future__ import annotations
@@ -222,28 +227,6 @@ class StepBlock:
         return {name: out[:k].clone() for name, out in self.outputs.items()}
 
 
-def load_block(block: Optional[StepBlock], rows: Sequence[Mapping[str, np.ndarray]],
-               dtypes: Mapping[str, torch.dtype], device,
-               outputs: Mapping[str, Field], captured: "CapturedStep") -> StepBlock:
-    """``rows`` (one dict of arrays, or of tensors on the device, a step)
-    loaded into ``block``, or into a new block of ``len(rows)`` rows when the
-    fields' layout changed or the rows outnumber it; a new block frees
-    ``captured``'s graph, which read the old one.  Returns the block
-    loaded."""
-    fields = {k: (dtypes[k], tuple(np.shape(v))) for k, v in rows[0].items()}
-    spec = tuple((k, dt, tuple(shape)) for k, (dt, shape) in fields.items())
-    if block is None or block.spec != spec or block.capacity < len(rows):
-        captured.reset()
-        block = StepBlock(fields, len(rows), device, outputs=outputs)
-
-    def stacked(k):
-        vs = [r[k] for r in rows]
-        return torch.stack(vs) if torch.is_tensor(vs[0]) else np.stack(vs)
-
-    block.load({k: stacked(k) for k in rows[0]}, k=len(rows))
-    return block
-
-
 def state_key(tensors: Sequence[torch.Tensor]) -> Tuple[int, ...]:
     """The addresses of ``tensors``: a graph captured over them replays
     only while each still lies there."""
@@ -369,38 +352,67 @@ class CapturedStep:
 
 
 class Program:
-    """``body(block)`` over the rows of a :class:`StepBlock` of its own (its
-    fields' dtypes ``dtypes``, its declared ``outputs``), run once per row
-    by a :class:`CapturedStep` of its own: eagerly, or captured at the first
-    row of a new key and replayed for the rest (JAX's ``lax.scan`` of one
-    jitted body).  The body reads row ``counter`` of the fields, writes its
-    outputs there and advances the counter.  The host spans ``load`` (the
-    rows into the block) and ``launch`` (the steps run or replayed) of each
-    :meth:`run`, and ``read`` of each :meth:`read`, go to the step's
-    ``spans``."""
+    """``body(block, state)`` over the rows of a :class:`StepBlock` of its
+    own (its fields' dtypes ``dtypes``, its declared ``outputs``), run once
+    per row by a :class:`CapturedStep` of its own (in ``group``, whose
+    collectives the body runs): eagerly, or captured at the first row of a
+    new key and replayed for the rest (JAX's ``lax.scan`` of one jitted
+    body).  The body reads row ``counter`` of the fields, writes its outputs
+    there and advances the counter.  The only runner of a block of steps:
+    every trainer's programs, the evals' and :class:`Passes` run here."""
 
-    def __init__(self, body: Callable[[StepBlock], Any], dtypes: Mapping[str, torch.dtype],
-                 device, capture: bool, outputs: Optional[Mapping[str, Field]] = None):
+    def __init__(self, body: Callable[[StepBlock, Any], Any], dtypes: Mapping[str, torch.dtype],
+                 device, capture: bool, outputs: Optional[Mapping[str, Field]] = None,
+                 group=None):
         self.dtypes = dict(dtypes)
         self.outputs = dict(outputs or {})
         self.device = torch.device(device)
         self.block: Optional[StepBlock] = None
-        self.captured = CapturedStep(lambda: body(self.block), self.device, capture)
+        self.eager_row = False  # whether the row running is one of run's leading eager rows
+        self._state: Any = None
+        self.captured = CapturedStep(lambda: body(self.block, self._state), self.device,
+                                     capture, group)
 
-    def run(self, rows: Sequence[Mapping[str, Any]], key: Hashable = None,
-            held: Any = None) -> Any:
-        """``rows`` (one dict a step, as :func:`load_block` takes them) into
-        the block, then the body once a row; returns the last call's
-        result."""
+    def run(self, rows: Sequence[Mapping[str, Any]], state: Any = None,
+            key: Optional[Callable[[], Hashable]] = None, eager: int = 0) -> Any:
+        """``rows`` (one dict of arrays, or of tensors on the device, a
+        step) into the block, then the body once a row on ``state``, which
+        the graph holds while it lives; returns the last call's result.
+        ``key()`` is what the body reads (module doc): a new key captures
+        again, and so does a new block (its fields' layout changed, or the
+        rows outnumber it).  The first ``eager`` rows run eagerly, outside
+        any graph (:attr:`eager_row` tells the body).  The host spans
+        ``key``, ``load`` (the rows into the block) and ``launch`` (the
+        steps run or replayed), then ``read`` of :meth:`read`, go to the
+        step's ``spans``."""
         spans, k = self.captured.spans, len(rows)
+        with spans.host("key", k):
+            key = None if key is None else key()
         with spans.host("load", k):
-            self.block = load_block(self.block, rows, self.dtypes, self.device, self.outputs,
-                                    self.captured)
+            self._load(rows)
         out = None
-        with spans.host("launch", k):
-            for _ in range(k):
-                out = self.captured(key, held)
+        self._state = state
+        try:
+            with spans.host("launch", k):
+                for i in range(k):
+                    self.eager_row = i < eager
+                    out = self.captured.eager() if self.eager_row else self.captured(key, state)
+        finally:
+            self._state, self.eager_row = None, False
         return out
+
+    def _load(self, rows: Sequence[Mapping[str, Any]]) -> None:
+        fields = {k: (self.dtypes[k], tuple(np.shape(v))) for k, v in rows[0].items()}
+        spec = tuple((k, dt, shape) for k, (dt, shape) in fields.items())
+        if self.block is None or self.block.spec != spec or self.block.capacity < len(rows):
+            self.captured.reset()  # its graph read the old block
+            self.block = StepBlock(fields, len(rows), self.device, outputs=self.outputs)
+
+        def stacked(k):
+            vs = [r[k] for r in rows]
+            return torch.stack(vs) if torch.is_tensor(vs[0]) else np.stack(vs)
+
+        self.block.load({k: stacked(k) for k in rows[0]}, k=len(rows))
 
     def read(self, k: int) -> Dict[str, torch.Tensor]:
         with self.captured.spans.host("read", k):
@@ -420,22 +432,18 @@ class Passes:
         self.body, self.dtypes = body, dict(dtypes)
         self.device, self.capture = torch.device(device), capture
         self.programs: Dict[Hashable, Program] = {}
-        self._held: Any = None
 
     def __call__(self, inputs: Mapping[str, Any], held: torch.nn.Module,
                  extra: Tuple = ()) -> torch.Tensor:
         if inside_program():  # the calling program's body: no block, no capture of its own
             return self.body({k: torch.as_tensor(v).to(self.device, self.dtypes[k])
                               for k, v in inputs.items()}, held, *extra).clone()
-        key = (id(held), state_key(list(held.parameters()) + list(held.buffers())))
         sig = (tuple(extra), tuple((k, tuple(np.shape(v))) for k, v in inputs.items()))
         prog = self.programs.get(sig)
         if prog is None:
             prog = self.programs[sig] = Program(
-                lambda blk: self.body({k: blk.row(k) for k in blk.fields}, self._held, *extra),
+                lambda blk, module: self.body({k: blk.row(k) for k in blk.fields}, module,
+                                              *extra),
                 self.dtypes, self.device, self.capture)
-        self._held = held
-        try:
-            return prog.run([dict(inputs)], key, held).clone()
-        finally:
-            self._held = None
+        return prog.run([dict(inputs)], held, lambda: (id(held), state_key(
+            list(held.parameters()) + list(held.buffers())))).clone()

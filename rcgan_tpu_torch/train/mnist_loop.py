@@ -46,6 +46,12 @@ are meaned; ``prob_real`` and ``prob_fake`` are gathered to the global
 batch in rank order.  Batch norms take their moments per rank.  In an NCCL
 group each rank captures its own graph of the same collectives in the same
 order.
+
+Spans (:mod:`rcgan_tpu_torch.utils.profiling`, in the program's
+``captured.spans``): the host part of :meth:`MnistTrainer.step` and
+:meth:`MnistTrainer.step_scan` is timed as ``rows`` (the iterations' rows),
+then by the program (``train/graphs.py::Program``) as ``key``, ``load``,
+``launch`` and ``read``; the iteration marks no device phases.
 """
 
 from __future__ import annotations
@@ -63,11 +69,10 @@ from rcgan_tpu_torch.core.module import float32_policy
 from rcgan_tpu_torch.models.dcgan import DCGANConfig, sample
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
 from rcgan_tpu_torch.parallel.mesh import DataGroup, check_group
-from rcgan_tpu_torch.train.graphs import (CapturedStep, Passes, StepBlock, capture_on, load_block,
-                                          state_key)
+from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, apply_constraints,
                                          constraints_of, grads_of, init_train_state,
-                                         mean_over_ranks, state_in_place, train_state_tensors,
+                                         mean_over_ranks, state_in_place, train_state_key,
                                          trainable)
 
 BATCH_KEYS = ("images", "y_real", "y_gen", "y_fake", "y_real_weights")
@@ -124,10 +129,12 @@ class MnistTrainer:
         self.confusion_actual = torch.as_tensor(np.asarray(confusion_actual, np.float32),
                                                 device=self.device)
         self.optimizers = optimizers(tcfg)
-        self.block: Optional[StepBlock] = None   # the iteration's inputs and metrics
-        self.captured = CapturedStep(self._iteration, self.device, self.graphs, self.group)
-        self._ts: Optional[TrainState] = None    # what the iteration body runs on
-        self._dataset: Optional[Mapping[str, torch.Tensor]] = None  # step_scan's
+        # the metrics: prob_real and prob_fake, [B] of the global batch, are
+        # made at their first write (StepBlock)
+        v = acfg.y_dim
+        self.program = Program(self._iteration, self._DTYPES, self.device, self.graphs,
+                               {**{name: (torch.float32, ()) for name in self.SCALARS},
+                                "confusion": (torch.float32, (v, v))}, self.group)
         # sample: one pass per batch size, in a graph and pool of its own
         self._samples = Passes(self._sample_pass, {"z": torch.float32, "y": torch.float32},
                                self.device, self.graphs)
@@ -195,42 +202,18 @@ class MnistTrainer:
         row["adam"] = adam
         return row
 
-    def _run(self, ts: TrainState, rows) -> Dict[str, torch.Tensor]:
-        """The iterations of ``rows``, in place on ``ts``, through
-        :attr:`captured`; returns the metrics stacked ``[K, ...]``."""
-        k = len(rows)
-        b = len(rows[0]["index" if "index" in rows[0] else "images"])
-        b *= 1 if self.group is None else self.group.world_size
-        v = self.acfg.y_dim
-        outputs = {name: (torch.float32, ()) for name in self.SCALARS}
-        outputs.update(confusion=(torch.float32, (v, v)), prob_real=(torch.float32, (b,)),
-                       prob_fake=(torch.float32, (b,)))
-        self.block = load_block(self.block, rows, self._DTYPES, self.device, outputs,
-                                self.captured)
-        # the addresses the graph reads: a new state or dataset captures
-        # again (a new block did in load_block)
-        key = (id(ts), state_key(train_state_tensors(ts) + list(
-            (self._dataset or {}).values())))
-        self._ts = ts
-        try:
-            for _ in range(k):
-                self.captured(key, held=(ts, self._dataset))
-                ts.step += 1
-        finally:
-            self._ts = None
-        return self.block.read(k)
-
     # -------------------------------------------------------------- step
-    def _iteration(self) -> None:
+    def _iteration(self, blk: StepBlock, state) -> None:
         """The body of one reference iteration on the block's row
-        ``counter``; it reads only device tensors, so that one body runs
-        eagerly and in a CUDA graph: the D update, the max-norm clip, the
-        ``g_steps`` G (+C) updates, the state kept at its addresses
+        ``counter``, on ``state``, the train state and ``step_scan``'s
+        dataset (or None); it reads only device tensors, so that one body
+        runs eagerly and in a CUDA graph: the D update, the max-norm clip,
+        the ``g_steps`` G (+C) updates, the state kept at its addresses
         (:func:`state_in_place`); the metrics go to the block's row."""
-        ts, blk, cfg, tcfg = self._ts, self.block, self.cfg, self.tcfg
+        (ts, dataset), cfg, tcfg = state, self.cfg, self.tcfg
         f = {k: blk.row(k) for k in blk.fields}
         if "index" in f:
-            batch = self.batch_to_device({k: v[f["index"]] for k, v in self._dataset.items()})
+            batch = self.batch_to_device({k: v[f["index"]] for k, v in dataset.items()})
         else:
             batch = {k: f[k] for k in BATCH_KEYS}
         b = batch["images"].shape[0]  # this rank's rows
@@ -294,10 +277,11 @@ class MnistTrainer:
         group, ``batch`` and ``z`` are the global ones (every rank is given
         the same) and the rank runs on its rows; the metrics are meaned over
         the ranks, the ``[B]`` ones gathered."""
-        self._dataset = None
-        row = self._iteration_row(ts, {k: batch[k] for k in BATCH_KEYS}, seed, z)
-        ms = self._run(ts, [row])
-        return ts, {k: v[0] for k, v in ms.items()}
+        with self.program.captured.spans.host("rows"):
+            row = self._iteration_row(ts, {k: batch[k] for k in BATCH_KEYS}, seed, z)
+        self.program.run([row], (ts, None), lambda: train_state_key(ts))
+        ts.step += 1
+        return ts, {k: v[0] for k, v in self.program.read(1).items()}
 
     def step_scan(self, ts: TrainState, dataset: Mapping[str, torch.Tensor], idx, seed: int,
                   z=None):
@@ -316,13 +300,17 @@ class MnistTrainer:
                              "iteration")
         if set(dataset) != set(BATCH_KEYS):
             raise ValueError(f"dataset must hold {BATCH_KEYS}; got {sorted(dataset)}")
-        self._dataset = dict(dataset)
+        dataset = dict(dataset)
         idx = self._host(idx)
         first = ts.step
-        rows = [self._iteration_row(ts, {"index": idx[j]}, rng.fold_in(seed, first + j),
-                                    None if z is None else self._host(z)[j])
-                for j in range(len(idx))]
-        return ts, self._run(ts, rows)
+        with self.program.captured.spans.host("rows", len(idx)):
+            rows = [self._iteration_row(ts, {"index": idx[j]}, rng.fold_in(seed, first + j),
+                                        None if z is None else self._host(z)[j])
+                    for j in range(len(idx))]
+        # the addresses the graph reads: a new state or dataset captures again
+        self.program.run(rows, (ts, dataset), lambda: train_state_key(ts, dataset.values()))
+        ts.step += len(rows)
+        return ts, self.program.read(len(rows))
 
     # ------------------------------------------------------------ sample
     def sample(self, ts: TrainState, z, y_onehot) -> torch.Tensor:

@@ -40,8 +40,9 @@ train.graphs.Passes`).
 
 Spans (:mod:`rcgan_tpu_torch.utils.profiling`, in the program's
 ``captured.spans``): :meth:`PGGANTrainer.step`'s host part is timed as
-``rows`` (:meth:`PGGANTrainer._iteration_row`), ``key`` (the state's
-addresses), ``load``, ``launch`` and ``read`` (the program's); the
+``rows`` (:meth:`PGGANTrainer._iteration_row`), then by the program
+(``train/graphs.py::Program``) as ``key`` (the state's addresses),
+``load``, ``launch`` and ``read``; the
 iteration marks its device phases: ``d.input`` (the row read,
 ``pool_to_stage``, ``z``), ``d.forward`` (G's fakes and D on both),
 ``d.backward``, ``d.update`` (Adam), ``g.forward``, ``g.backward``,
@@ -64,9 +65,9 @@ from rcgan_tpu_torch.core.module import float32_policy, sn_updates
 from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig, sample
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.ops.kernels.runtime import resolve_device
-from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on, state_key
+from rcgan_tpu_torch.train.graphs import Passes, Program, StepBlock, capture_on
 from rcgan_tpu_torch.train.state import (ScalelessAdam, TrainState, grads_of, init_train_state,
-                                         state_in_place, train_state_tensors, trainable)
+                                         state_in_place, train_state_key, trainable)
 from rcgan_tpu_torch.utils.profiling import mark
 
 
@@ -120,8 +121,6 @@ class PGGANTrainer:
                                {k: (torch.float32, ()) for k in self.METRICS})
         self._samples = Passes(self._sample_pass, {"z": torch.float32, "labels": torch.int64},
                                self.device, self.graphs)
-        self._ts: Optional[TrainState] = None  # what the step body runs on, and its phase
-        self._phase = (1, False)
 
     def init(self, seed: int = 0) -> TrainState:
         """A train state over every stage's parameters drawn from ``seed``,
@@ -153,15 +152,14 @@ class PGGANTrainer:
         row["adam"] = adam
         return row
 
-    def _iteration(self, blk: StepBlock) -> None:
-        """The body of one iteration at :attr:`_phase` on the block's row
-        ``counter``; it reads only device tensors, so that one body runs
-        eagerly and in a CUDA graph: ``pool_to_stage``, the D step, the G
-        step, the state kept at its addresses (:func:`state_in_place`); the
-        costs go to the block's row; the phases are marked as device spans
-        (module doc)."""
-        ts, cfg, tcfg = self._ts, self.cfg, self.tcfg
-        stage, trans = self._phase
+    def _iteration(self, blk: StepBlock, state) -> None:
+        """The body of one iteration on the block's row ``counter``, on
+        ``state``, the train state and the phase ``(ts, stage, trans)``; it
+        reads only device tensors, so that one body runs eagerly and in a
+        CUDA graph: ``pool_to_stage``, the D step, the G step, the state kept
+        at its addresses (:func:`state_in_place`); the costs go to the
+        block's row; the phases are marked as device spans (module doc)."""
+        (ts, stage, trans), cfg, tcfg = state, self.cfg, self.tcfg
         gan = ts.gan
         mark("d.input")
         f = {k: blk.row(k) for k in blk.fields}
@@ -207,17 +205,11 @@ class PGGANTrainer:
         device); ``z`` is drawn from ``fold_in(seed, 0)`` unless given.  On
         a card the first iteration of a phase is the warm-up before the
         capture, and every later one replays."""
-        spans = self.program.captured.spans
-        with spans.host("rows"):
+        with self.program.captured.spans.host("rows"):
             row = self._iteration_row(ts, images, seed, alpha, z)
         # the phase's layers, its sn group, and the addresses of the state
-        with spans.host("key"):
-            key = (stage, trans, id(ts), state_key(train_state_tensors(ts)))
-        self._ts, self._phase = ts, (stage, trans)
-        try:
-            self.program.run([row], key, held=ts)
-        finally:
-            self._ts = None
+        self.program.run([row], (ts, stage, trans),
+                         lambda: (stage, trans) + train_state_key(ts))
         ts.step += 1
         return ts, {k: v[0] for k, v in self.program.read(1).items()}
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from rcgan_tpu_torch.core.module import scoped_modules
+from rcgan_tpu_torch.train.graphs import state_key
 
 ParamKey = Tuple[str, str]  # (scope, var)
 
@@ -238,6 +239,21 @@ def train_state_tensors(ts: TrainState) -> List[torch.Tensor]:
     return ([p for ps in ts.groups.values() for p in ps.values()]
             + [t for st in ts.opt_states.values() for t in st.mu + st.nu]
             + state_buffers(ts.gan))
+
+
+def train_state_key(ts: Optional[TrainState], *more: Iterable[torch.Tensor]) -> Tuple:
+    """The key of a graph over ``ts`` and the tensors of ``more``
+    (``train/graphs.py``): ``id(ts)`` and the addresses of every tensor of
+    :func:`train_state_tensors` and of ``more``; the addresses alone without
+    ``ts``.  A state placed on a mesh (``parallel/gspmd.py::
+    apply_shardings``, every tensor a DTensor) gives its local tensors'.  A
+    graph replays only while each still lies there."""
+    tensors = [] if ts is None else train_state_tensors(ts)
+    if tensors and isinstance(tensors[0], DTensor):
+        with torch.no_grad():
+            tensors = [t.to_local() for t in tensors]
+    addresses = state_key(tensors + [t for ms in more for t in ms])
+    return addresses if ts is None else (id(ts), addresses)
 
 
 @contextlib.contextmanager

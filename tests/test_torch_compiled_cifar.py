@@ -92,7 +92,7 @@ def _addresses(tr, ts):
         out.update({f"{g} mu {i}": t.data_ptr() for i, t in enumerate(st.mu)})
         out.update({f"{g} nu {i}": t.data_ptr() for i, t in enumerate(st.nu)})
     out.update({f"state {i}": t.data_ptr() for i, t in enumerate(state_buffers(ts.gan))})
-    out.update({f"metric {k}": t.data_ptr() for k, t in tr.block.outputs.items()})
+    out.update({f"metric {k}": t.data_ptr() for k, t in tr.program.block.outputs.items()})
     return out
 
 
@@ -233,7 +233,7 @@ def test_step_scan_block_matches_jax_scan_and_k_steps():
     perturbed_trees(block.gan, 3)
     perturbed_trees(steps.gan, 3)
     block, ms = tr.step_scan(block, idx, g_random, g_biased, 0, noise=noise)
-    assert ms["d_cost"].shape == (k,) and tr.block.capacity == k
+    assert ms["d_cost"].shape == (k,) and tr.program.block.capacity == k
     for j in range(k):
         steps, m = tr.step(steps, {"index": idx[j]}, {"random": g_random[j],
                                                       "biased": g_biased[j]}, j, 0, noises[j])

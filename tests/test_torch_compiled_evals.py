@@ -340,7 +340,7 @@ def test_a_pass_inside_a_programs_capture_runs_in_its_body(monkeypatch):
     inner = graphs.Passes(inner_body, {"x": torch.float32}, "cpu", capture=False)
     seen = []
 
-    def outer_body(blk):
+    def outer_body(blk, state):
         seen.append(graphs.inside_program())
         out = inner({"x": blk.row("x")}, None)
         blk.advance()

@@ -1,6 +1,7 @@
 """The pieces under the port's compiled programs (``train/graphs.py``), on
 the CPU: the step block's fixed buffers, a stand-in capture's launch
-counts (added once per replay), the seeds' device-base forms, Adam with
+counts (added once per replay), ``Program.run``'s eager leading rows and
+its group's byte record, the seeds' device-base forms, Adam with
 device scalars against its host-float form, the state kept at its
 addresses, and the sampler's bucket path against the eager pass.
 
@@ -20,6 +21,7 @@ from rcgan_tpu_torch.models import dcgan, pggan
 from rcgan_tpu_torch.models.resnet_gan import Generator, ResnetGANConfig, sample
 from rcgan_tpu_torch.ops.kernels import runtime
 from rcgan_tpu_torch.ops.norm import BatchNorm
+from rcgan_tpu_torch.parallel.mesh import DataGroup
 from rcgan_tpu_torch.serving import Sampler
 from rcgan_tpu_torch.train import graphs
 from rcgan_tpu_torch.train.state import ScalelessAdam, state_in_place
@@ -138,6 +140,48 @@ def test_a_capture_collects_before_it_begins(monkeypatch):
     assert order == ["body", "gc", "capture", "body"]  # a replay collects nothing
     st = step.stats()
     assert all(st[k] >= 0.0 for k in ("warm_up_s", "gc_s", "empty_cache_s", "capture_s"))
+
+
+def test_program_runs_its_leading_rows_eagerly_and_records_its_groups_bytes(monkeypatch):
+    """``Program.run`` of four rows with one eager leading row, under the
+    stand-in capture, in a group (its ``all_reduce`` a no-op here): the
+    first row runs the body eagerly (``eager_row``), the second is the
+    warm-up and the capture, the last two replay; the body receives the
+    state bound for the call, which the graph holds and the program does not
+    after the call; the group's bytes are recorded at the capture and added
+    once per replay, so that ``bytes_reduced`` reads as after four eager
+    steps; a second run of the key replays from its first row; the host
+    spans ``key``, ``load``, ``launch`` and ``read`` count the rows."""
+    standin = StandIn([])
+    install_stand_in(monkeypatch, standin)
+    monkeypatch.setattr(torch.distributed, "all_reduce", lambda t, op=None: None)
+    group = DataGroup(rank=0, world_size=1, device=torch.device("cpu"), backend="nccl")
+    state, seen = object(), []
+
+    def body(blk, st):
+        if standin.capturing is not None:  # a card's capture finds the warm-up's row
+            blk.counter.sub_(1)
+        seen.append((prog.eager_row, st))
+        x = blk.row("x")
+        group.mean_([x])
+        blk.write("y", x * 2)
+        blk.advance()
+
+    prog = graphs.Program(body, {"x": torch.float32}, "cpu", False,
+                          {"y": (torch.float32, (3,))}, group)
+    prog.captured.capture, prog.captured.device = True, torch.device("cuda")
+    assert prog.captured.group is group
+    rows = [{"x": np.full(3, float(i), np.float32)} for i in range(4)]
+    prog.run(rows, state, lambda: "key", eager=1)
+    assert seen == [(True, state), (False, state), (False, state)]
+    assert (prog.captured.captures, prog.captured.replays) == (1, 2)
+    assert group.bytes_reduced == 4 * 12 and prog.captured.bytes_reduced == 12
+    assert prog.captured._held is state and prog._state is None and not prog.eager_row
+    prog.run(rows[:2], state, lambda: "key")
+    assert len(seen) == 3 and prog.captured.replays == 4 and group.bytes_reduced == 6 * 12
+    assert prog.read(2)["y"].shape == (2, 3)
+    st = prog.captured.stats()
+    assert [st[f"host_steps.{n}"] for n in ("key", "load", "launch", "read")] == [6, 6, 6, 2]
 
 
 def test_recorded_launches_go_to_the_capture_streams_record(monkeypatch):

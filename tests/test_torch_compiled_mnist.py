@@ -69,7 +69,7 @@ def _addresses(tr, ts):
         out.update({f"{g} {m} {i}": t.data_ptr() for m in ("mu", "nu")
                     for i, t in enumerate(getattr(st, m))})
     out.update({f"state {i}": t.data_ptr() for i, t in enumerate(state_buffers(ts.gan))})
-    out.update({f"metric {k}": t.data_ptr() for k, t in tr.block.outputs.items()})
+    out.update({f"metric {k}": t.data_ptr() for k, t in tr.program.block.outputs.items()})
     return out
 
 
@@ -141,7 +141,7 @@ def test_step_scan_block_matches_jax_scan():
     zs = np.stack([_jax_z(jax.random.fold_in(key, j)) for j in range(k)])
     _, _, _, steps = _setup("rcgan-u")
     block, ms = tr.step_scan(ts, ds, idx, 0, z=zs)
-    assert ms["prob_real"].shape == (k, B) and tr.block.capacity == k
+    assert ms["prob_real"].shape == (k, B) and tr.program.block.capacity == k
     for j in range(k):
         rows = {kk: np.asarray(batch[kk])[idx[j]] for kk in BATCH_KEYS}
         steps, m = tr.step(steps, rows, 0, z=zs[j])

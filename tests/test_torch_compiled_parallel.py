@@ -89,8 +89,8 @@ def test_graphs_true_with_gloo_or_the_cpu_raises(make):
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         make(group=_group("gloo"), graphs_=True)
     tr = make(group=_group("gloo"))
-    assert tr.graphs is False and tr.captured.capture is False
-    assert tr.captured.group is tr.group
+    assert tr.graphs is False and tr.program.captured.capture is False
+    assert tr.program.captured.group is tr.group
 
 
 @pytest.fixture
@@ -109,7 +109,7 @@ def test_a_cpu_mesh_never_captures(world1):
     mesh it runs eagerly, and ``graphs=True`` raises."""
     mesh = make_dp_tp_mesh(1, 1, "cpu")
     tr = _cifar("rcgan")
-    assert gspmd_cycle(tr, mesh).captured.capture is False
+    assert gspmd_cycle(tr, mesh).program.captured.capture is False
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         gspmd_cycle(tr, mesh, graphs=True)
 
@@ -126,15 +126,15 @@ def _cifar_feed(it):
     return d, {"random": rs.randint(0, 10, GEN_MULT * B), "biased": rs.randint(0, 10, GEN_MULT * B)}
 
 
-def _counted(tr, body, standin):
+def _counted(prog, body, standin):
     """``body`` with one "launch" of each kernel of the path counted where
     the body runs (on the CPU the wrappers launch nothing).  The stand-in's
-    capture runs the body (a card's records it): it first steps the block's
-    row counter back over the warm-up's row, where a card's capture finds
-    it."""
+    capture runs the body (a card's records it): it first steps the
+    program's block's row counter back over the warm-up's row, where a
+    card's capture finds it."""
     def run():
         if standin.capturing is not None:
-            tr.block.counter.sub_(1)
+            prog.block.counter.sub_(1)
         for name in ("sn", "cond_bn"):
             runtime.count_launch(name)
         runtime.count_launch("conv3x3", "wgmma")
@@ -155,11 +155,10 @@ def test_grouped_capture_counts_once_per_replay(monkeypatch, world1, kind):
     eager_group = _group("gloo")
     make = _cifar if kind == "cifar" else _mnist
     got, want = make(group=world1), make(group=eager_group)
-    body = "_cycle" if kind == "cifar" else "_iteration"
     for tr, capture in ((got, True), (want, False)):
-        setattr(tr, body, _counted(tr, getattr(tr, body), standin))
-        tr.captured = graphs.CapturedStep(getattr(tr, body), "cuda" if capture else "cpu",
-                                          capture, tr.group)
+        prog = tr.program
+        prog.captured = graphs.CapturedStep(_counted(prog, prog.captured.body, standin),
+                                            "cuda" if capture else "cpu", capture, tr.group)
     states = {id(tr): tr.init(SEED) for tr in (got, want)}
     for it in range(5):
         readings = []
@@ -175,8 +174,9 @@ def test_grouped_capture_counts_once_per_replay(monkeypatch, world1, kind):
         assert readings[0] == readings[1], (kind, it, readings)
         assert readings[1][0] > 0 and readings[1][1]["sn"] == 1
     first_replay = 2 if kind == "cifar" else 1  # the CIFAR cycle at iteration 0 runs eagerly
-    assert got.captured.captures == 1 and got.captured.replays == 5 - first_replay
-    assert got.captured.bytes_reduced == readings[1][0]
+    captured = got.program.captured
+    assert captured.captures == 1 and captured.replays == 5 - first_replay
+    assert captured.bytes_reduced == readings[1][0]
 
 
 # ------------------------------------------------------ GSPMD's block path
@@ -220,12 +220,8 @@ class _HostRow:
 def _host_row_step(trainer, mesh, ts, d, g, iteration, seed):
     row = trainer._cycle_row(ts, d, g, iteration, seed, None)
     blk = _HostRow(row, trainer, mesh)
-    trainer._ts, trainer._g_step = ts, iteration > 0
-    try:
-        with _on_mesh(trainer, mesh):
-            trainer._cycle_on(blk)
-    finally:
-        trainer._ts = None
+    with _on_mesh(trainer, mesh):
+        trainer._cycle(blk, ts, g_step=iteration > 0)
     ts.step += 1
     return ts, blk.metrics
 
@@ -261,7 +257,7 @@ def _gspmd_block_rank(group, algs):
                     ts, m = _host_row_step(tr, mesh, ts, idx, g, it + 1, SEED + it)
                 addresses = [_local(t).data_ptr() for t in train_state_tensors(ts)]
                 if path == "block":
-                    addresses.append(step.block._buffer.data_ptr())
+                    addresses.append(step.program.block._buffer.data_ptr())
                 cycles.append(([_local(t).clone() for t in train_state_tensors(ts)],
                                {k: v.clone() for k, v in m.items()}, addresses))
             runs.append(cycles)

@@ -1,11 +1,13 @@
 """The programs' spans (``utils/profiling.py::Spans``) on the CPU at tiny
 widths: the CIFAR block (``CifarTrainer.step_scan``) and the PGGAN
 iteration (``PGGANTrainer.step``) report every host and device span in
-their ``captured.stats()``; the device spans fit inside the call; the
-marks change no output and no launch count under the stand-in capture,
-where a replay runs the marks its capture recorded; under the profiler the
-host spans are named regions in the call's order, and without one nothing
-enters a region; a start of the profiler falls in no device span."""
+their ``program.captured.stats()``; the device spans fit inside the call;
+the marks change no output and no launch count under the stand-in
+capture, where a replay runs the marks its capture recorded; under the
+profiler the host spans of those and of the MNIST block
+(``MnistTrainer.step_scan``) are named regions in the one order of every
+program, and without one nothing enters a region; a start of the profiler
+falls in no device span."""
 
 import time
 
@@ -14,16 +16,19 @@ import pytest
 import torch
 
 from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig
+from rcgan_tpu_torch.algorithms.mnist import MnistAlgoConfig
 from rcgan_tpu_torch.data.cifar10 import device_dataset_of
 from rcgan_tpu_torch.data.confusion import build_confusion
+from rcgan_tpu_torch.models.dcgan import DCGANConfig
 from rcgan_tpu_torch.models.pggan import PGGANConfig
 from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
 from rcgan_tpu_torch.ops.kernels import runtime
 from rcgan_tpu_torch.train import graphs
 from rcgan_tpu_torch.train.cifar_loop import CifarTrainConfig, CifarTrainer
+from rcgan_tpu_torch.train.mnist_loop import MnistTrainConfig, MnistTrainer
 from rcgan_tpu_torch.train.pggan_loop import PGGANTrainConfig, PGGANTrainer
 from rcgan_tpu_torch.utils import profiling
-from torch_parity import TINY, StandIn, install_stand_in
+from torch_parity import TINY, TINY_MNIST, StandIn, install_stand_in, mnist_batch
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -33,9 +38,8 @@ DEVICE = {"cifar": ("d.input", "g.input", "g.forward", "g.backward", "g.update",
                     "d.backward", "d.update", "between"),
           "pggan": ("d.input", "d.forward", "d.backward", "d.update", "g.forward",
                     "g.backward", "g.update", "between")}
-# the host spans of one call, in order (CIFAR loads its block before it keys the state)
-ORDER = {"cifar": ("rows", "load", "key", "launch", "read"),
-         "pggan": ("rows", "key", "load", "launch", "read")}
+# the host spans of one call of every program, in order (train/graphs.py::Program.run)
+ORDER = ("rows", "key", "load", "launch", "read")
 
 
 def _cifar():
@@ -61,7 +65,7 @@ def _cifar():
                              rs.randint(0, 10, (k, GEN_MULT * B)), seed=5)
         return ms
 
-    return tr, tr.captured, run
+    return tr, tr.program.captured, run
 
 
 def _pggan():
@@ -82,7 +86,25 @@ def _pggan():
     return tr, tr.program.captured, run
 
 
-MAKE = {"cifar": _cifar, "pggan": _pggan}
+def _mnist():
+    """A tiny MNIST trainer over a resident dataset, and a state; ``run(k)``
+    steps one block of ``k`` iterations and returns its metrics."""
+    cfg = DCGANConfig(batch_size=B, disc_type="projection", spectral_norm=True, max_norm=True,
+                      **TINY_MNIST)
+    acfg = MnistAlgoConfig(algorithm="rcgan", estimate_confuse=True, perm_regularizer=True)
+    tr = MnistTrainer(cfg, acfg, MnistTrainConfig(), build_confusion(0.3)[0], device="cpu")
+    ts = tr.init(seed=3)
+    n = 16
+    ds = tr.batch_to_device(mnist_batch(n, 5)[0])
+    rs = np.random.RandomState(0)
+
+    def run(k=K):
+        return tr.step_scan(ts, ds, rs.randint(0, n, (k, B)), seed=5)[1]
+
+    return tr, tr.program.captured, run
+
+
+MAKE = {"cifar": _cifar, "pggan": _pggan, "mnist": _mnist}
 
 
 @pytest.mark.parametrize("kind", ["cifar", "pggan"])
@@ -106,14 +128,14 @@ def test_every_span_is_in_the_stats_and_the_device_spans_fit_in_the_call(kind):
     assert all(st[f"device_s.{name}"] > 0.0 for name in DEVICE[kind] if name != "between")
 
 
-def _counted(body, block, standin):
+def _counted(body, prog, standin):
     """``body`` with one launch of two kernels counted where the body runs
     (on the CPU the wrappers launch nothing) and logged as the stand-in's
     device work; the stand-in's capture, which runs the body where a
-    card's records it, first steps the ``block()``'s row back."""
+    card's records it, first steps the program's block's row back."""
     def run():
         if standin.capturing is not None:
-            block().counter.sub_(1)
+            prog.block.counter.sub_(1)
         for name in ("sn", "cond_bn"):
             runtime.count_launch(name)
             standin.log.append(name)
@@ -136,12 +158,9 @@ def test_marks_change_no_output_and_no_count_under_the_stand_in_capture(monkeypa
     for on in (True, False):
         monkeypatch.setattr(profiling, "device_marks", on)
         tr, old, run = MAKE[kind]()
-        blk = (lambda: tr.block) if kind == "cifar" else (lambda: tr.program.block)
-        captured = graphs.CapturedStep(_counted(old.body, blk, standin), "cuda", capture=True)
-        if kind == "cifar":
-            tr.captured = captured
-        else:
-            tr.program.captured = captured
+        captured = graphs.CapturedStep(_counted(old.body, tr.program, standin), "cuda",
+                                       capture=True)
+        tr.program.captured = captured
         runtime.reset_launch_counts()
         del standin.log[:]
         metrics = [run() for _ in range(2 if kind == "cifar" else 4)]
@@ -160,7 +179,7 @@ def test_marks_change_no_output_and_no_count_under_the_stand_in_capture(monkeypa
     assert st_on["device_steps"] == replays and "device_steps" not in st_off
 
 
-@pytest.mark.parametrize("kind", ["cifar", "pggan"])
+@pytest.mark.parametrize("kind", ["cifar", "pggan", "mnist"])
 def test_host_spans_are_regions_in_order_inside_the_call_under_the_profiler(kind):
     """Under ``torch.profiler.profile`` a call's host spans are the regions
     ``rcgan.<name>``, in the call's order, each inside the caller's region
@@ -174,7 +193,7 @@ def test_host_spans_are_regions_in_order_inside_the_call_under_the_profiler(kind
     call = next(e for e in events if e.name == "caller")
     spans = sorted((e for e in events if e.name.startswith(profiling.SPAN_PREFIX)),
                    key=lambda e: e.time_range.start)
-    assert [e.name for e in spans] == [profiling.SPAN_PREFIX + n for n in ORDER[kind]]
+    assert [e.name for e in spans] == [profiling.SPAN_PREFIX + n for n in ORDER]
     for a, b in zip(spans, spans[1:]):
         assert a.time_range.end <= b.time_range.start
     for e in spans:
