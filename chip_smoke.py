@@ -293,7 +293,21 @@ and the CIFAR app's Inception-v3 scorer:
    replaced form's, the plain form and the one PyTorch call
    (``F.avg_pool2d``, ``F.interpolate``, timed only) in CUDA graphs, each
    kernel held to ``RESAMPLE_MIN_SHARE`` of its bytes bound at BigGAN's.
-   ``--only resample`` runs phases 1, 2 and 18 alone.
+   ``--only resample`` runs phases 1, 2 and 18 alone;
+19. cond-BN's backward (``cond_bn_kernel_vjp`` in ``csrc/cond_bn.cu``, the
+   op ``rcgan::cond_batchnorm_backward``): every cond-BN call of a bf16
+   generator forward of CIFAR, PGGAN (stage 4, 4-64 px) and BigGAN (4-128
+   px, C 96-1,536; per-sample and one-row tables) is recorded; at each
+   distinct call, at its model's batches (``COND_BN_BWD_BATCHES``), in bf16
+   and float32, with and without the ReLU, the kernel against the plain
+   backward on the card (``TOL``: dx in the input's dtype, the float32
+   tables), one launch a call and the same bits on two runs; at each
+   model's largest map, dx alone, each table alone and both tables
+   bit-equal to the full call's; ``torch.library.opcheck`` of the op; and
+   each model's G step's backwards together in bf16, kernel against the
+   plain backward in CUDA graphs, beside their bound (each input read
+   once) and the two passes' bytes.  ``--only cond_bn_bwd`` runs phases 1,
+   2 and 19 alone.
 
 The line before the last is ``{"kernels": [...]}`` with every kernel,
 each with its bound (``bound_ms``, ``bound_by``) and the time of one
@@ -317,11 +331,13 @@ MNIST's group (``mnist_group``); conv3x3's, cond_bn's and sn's rows add
 ``pggan``: the launches per iteration by stage and the times at PGGAN's
 shapes (conv3x3's also the stage-4 iteration's times); the projection's
 row adds its device time in CUDA graphs beside ``torch.addmm``'s;
+cond_bn_bwd's is phase 19's CIFAR G step (seven backwards at 128 rows,
+bf16, in CUDA graphs), with each model's under ``by_model``;
 the last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed.  Exits non-zero without a result when CUDA is unavailable or
 any check fails.
 
-    python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0] [--only biggan|resample]
+    python3 chip_smoke.py [--checkpoint_dir DIR] [--seed 0] [--only biggan|resample|cond_bn_bwd]
 """
 
 from __future__ import annotations
@@ -555,6 +571,9 @@ KERNEL_INFO = {
                 "replaces": "rcgan_tpu/ops/pallas/conv_kernel.py:101"},
     "sn": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/sn.cu",
            "replaces": "rcgan_tpu/ops/pallas/sn_kernel.py:73"},
+    "cond_bn_bwd": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/cond_bn.cu",
+                    "replaces": "none: rcgan_tpu/ops/pallas/norm_kernel.py:174 "
+                                "(cond_batchnorm_fused's _bwd, jnp)"},
     "sn_bwd": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/sn.cu",
                "replaces": "rcgan_tpu/ops/pallas/sn_kernel.py:99 (sn_fused's _bwd)"},
     "projection": {"route": "cuda", "source": "rcgan_tpu_torch/csrc/projection.cu",
@@ -1263,7 +1282,7 @@ def discriminator_slice(torch, dev, seed: int, max_err: dict):
             totals[k] += v
         for k, v in variants.items():
             var_totals[k] += v
-        want = dict(PATH_COUNTS[name], sn_bwd=0, dequant=0)  # forwards: no VJP
+        want = dict(PATH_COUNTS[name], sn_bwd=0, cond_bn_bwd=0, dequant=0)  # forwards: no VJP
         check(counts == want and variants == PATH_VARIANTS[name],
               f"{name}: launches {counts}, conv3x3 by variant {variants} "
               f"(want {want}, {PATH_VARIANTS[name]})")
@@ -1451,7 +1470,9 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
     concatenated batch, or two for rcgan-u (real alone, then fake against
     every label through the projection kernel), each taking input grads in
     all its convs but the first, whose input is data; each of its SN
-    launches has one VJP launch (``sn_bwd``) in the backward.  conv3x3
+    launches has one VJP launch (``sn_bwd``) in the backward.  Each of the
+    G step's cond-BNs has one backward launch (``cond_bn_bwd``); a D
+    step's G has none.  conv3x3
     counts the hand-written kernels' launches only: the ragged convs
     (:func:`ragged_convs`) go to cuDNN.  A G forward upsamples 6 times
     (``up2x2``), a D pass pools 4 times (``pool2x2``, the first on the
@@ -1460,11 +1481,12 @@ def cycle_counts(algorithm: str, perm: bool, n_critic: int, g_step: bool) -> dic
     launches nothing (autograd adds its phases)."""
     g_conv, g_bn, d_conv, d_sn, g_up, d_pool = 7, 7, 12, 1, 6, 4
     u = algorithm == "rcgan-u"
-    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0,
-              "pool2x2": 0, "up2x2": 0}
+    counts = {"cond_bn": 0, "cond_bn_bwd": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0,
+              "projection": 0, "dequant": 0, "pool2x2": 0, "up2x2": 0}
     if g_step:
         counts["conv3x3"] += 2 * (g_conv + d_conv)
         counts["cond_bn"] += g_bn
+        counts["cond_bn_bwd"] += g_bn
         counts["sn"] += d_sn + 1 + perm
         counts["projection"] += u
         counts["up2x2"] += g_up + d_pool
@@ -2134,8 +2156,8 @@ def app_slice(torch, seed: int, card: str) -> dict:
 # frozen there).
 MNIST_SN_GROUPS = {"a projection D pass": [(25, 64)] + [(1600, 64)] * 3,
                    "concat_y at layer 1": [(275, 64)] + [(1600, 64)] * 3}
-MNIST_PATH_COUNTS = {"sn": 4, "sn_bwd": 2, "cond_bn": 0, "conv3x3": 0, "projection": 0,
-                     "dequant": 0, "pool2x2": 0, "up2x2": 0}
+MNIST_PATH_COUNTS = {"sn": 4, "sn_bwd": 2, "cond_bn": 0, "cond_bn_bwd": 0, "conv3x3": 0,
+                     "projection": 0, "dequant": 0, "pool2x2": 0, "up2x2": 0}
 MNIST_RECIPE = ["--algorithm", "rcgan", "--alpha", "0.3", "--disc_type", "projection",
                 "--estimate_confuse", "--aux_classifier", "--noadd_noise", "--noconcat_y",
                 "--spectral_norm", "--max_norm"]
@@ -2512,8 +2534,9 @@ def pggan_counts(stage: int, trans: bool = False) -> dict:
     D pass with the backward through both.  Each block holds two 3x3
     convs: 2 per block for a G forward, 2 for a D forward, 2 for each
     backward's input grads, so 2 (G) + 8 (D step) + 8 (G step) per block;
-    two cond-BNs per block and G pass, two G passes; one sn group per D
-    pass, and one VJP launch for each of the D step's two.  The
+    two cond-BNs per block and G pass, two G passes, and a backward launch
+    for each of the G step's; one sn group per D pass, and one VJP launch
+    for each of the D step's two.  The
     transition's extra layers are 1x1 (no conv3x3).  Each G block
     upsamples twice and each D block pools twice, and each pool's backward
     is one ``up2x2`` launch (an upsample's launches nothing): ``up2x2`` 2
@@ -2521,8 +2544,9 @@ def pggan_counts(stage: int, trans: bool = False) -> dict:
     (D step) + 2 (G step).  A transition adds the low RGB's upsample to
     each G pass and the images' pool to each D pass (its backward in the G
     step alone: real images and frozen fakes need none)."""
-    return {"cond_bn": 4 * stage, "conv3x3": 18 * stage, "sn": 3, "sn_bwd": 2, "projection": 0,
-            "dequant": 0, "pool2x2": 6 * stage + 3 * trans, "up2x2": 10 * stage + 3 * trans}
+    return {"cond_bn": 4 * stage, "cond_bn_bwd": 2 * stage, "conv3x3": 18 * stage, "sn": 3,
+            "sn_bwd": 2, "projection": 0, "dequant": 0, "pool2x2": 6 * stage + 3 * trans,
+            "up2x2": 10 * stage + 3 * trans}
 
 
 def pggan_variants(stage: int) -> dict:
@@ -2537,17 +2561,20 @@ def pggan_variants(stage: int) -> dict:
 # copied to the CPU bit for bit, with the same batch and z, at batch 8, over
 # the data seeds ``seed + PG_CHECK["data_seeds"]`` (every one checked; none
 # chosen).  As in the MNIST check, Adam's sign-like first steps on gradients
-# zero but for rounding put some seeds on near-ties (phases 1 and 2 most), so
-# PG_SPREAD is what ``python3 -m rcgan_tpu_torch.diagnostics.sum_order
-# --check pggan`` printed on the card: per phase, the largest median over the
-# five seeds of any of fourteen arithmetics of the path's float32 kernels
-# (MNIST's nine but sn's and its VJP's float64 together, conv3x3 in float64,
-# split first and unsplit, cond-BN plain and in float64, all four in
-# float64), and the max over all of them (H100 80GB HBM3 at 700.00 W).  Both
-# are held to PG_MARGIN times it, or, where it was 0, to PG_MARGIN
-# parameters of the group.  Sigma held out of the VJP, Miyato's
+# zero but for rounding put some seeds on near-ties (phases 1 and 2 most):
+# at the transition a seed's ``far.gen`` reads either ~1e-5 or 0.27 to 0.37,
+# and which seeds tip depends on the arithmetic, the float64 ones included.
+# So PG_SPREAD is what ``python3 -m rcgan_tpu_torch.diagnostics.sum_order
+# --check pggan`` printed on the card, the same on two runs: per phase, the
+# largest median over the five seeds of any of fourteen arithmetics of the
+# path's float32 kernels (MNIST's nine but sn's and its VJP's float64
+# together, conv3x3 in float64, split first and unsplit, cond-BN forward and
+# backward plain and in float64, all four in float64; cond-BN's backward as
+# its kernel in the others), and the max over all of them (H100 80GB HBM3 at
+# 700.00 W).  Both are held to PG_MARGIN times it, or, where it was 0, to
+# PG_MARGIN parameters of the group.  Sigma held out of the VJP, Miyato's
 # stop-gradient and the kernel's dW rounded to bf16 each fail every phase
-# (medians 53x to 9 190x their limits).  ``params_max`` is left out: with
+# (worst medians 54x to 56 700x their limits).  ``params_max`` is left out: with
 # beta1 = 0 one step moves a parameter at most lr * sqrt((1 - beta2^t) /
 # (1 - beta2)) at Adam's count t (lr, 1.41 lr and 1.72 lr at t = 1 to 3), so
 # card and CPU cannot part by more than that whatever the kernels do; the
@@ -2560,18 +2587,18 @@ PG_SPREAD = {
     0: {"cost": (7.84e-07, 3.6e-06), "u": (1.64e-07, 1.64e-07), "stats": (8.59e-05, 4.58e-04),
         "mu.disc": (7.22e-06, 0.0368), "nu.disc": (8.67e-06, 0.0264),
         "dead.disc": (1.46e-07, 1.83e-07), "far.disc": (1.98e-05, 6.49e-05),
-        "mu.gen": (6.19e-06, 2.98e-04), "nu.gen": (6.03e-06, 4.42e-04),
-        "dead.gen": (3.08e-08, 4e-08), "far.gen": (3.61e-05, 2.82e-04)},
-    1: {"cost": (3.63e-07, 1.58e-05), "u": (1.19e-07, 1.34e-07), "stats": (6.13e-05, 2.79e-04),
-        "mu.disc": (7.56e-03, 0.0369), "nu.disc": (2.79e-03, 0.019),
-        "dead.disc": (1.77e-07, 2.95e-07), "far.disc": (1.65e-05, 2.37e-03),
-        "mu.gen": (0.0148, 0.117), "nu.gen": (0.0182, 0.113),
-        "dead.gen": (4.58e-08, 6.74e-08), "far.gen": (0.0397, 0.316)},
-    2: {"cost": (9e-07, 1.63e-05), "u": (1.04e-07, 1.34e-07), "stats": (5.45e-05, 6.83e-05),
-        "mu.disc": (4.55e-03, 0.0479), "nu.disc": (2.38e-03, 0.021),
-        "dead.disc": (1.78e-07, 2.42e-07), "far.disc": (4.56e-04, 0.0395),
-        "mu.gen": (0.013, 0.106), "nu.gen": (8.06e-03, 0.0733),
-        "dead.gen": (3.64e-08, 4.54e-08), "far.gen": (0.0548, 0.6)},
+        "mu.gen": (6.27e-06, 2.98e-04), "nu.gen": (6.03e-06, 4.42e-04),
+        "dead.gen": (3.03e-08, 4.24e-08), "far.gen": (3.61e-05, 2.82e-04)},
+    1: {"cost": (2.83e-06, 2.58e-05), "u": (1.19e-07, 1.34e-07), "stats": (2.65e-04, 8.1e-04),
+        "mu.disc": (0.0155, 0.0585), "nu.disc": (0.0115, 0.0293),
+        "dead.disc": (1.82e-07, 3.15e-07), "far.disc": (3.24e-04, 2.41e-03),
+        "mu.gen": (0.0729, 0.121), "nu.gen": (0.0536, 0.174),
+        "dead.gen": (4.68e-08, 7.14e-08), "far.gen": (0.27, 0.365)},
+    2: {"cost": (3.67e-07, 8.28e-05), "u": (1.04e-07, 1.49e-07), "stats": (5.2e-05, 1.04e-04),
+        "mu.disc": (6.73e-04, 0.0203), "nu.disc": (2.55e-04, 7.99e-03),
+        "dead.disc": (1.67e-07, 2.4e-07), "far.disc": (0.0, 0.023),
+        "mu.gen": (0.0119, 0.0467), "nu.gen": (8.88e-03, 0.0275),
+        "dead.gen": (3.86e-08, 7.16e-08), "far.gen": (0.0376, 0.306)},
 }
 # full width, bf16, batch 64, max_stage 4: iterations per phase (the first
 # of each a warm-up), on 2 048 random images of 64x64 resident on the card
@@ -2888,14 +2915,14 @@ def pggan_slice(torch, dev, seed: int, card: str, max_err: dict) -> dict:
     # stage (bf16: 2 cond-BNs and 2 convs per block); the eval classifier's
     # float32 convs take the FFMA and cuDNN routes, which are not counted
     passes = -(-PG_APP_EVAL // PG_BATCH) + 1  # the eval's batches and the grid of 100
-    want = {"sn": 0, "sn_bwd": 0, "cond_bn": 0, "wgmma": 0}
+    want = {"sn": 0, "sn_bwd": 0, "cond_bn": 0, "cond_bn_bwd": 0, "wgmma": 0}
     for s, _ in phases_app:
-        want["sn"] += PG_APP_ITERS * pggan_counts(s)["sn"]
-        want["sn_bwd"] += PG_APP_ITERS * pggan_counts(s)["sn_bwd"]
+        for k in ("sn", "sn_bwd", "cond_bn_bwd"):
+            want[k] += PG_APP_ITERS * pggan_counts(s)[k]
         want["cond_bn"] += PG_APP_ITERS * pggan_counts(s)["cond_bn"] + passes * 2 * s
         want["wgmma"] += PG_APP_ITERS * pggan_variants(s)["wgmma"] + passes * 2 * s
-    got = {"sn": app_counts["sn"], "sn_bwd": app_counts["sn_bwd"],
-           "cond_bn": app_counts["cond_bn"], "wgmma": app_variants["wgmma"]}
+    got = {**{k: app_counts[k] for k in ("sn", "sn_bwd", "cond_bn", "cond_bn_bwd")},
+           "wgmma": app_variants["wgmma"]}
     check(got == want and stats["train"][1] == PG_APP_ITERS * len(phases_app)
           and [(r["stage"], r["trans"], r["iter"]) for r in rows]
           == [(s, t_, PG_APP_ITERS * (i + 1)) for i, (s, t_) in enumerate(phases_app)]
@@ -3510,7 +3537,8 @@ def parallel_slice(torch, dev, seed: int, card: str) -> dict:
     for key, alg, perm in (("rcgan", "rcgan", False), ("rcgan-u", "rcgan-u", True),
                            ("rcgan normalization_g=False", "rcgan", False)):
         want = [dict(cycle_counts(alg, perm, 5, True),
-                     **({"cond_bn": 0} if "normalization_g" in key else {}))] * 2
+                     **({"cond_bn": 0, "cond_bn_bwd": 0} if "normalization_g" in key
+                        else {}))] * 2
         per = [r[key] for r in ranks]
         for r in per:
             for c in r["counts"]:
@@ -4030,7 +4058,7 @@ def dev_cost_counts(algorithm: str, perm: bool) -> dict:
     (``PATH_COUNTS``) with no gradient, the perm classifier's sn launch, and
     one dequantisation."""
     return {**PATH_COUNTS[f"disc_loss {algorithm}"], "sn": PATH_COUNTS[
-        f"disc_loss {algorithm}"]["sn"] + perm, "sn_bwd": 0, "dequant": 1}
+        f"disc_loss {algorithm}"]["sn"] + perm, "sn_bwd": 0, "cond_bn_bwd": 0, "dequant": 1}
 
 
 def compiled_evals_slice(torch, dev, seed: int, card: str) -> dict:
@@ -5015,7 +5043,8 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
     by kernel, "conv3x3", "projection": by route, "attn", "attn_bwd": by
     variant}``.  A G forward runs its 3x3 convs (:func:`biggan_convs`),
     two cond-BN a block and the output norm's, one SN launch for its group
-    and its attention blocks; a D pass its convs, one SN launch for its
+    and its attention blocks (with its gradients, one backward launch a
+    cond-BN); a D pass its convs, one SN launch for its
     group, one for the projection table (``projection(labels)``, or
     ``all_label_logits`` in rcgan-u's fake pass and G step, which also
     calls the projection op, on its ``addmm`` route at 1,000 x 1,536) and
@@ -5041,8 +5070,8 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
     d_attn = sum(r == cfg.attention_d for r in da["resolution"])
     route = projection_route(cfg.vocab_size, da["out"][-1])
     g_up, d_pool = 2 * len(ga["in"]), 2 * sum(da["down"])
-    counts = {"cond_bn": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0, "projection": 0, "dequant": 0,
-              "pool2x2": 0, "up2x2": 0}
+    counts = {"cond_bn": 0, "cond_bn_bwd": 0, "conv3x3": 0, "sn": 0, "sn_bwd": 0,
+              "projection": 0, "dequant": 0, "pool2x2": 0, "up2x2": 0}
     out = {"counts": counts, "conv3x3": {"wgmma": 0, "ffma": 0, "cudnn": 0},
            "projection": {"cuda": 0, "addmm": 0}, "attn": 0, "attn_bwd": 0}
 
@@ -5055,6 +5084,7 @@ def biggan_cycle_counts(torch, cfg, algorithm: str, g_step: bool) -> dict:
     def g_pass(grads: bool):
         convs(g_convs, True, grads)
         counts["cond_bn"] += 2 * len(ga["in"]) + 1
+        counts["cond_bn_bwd"] += grads * (2 * len(ga["in"]) + 1)
         counts["sn"] += 1
         counts["sn_bwd"] += grads
         counts["up2x2"] += g_up
@@ -5541,6 +5571,172 @@ def resample_slice(torch, dev, seed: int, card: str) -> dict:
             "shapes": {m: [f"{k} {list(s)} {dt}" for k, s, dt in v] for m, v in by_model.items()}}
 
 
+# Phase 19: cond-BN's backward kernel (``cond_bn_kernel_vjp``).  Batches at
+# which every generator map of each model is checked: CIFAR's critic-step G
+# (64 rows) and G step (128: ``gen_bs_multiple`` 2), PGGAN's batch, BigGAN's;
+# each model's G step is timed at the last.
+COND_BN_BWD_BATCHES = {"CIFAR": (64, 128), "PGGAN": (PG_BATCH,), "BigGAN": (BIGGAN_BATCH,)}
+# Operations an element: g' and x^ (3), the two sums (3), dx (5).
+COND_BN_BWD_OPS = 11
+
+
+def cond_bn_calls(torch, dev, seed: int) -> dict:
+    """``{model: [(S, C, table rows, relu), ...]}``: every cond-BN call of a
+    bf16 forward of CIFAR's, PGGAN's (every stage and phase at dim 128) and
+    BigGAN-128's generators at batch 2, in call order (table rows of
+    ``"B"`` where the table has a row per sample); the forward op wrapped
+    while they run."""
+    from rcgan_tpu_torch.algorithms.cifar import CifarAlgoConfig, CifarGAN
+    from rcgan_tpu_torch.models import biggan
+    from rcgan_tpu_torch.models.pggan import PGGAN, PGGANConfig
+    from rcgan_tpu_torch.models.resnet_gan import ResnetGANConfig
+    from rcgan_tpu_torch.ops.kernels import norm_kernel as nk
+
+    calls, model, op = {}, [""], nk.cond_batchnorm_op
+
+    def recording(x, labels, scale_table, offset_table, eps, relu):
+        rows = "B" if scale_table.shape[0] == x.shape[0] > 1 else scale_table.shape[0]
+        calls.setdefault(model[0], []).append((x.shape[1], x.shape[2], rows, bool(relu)))
+        return op(x, labels, scale_table, offset_table, eps, relu)
+
+    z_of = lambda n, d: torch.randn(n, d, device=dev)  # noqa: E731
+    labels = torch.arange(2, device=dev)
+    nk.cond_batchnorm_op = recording
+    try:
+        with torch.no_grad():
+            for name, cfg in (("CIFAR", ResnetGANConfig()), ("BigGAN", biggan.BigGANConfig())):
+                model[0] = name
+                gan = CifarGAN(cfg, CifarAlgoConfig(vocab_size=cfg.vocab_size), seed, dev,
+                               torch.bfloat16)
+                gan.G(z_of(2, cfg.z_dim), labels)
+                del gan
+            cfg = PGGANConfig(max_stage=4, **PG_WIDTH)
+            base = ResnetGANConfig(dim_g=PG_WIDTH["dim"], dim_d=PG_WIDTH["dim"],
+                                   z_dim=PG_WIDTH["z_dim"])
+            pg = PGGAN(cfg, base, seed, dev, torch.bfloat16)
+            model[0] = "PGGAN"
+            pg.G(z_of(2, cfg.z_dim), labels, cfg.max_stage, False, 1.0)
+        torch.cuda.synchronize()
+    finally:
+        nk.cond_batchnorm_op = op
+    return calls
+
+
+def cond_bn_bwd_slice(torch, dev, seed: int, card: str) -> dict:
+    """Phase 19 (module doc).  Returns the checks in numbers, each model's G
+    step's backward times and the recorded calls."""
+    from rcgan_tpu_torch.ops.kernels import norm_kernel as nk
+    from rcgan_tpu_torch.ops.kernels import runtime
+
+    calls = cond_bn_calls(torch, dev, seed)
+    for m, cs in sorted(calls.items()):
+        print(f"  {m} generator's cond-BN calls (S, C, table rows, ReLU): {cs}", flush=True)
+    check(len(calls["CIFAR"]) == 7 and len(calls["BigGAN"]) == 11 and len(calls["PGGAN"]) == 8,
+          f"cond-BN calls recorded in one generator forward: "
+          f"{ {m: len(cs) for m, cs in calls.items()} } (want CIFAR 7, PGGAN 8 at stage 4, "
+          f"BigGAN 11)")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def inputs(b, s, c, rows, relu, dt):
+        n_rows = b if rows == "B" else rows
+        x = (torch.randn((b, s, c), generator=gen, device=dev) * 2 + 0.5).to(dt)
+        labels = (torch.arange(b, device=dev) if rows == "B" else
+                  torch.randint(0, n_rows, (b,), generator=gen, device=dev))
+        scale = 1 + 0.2 * torch.randn((n_rows, c), generator=gen, device=dev)
+        offset = 0.2 * torch.randn((n_rows, c), generator=gen, device=dev)
+        out, (mean, inv) = nk.cond_batchnorm_op(x, labels, scale, offset, 1e-5, relu)
+        g = torch.randn((b, s, c), generator=gen, device=dev).to(dt)
+        return g, x, (out if relu else None), labels, scale, mean, inv, relu
+
+    def plain(*a):
+        return nk._cond_batchnorm_backward(*a, [True, True, True])
+
+    def kernel(*a, needs=(True, True, True)):
+        return nk.cond_batchnorm_backward_op(*a, list(needs))
+
+    # ---- every distinct call at its model's batches, bf16 and float32, with
+    # and without the ReLU: one launch, the same bits twice, within TOL of the
+    # plain backward on the card (dx in the input's dtype, the tables float32)
+    max_err, checked, bad, subsets_ok = 0.0, 0, [], []
+    runtime.reset_launch_counts()
+    for m, cs in sorted(calls.items()):
+        for s_, c, rows in sorted({(s2, c2, r2) for s2, c2, r2, _ in cs}, key=str):
+            for b in COND_BN_BWD_BATCHES[m]:
+                for dt_name in ("bfloat16", "float32"):
+                    for relu in (False, True):
+                        a = inputs(b, s_, c, rows, relu, getattr(torch, dt_name))
+                        before = runtime.launch_counts()["cond_bn_bwd"]
+                        got = kernel(*a)
+                        launched = runtime.launch_counts()["cond_bn_bwd"] - before
+                        again = kernel(*a)
+                        ref = plain(*a)
+                        torch.cuda.synchronize()
+                        res = [compare(torch, k_, r_.float(), dt_name if i == 0 else "float32")
+                               for i, (k_, r_) in enumerate(zip(got, ref))]
+                        same = all(torch.equal(x_, y_) for x_, y_ in zip(got, again))
+                        checked += 1
+                        if dt_name == "float32":
+                            max_err = max(max_err, res[0][1])
+                        if not (all(r[0] for r in res) and same and launched == 1
+                                and got[0].dtype == a[1].dtype):
+                            bad.append((m, [b, s_, c], rows, dt_name, relu,
+                                        [f"{r[1]:.2e}" for r in res], same, launched))
+                        if b == COND_BN_BWD_BATCHES[m][-1] and dt_name == "bfloat16" and relu \
+                                and (s_, c, rows) == max(((s2, c2, r2) for s2, c2, r2, _ in cs),
+                                                         key=lambda t: t[0] * t[1]):
+                            # the largest map: every subset of the gradients, the same bits
+                            for needs in ((True, False, False), (False, True, False),
+                                          (False, False, True), (False, True, True)):
+                                part = kernel(*a, needs=needs)
+                                subsets_ok.append(all(
+                                    (p_ is None) != n_ and (p_ is None or torch.equal(p_, f_))
+                                    for p_, f_, n_ in zip(part, got, needs)))
+                        del a, got, again, ref
+    torch.cuda.empty_cache()
+    check(not bad and checked > 0,
+          f"cond-BN backward kernel against the plain backward on the card, every generator map "
+          f"of CIFAR, PGGAN and BigGAN at {COND_BN_BWD_BATCHES}, bf16 and float32, with and "
+          f"without the ReLU: {checked} calls, one launch each, the same bits on two runs, dx "
+          f"and the tables within TOL (float32 dx max abs err {max_err:.3e}); failing: {bad[:4]}")
+    check(len(subsets_ok) == 4 * len(calls) and all(subsets_ok),
+          f"cond-BN backward at each model's largest map, bf16 with the ReLU: dx alone, dscale "
+          f"alone, doffset alone and both tables each bit-equal to the full call's, nothing "
+          f"else returned: {subsets_ok}")
+    a = inputs(4, 64, 256, 10, True, torch.bfloat16)
+    res = torch.library.opcheck(nk.cond_batchnorm_backward_op, (*a, [True, True, True]),
+                                test_utils=("test_schema", "test_faketensor"))
+    check(all(v == "SUCCESS" for v in res.values()),
+          f"torch.library.opcheck of rcgan::cond_batchnorm_backward on the card: {res}")
+
+    # ---- each model's G step's backward calls together, bf16 as the cells
+    # train, device time in CUDA graphs: kernel, plain, plain, kernel
+    times = {}
+    for m, cs in sorted(calls.items()):
+        b = COND_BN_BWD_BATCHES[m][-1]
+        args = [inputs(b, s_, c, rows, relu, torch.bfloat16) for s_, c, rows, relu in cs]
+        elems = sum(b * s_ * c for s_, c, _, _ in cs)
+        tables = sum(4 * (3 * (b if rows == "B" else rows) * c) + 8 * b
+                     for s_, c, rows, _ in cs)
+        once = sum(2 * b * s_ * c * (3 + relu) for s_, c, _, relu in cs) + tables
+        twice = sum(2 * b * s_ * c * (2 * (2 + relu) + 1) for s_, c, _, relu in cs) + tables
+        ms, plain_ms = paired_ms(torch, lambda t, f: graph_ms(t, f, calls=3, reps=3),
+                                 lambda: [kernel(*x_) for x_ in args],
+                                 lambda: [plain(*x_) for x_ in args])
+        bound_ms, by = bound(COND_BN_BWD_OPS * elems, once, PEAK_F32)
+        times[m] = {"calls": len(cs), "batch": b, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "two_pass_ms": twice / PEAK_BYTES * 1e3,
+                    "bytes_per_element": twice / elems}
+        print(f"  {m} G step's {len(cs)} cond-BN backwards at batch {b}, bf16, on {card}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x), device time in CUDA "
+              f"graphs; bound {bound_ms:.4f} ms ({by}, each input read once: kernel "
+              f"{bound_ms / ms:.1%} of it); the two passes' {twice / elems:.1f} bytes an element "
+              f"at {PEAK_BYTES / 1e12:.2f} TB/s {times[m]['two_pass_ms']:.4f} ms", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return {"checked": checked, "failing": len(bad), "max_abs_err": max_err, "times": times,
+            "calls": {m: [list(c_) for c_ in cs] for m, cs in calls.items()}}
+
+
 def compare_scaled(torch, got, ref, tol: float):
     """(ok, max abs err over the reference's largest magnitude) within ``tol``."""
     scale = max(ref.abs().max().item(), 1e-6)
@@ -5553,8 +5749,8 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint_dir", default=None,
                    help="serve this generator.npz instead of seeded random weights")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--only", choices=("biggan", "resample"), default=None,
-                   help="run the device check, the builds and this phase alone (17 or 18)")
+    p.add_argument("--only", choices=("biggan", "resample", "cond_bn_bwd"), default=None,
+                   help="run the device check, the builds and this phase alone (17, 18 or 19)")
     args = p.parse_args(argv)
     # the phases' host seconds, printed as each ends
     clock = [time.perf_counter(), time.perf_counter()]
@@ -5628,12 +5824,10 @@ def main(argv=None) -> int:
         f"{bm} x {bm} tile {smem(bm, size)} bytes ({name})"
         for bm in (128, 64) for size, name in ((4, "float32"), (2, "bf16"))), flush=True)
     if args.only is not None:
-        if args.only == "biggan":
-            print(json.dumps({"biggan": biggan_slice(torch, dev, args.seed, card)}), flush=True)
-        else:
-            print(json.dumps({"resample": resample_slice(torch, dev, args.seed, card)}),
-                  flush=True)
-        lap(f"phase {17 if args.only == 'biggan' else 18}")
+        phase, slice_fn = {"biggan": (17, biggan_slice), "resample": (18, resample_slice),
+                           "cond_bn_bwd": (19, cond_bn_bwd_slice)}[args.only]
+        print(json.dumps({args.only: slice_fn(torch, dev, args.seed, card)}), flush=True)
+        lap(f"phase {phase}")
         if failures:
             print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
             return 1
@@ -6028,6 +6222,12 @@ def main(argv=None) -> int:
     print(json.dumps({"resample": resample}), flush=True)
     max_err["pool2x2"] = max_err["up2x2"] = float(resample["differ"])
 
+    # ------------------------------------------------- 19. cond-BN's backward
+    cbn_bwd = cond_bn_bwd_slice(torch, dev, args.seed, card)
+    lap("phase 19")
+    print(json.dumps({"cond_bn_bwd": cbn_bwd}), flush=True)
+    max_err["cond_bn_bwd"] = cbn_bwd["max_abs_err"]
+
     if failures:
         print(f"{len(failures)} check(s) failed:", *failures, sep="\n  ", flush=True)
         return 1
@@ -6076,6 +6276,9 @@ def main(argv=None) -> int:
         **{k: ((r["ms"], r["plain_ms"]), (r["bound_ms"], "bytes"), r["library_ms"])
            for k, r in (("pool2x2", resample["times"]["BigGAN pool"]),
                         ("up2x2", resample["times"]["BigGAN up"]))},
+        "cond_bn_bwd": ((cbn_bwd["times"]["CIFAR"]["ms"], cbn_bwd["times"]["CIFAR"]["plain_ms"]),
+                        (cbn_bwd["times"]["CIFAR"]["bound_ms"],
+                         cbn_bwd["times"]["CIFAR"]["bound_by"]), None),
     }
 
     def bound_by(r):
@@ -6131,6 +6334,10 @@ def main(argv=None) -> int:
                        alone_ms_is="the same call issued alone (host included), CUDA events",
                        launches_per_cycle=app["dequant_per_cycle"],
                        app_launches=app["counts"]["dequant"])
+        if k == "cond_bn_bwd":
+            row.update(ms_is="the CIFAR G step's seven backwards at batch 128, bf16, ReLU "
+                             "fused, device time in CUDA graphs (plain_ms: the plain backward, "
+                             "likewise)", launches_per_call=1, by_model=cbn_bwd["times"])
         if k in ("pool2x2", "up2x2"):
             kind = "pool" if k == "pool2x2" else "up"
             row.update(ms_is=f"one forward call at BigGAN's largest bf16 map of a G step "

@@ -9,9 +9,10 @@ and the cond-BN kernels, so that a failure after a change to the float32
 path can be told apart from a wrong kernel, and so that the check's limits
 can be derived from the spread over those arithmetics:
 
-1. every FFMA conv, spectral-norm and cond-BN call of the check's iteration
-   0, held against float64 on its own tensors (max |err| / max |ref|): the
-   kernel's distance and, for sn and cond-BN, the plain version's;
+1. every FFMA conv, spectral-norm and cond-BN call (forward, and backward
+   in the second iteration's G step) of the check's two iterations, held
+   against float64 on its own tensors (max |err| / max |ref|): the kernel's
+   distance and, for sn and cond-BN, the plain version's;
 2. the check itself, its readings against its limits
    (``chip_smoke.train_limits``), for each data seed asked for (default:
    ``CHECK_TRAIN["data_seeds"]``), with one kernel at a time replaced:
@@ -20,7 +21,9 @@ can be derived from the spread over those arithmetics:
    K wherever 64 x 64 tiles are fewer than the SMs), ``unsplit`` (the
    shipped tiles with K never split) and ``float64`` (each call computed in
    float64 and rounded once); sn and cond-BN each by the shipped kernel,
-   their plain version and float64; and all three in float64 together.  A
+   their plain version and float64 (cond-BN's forward and backward
+   together: its plain backward is the arithmetic before the backward
+   kernel); and all three in float64 together.  A
    table per data seed says which arithmetics pass every reading.  With
    ``--scan`` it then prints the spread of every reading per iteration,
    its median and its max over the algorithms, the data seeds and the
@@ -167,20 +170,38 @@ def _cond_bn64(x, labels, scale_table, offset_table, eps, relu=False):
     return (torch.relu(out) if relu else out).to(x.dtype), torch.stack((mean, inv)).float()
 
 
+def _cond_bn_bwd64(g, x, out, labels, scale_table, mean, inv, relu, needs):
+    """The cond-BN backward in float64 from the forward's float32 moments,
+    each output rounded once."""
+    g64 = g.double() * (out > 0) if relu else g.double()
+    mean, inv = mean.double(), inv.double()
+    xhat = (x.double() - mean) * inv
+    dxhat = g64 * scale_table.double()[labels][:, None, :]
+    m1, m2 = dxhat.mean(dim=(0, 1)), (dxhat * xhat).mean(dim=(0, 1))
+    dx = (inv * (dxhat - m1 - xhat * m2)).to(x.dtype) if needs[0] else None
+    tables = []
+    for need, per_sample in ((needs[1], (g64 * xhat).sum(dim=1)), (needs[2], g64.sum(dim=1))):
+        t = torch.zeros(scale_table.shape, dtype=torch.float64, device=g.device)
+        tables.append(t.index_add_(0, labels.long(), per_sample).float() if need else None)
+    return (dx, *tables)
+
+
 SHIPPED = {"ffma_geometry": conv_kernel.ffma_geometry, "_launch_ffma": conv_kernel._launch_ffma,
            "sn": sn_kernel._launch_group, "cond_bn": norm_kernel._launch,
+           "cond_bn_bwd": norm_kernel._launch_vjp,
            "sn_bwd": sn_kernel._launch_vjp, "sn_bwd_cpu": sn_kernel.sn_vjp_plain}
 ARITHMETICS = {
     "shipped": {},
     "all three float64": {"_launch_ffma": _float64, "sn": _sn_group_by(_sn64),
-                          "cond_bn": _cond_bn64},
+                          "cond_bn": _cond_bn64, "cond_bn_bwd": _cond_bn_bwd64},
     "conv3x3 float64": {"_launch_ffma": _float64},
     "conv3x3 split first": {"ffma_geometry": _split_first},
     "conv3x3 unsplit": {"ffma_geometry": _unsplit},
     "sn float64": {"sn": _sn_group_by(_sn64)},
     "sn plain": {"sn": _sn_group_by(sn_kernel.sn_plain)},
-    "cond_bn float64": {"cond_bn": _cond_bn64},
-    "cond_bn plain": {"cond_bn": _cond_bn_plain},
+    "cond_bn float64": {"cond_bn": _cond_bn64, "cond_bn_bwd": _cond_bn_bwd64},
+    "cond_bn plain": {"cond_bn": _cond_bn_plain,
+                      "cond_bn_bwd": norm_kernel._cond_batchnorm_backward},
 }
 
 
@@ -222,6 +243,7 @@ def _use(patch: dict) -> None:
     conv_kernel._launch_ffma = patch.get("_launch_ffma", SHIPPED["_launch_ffma"])
     sn_kernel._launch_group = patch.get("sn", SHIPPED["sn"])
     norm_kernel._launch = patch.get("cond_bn", SHIPPED["cond_bn"])
+    norm_kernel._launch_vjp = patch.get("cond_bn_bwd", SHIPPED["cond_bn_bwd"])
     sn_kernel._launch_vjp = patch.get("sn_bwd", SHIPPED["sn_bwd"])
     sn_kernel.sn_vjp_plain = patch.get("sn_bwd_cpu", SHIPPED["sn_bwd_cpu"])
 
@@ -337,7 +359,7 @@ def main(argv=None) -> int:
                                               graphs=False if side == "card" else None)
                            for side in ("card", "cpu")}
 
-    # 1. every FFMA, sn and cond-BN call of iteration 0 against float64
+    # 1. every FFMA, sn and cond-BN call of the two iterations against float64
     worst = collections.defaultdict(float)
 
     def conv_checked(x, w):
@@ -366,18 +388,30 @@ def main(argv=None) -> int:
             worst[key] = max(worst[key], _rel(got[0], ref[0]))
         return out
 
-    _use({"_launch_ffma": conv_checked, "sn": sn_checked, "cond_bn": cond_bn_checked})
+    def cond_bn_bwd_checked(*args):
+        out = SHIPPED["cond_bn_bwd"](*args)
+        ref = _cond_bn_bwd64(*args)
+        plain = norm_kernel._cond_batchnorm_backward(*args)
+        for who, got in (("kernel", out), ("plain", plain)):
+            key = ("cond_bn_bwd", f"x {tuple(args[1].shape)}, relu {bool(args[7])}", who)
+            worst[key] = max(worst[key], max(_rel(a, r) for a, r in zip(got, ref)
+                                             if a is not None))
+        return out
+
+    _use({"_launch_ffma": conv_checked, "sn": sn_checked, "cond_bn": cond_bn_checked,
+          "cond_bn_bwd": cond_bn_bwd_checked})
     feeds = cs.check_train_feeds(0, data_seeds[0])
     for alg, perm in algorithms:
         _, _, tr = trainers(alg, perm)
-        d, g, noise = feeds[0]
-        tr["card"].step(tr["card"].init(0), d, g, 0, 0, noise=noise)
+        ts = tr["card"].init(0)
+        for it, (d, g, noise) in enumerate(feeds):
+            ts, _ = tr["card"].step(ts, d, g, it, 0, noise=noise)
     torch.cuda.synchronize()
     _use({})
     print(f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
-    print("calls of the check's iteration 0 against float64 on their own tensors (worst max "
-          "|err| / max |ref| over the call's outputs):", flush=True)
+    print("calls of the check's two iterations against float64 on their own tensors (worst "
+          "max |err| / max |ref| over the call's outputs):", flush=True)
     for kernel, what in sorted({k[:2] for k in worst}):
         print(f"  {kernel} {what}: " + ", ".join(
             f"{who} {worst[(kernel, what, who)]:.2e}" for who in ("kernel", "plain")

@@ -43,10 +43,20 @@ counterpart of ``cond_batchnorm_fused``'s ``custom_vjp`` together with the
 autodiff of the table gather in ``cond_batchnorm_bhwc``.  The forward keeps
 the ``mean`` and ``rsqrt(var + eps)`` it computed (and, with ``relu``, its
 output, whose sign masks the incoming gradient first); the backward is the
-TPU kernel's ``_bwd``, in PyTorch ops as JAX's is in jnp, all in float32:
-the batch-norm VJP for ``dx`` (in ``x.dtype``) and the per-example
-``Σ_S g·x̂`` and ``Σ_S g`` scattered into the float32 ``[n_labels, C]``
-tables by label.
+TPU kernel's ``_bwd``, all in float32: the batch-norm VJP for ``dx`` (in
+``x.dtype``) and the per-example ``Σ_S g·x̂`` and ``Σ_S g`` summed into the
+float32 ``[n_labels, C]`` tables by label.  It is the op
+``rcgan::cond_batchnorm_backward(g, x, out?, labels, scale_table, mean, inv,
+relu, needs) -> (dx?, dscale?, doffset?)`` (:data:`cond_batchnorm_backward_op`,
+``needs`` the three gradients asked for): its ``CPU`` implementation is the
+plain backward in PyTorch ops, as JAX's is in jnp
+(:func:`_cond_batchnorm_backward`); its ``CUDA`` implementation
+(:func:`cond_batchnorm_backward_cuda`) is one cooperative launch of
+``cond_bn_kernel_vjp`` on the forward's geometry (:func:`geometry` with
+``vjp=True``), counted as ``cond_bn_bwd``: per-sample sums in a fixed
+order, no atomics (``csrc/cond_bn.cu`` says more).  The op takes whole
+tensors; on a mesh :class:`CondBatchNormFn` calls it on local, replicated
+ones (``runtime.replicated_local``).
 """
 
 from __future__ import annotations
@@ -116,12 +126,15 @@ def vector_width(c: int, itemsize: int, aligned: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def geometry(n_rows: int, c: int, itemsize: int, vec: int, max_blocks: int) -> Geometry:
+def geometry(n_rows: int, c: int, itemsize: int, vec: int, max_blocks: int,
+             vjp: bool = False) -> Geometry:
     """The launch for ``[n_rows, c]`` of ``itemsize``-byte elements, ``vec``
     to a thread, on a device that holds ``max_blocks`` blocks at once: a
     block is ``tx`` vectors wide and ``THREADS // tx`` rows tall; the rows
     are split evenly over as many row blocks as fit, and each block keeps as
-    many of its rows in shared memory as there is room for."""
+    many of its rows in shared memory as there is room for: of x in the
+    forward, of g' and x in the backward (``vjp``), whose block also holds
+    two more rows of per-channel values."""
     cv = c // vec
     tx = 1
     while tx * 2 <= min(cv, _MAX_TX):
@@ -134,8 +147,9 @@ def geometry(n_rows: int, c: int, itemsize: int, vec: int, max_blocks: int) -> G
     per_block = -(-n_rows // (max_blocks // cb))
     rows_per_block = -(-per_block // ty) * ty
     rb = -(-n_rows // rows_per_block)
-    fixed = 4 * (THREADS * vec + 2 * tx * vec)   # the fold's buffer, mean and inv
-    row_bytes = tx * vec * itemsize
+    # the fold's buffer, then mean and inv (and the backward's two more)
+    fixed = 4 * (THREADS * vec + (4 if vjp else 2) * tx * vec)
+    row_bytes = (2 if vjp else 1) * tx * vec * itemsize
     keep_rows = min(rows_per_block, (_SMEM_BYTES - fixed) // row_bytes)
     return Geometry(vec, tx, cb, rb, rows_per_block, keep_rows, fixed + keep_rows * row_bytes)
 
@@ -160,17 +174,24 @@ def _check(x, labels, scale_table, offset_table):
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int, dtype_code: int, vec: int) -> int:
-    """Blocks of the (dtype, vec) kernel that a cooperative launch may have
-    on the device, at the largest shared memory a launch asks for."""
-    fn = runtime.cuda_library("cond_bn").cond_bn_max_blocks
+def _max_blocks(device_index: int, dtype_code: int, vec: int, vjp: bool = False) -> int:
+    """Blocks of the (dtype, vec) kernel (the backward's with ``vjp``) that a
+    cooperative launch may have on the device, at the largest shared memory
+    a launch asks for."""
+    lib = runtime.cuda_library("cond_bn")
+    fn = lib.cond_bn_vjp_max_blocks if vjp else lib.cond_bn_max_blocks
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     with torch.cuda.device(device_index):
         n = fn(dtype_code, vec, _SMEM_BYTES)
     if n < 1:
-        raise RuntimeError(f"cond_bn: no block of the (dtype {dtype_code}, vec {vec}) kernel "
-                           f"fits an SM with {_SMEM_BYTES} bytes of shared memory")
+        raise RuntimeError(f"cond_bn: no block of the (dtype {dtype_code}, vec {vec}"
+                           f"{', backward' if vjp else ''}) kernel fits an SM with "
+                           f"{_SMEM_BYTES} bytes of shared memory")
     return n
+
+
+def _index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
 def _launch(x, labels, scale_table, offset_table, eps, relu=False):
@@ -181,9 +202,8 @@ def _launch(x, labels, scale_table, offset_table, eps, relu=False):
     out = torch.empty_like(x)
     aligned = not any(t.data_ptr() % 16 for t in (x, out, scale_table, offset_table))
     code = _DTYPE_CODES[x.dtype]
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     vec = vector_width(c, x.element_size(), aligned)
-    geo = geometry(b * s, c, x.element_size(), vec, _max_blocks(index, code, vec))
+    geo = geometry(b * s, c, x.element_size(), vec, _max_blocks(_index(x), code, vec))
     # mean, inv, then the row blocks' partial sums and partial squares
     stats = torch.empty((2 + 2 * geo.rb, c), dtype=torch.float32, device=x.device)
     lib = runtime.cuda_library("cond_bn")
@@ -240,10 +260,118 @@ def _cond_batchnorm_sharding(x, labels, scale_table, offset_table, eps, relu):
     return [([Replicate(), Replicate()], [Replicate()] * 4 + [None, None])]
 
 
+def _cond_batchnorm_backward(g, x, out, labels, scale_table, mean, inv, relu, needs):
+    """``(dx, dscale, doffset)`` of :class:`CondBatchNormFn` in plain PyTorch
+    ops (None where ``needs`` asks for none): the backward op's CPU
+    implementation."""
+    g = g.float()
+    if relu:
+        g = g * (out > 0)
+    xhat = (x.float() - mean) * inv
+    dx = dscale = doffset = None
+    if needs[0]:
+        dxhat = g * scale_table.float()[labels][:, None, :]
+        m1 = dxhat.mean(dim=(0, 1))
+        m2 = (dxhat * xhat).mean(dim=(0, 1))
+        dx = (inv * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    idx = labels.long()
+    if needs[1]:
+        dscale = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
+        dscale.index_add_(0, idx, (g * xhat).sum(dim=1))
+    if needs[2]:
+        doffset = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
+        doffset.index_add_(0, idx, g.sum(dim=1))
+    return dx, dscale, doffset
+
+
+def _check_backward(g, x, out, labels, scale_table, mean, inv, relu):
+    _check(x, labels, scale_table, scale_table)  # x, the labels and a table, as the forward's
+    c = x.shape[2]
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"cond_batchnorm's backward wants g like x {x.dtype} "
+                         f"{tuple(x.shape)}; got {g.dtype} {tuple(g.shape)}")
+    if relu and (out is None or out.shape != x.shape or out.dtype != x.dtype
+                 or not out.is_contiguous()):
+        raise ValueError("cond_batchnorm's backward with the ReLU wants the forward's output")
+    for t in (mean, inv):
+        if t.shape != (c,) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"mean and inv must be float32 [{c}]; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _launch_vjp(g, x, out, labels, scale_table, mean, inv, relu, needs):
+    """The backward's one cooperative launch; returns ``(dx, dscale,
+    doffset)``, None where ``needs`` asks for none."""
+    _check_backward(g, x, out, labels, scale_table, mean, inv, relu)
+    g = g.contiguous()
+    b, s, c = x.shape
+    dx = torch.empty_like(x) if needs[0] else None
+    dscale, doffset = (torch.empty(scale_table.shape, dtype=torch.float32, device=x.device)
+                       if need else None for need in needs[1:])
+    out = out if relu else None
+    tensors = [t for t in (g, x, out, scale_table, dx) if t is not None]
+    aligned = not any(t.data_ptr() % 16 for t in tensors)
+    code = _DTYPE_CODES[x.dtype]
+    vec = vector_width(c, x.element_size(), aligned)
+    geo = geometry(b * s, c, x.element_size(), vec, _max_blocks(_index(x), code, vec, True),
+                   vjp=True)
+    # the row blocks' partials of m1 and m2, then the sums per (row block, sample)
+    work = torch.empty((2 * geo.rb + 2 * (geo.rb + b - 1), c), dtype=torch.float32,
+                       device=x.device)
+    lib = runtime.cuda_library("cond_bn")
+    fn = lib.cond_bn_backward
+    if fn.argtypes is None:  # first use of this entry point
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    status = runtime.on_device(
+        x, fn, g.data_ptr(), x.data_ptr(), ptr(out), labels.data_ptr(),
+        int(labels.dtype == torch.int64), scale_table.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        ptr(dx), ptr(dscale), ptr(doffset), work.data_ptr(), b * s, s, c, scale_table.shape[0],
+        code, geo.vec, geo.tx, geo.cb, geo.rb, geo.rows_per_block, geo.keep_rows,
+        geo.smem_bytes)
+    runtime.check_cuda_status(lib, "cond_bn_error_string", status, "cond_bn backward launch")
+    runtime.count_launch("cond_bn_bwd")
+    return dx, dscale, doffset
+
+
+def cond_batchnorm_backward_cuda(g, x, out, labels, scale_table, mean, inv, relu, needs):
+    """The backward op's CUDA implementation: one cooperative launch on the
+    current stream (none when no gradient is asked for), or an error."""
+    tensors = [t for t in (g, x, out, labels, scale_table, mean, inv) if t is not None]
+    if not runtime.on_cuda(*tensors):
+        raise ValueError("cond_batchnorm_backward's CUDA implementation takes CUDA tensors")
+    if not any(needs):
+        return None, None, None
+    return _launch_vjp(g, x, out, labels, scale_table, mean, inv, relu, needs)
+
+
+def _cond_batchnorm_backward_fake(g, x, out, labels, scale_table, mean, inv, relu, needs):
+    _check_backward(g, x, out, labels, scale_table, mean, inv, relu)
+    table = (lambda: scale_table.new_empty(scale_table.shape, dtype=torch.float32))
+    return (torch.empty_like(x) if needs[0] else None, table() if needs[1] else None,
+            table() if needs[2] else None)
+
+
+_lib.define("cond_batchnorm_backward(Tensor g, Tensor x, Tensor? out, Tensor labels, "
+            "Tensor scale_table, Tensor mean, Tensor inv, bool relu, bool[3] needs) "
+            "-> (Tensor?, Tensor?, Tensor?)")
+_lib.impl("cond_batchnorm_backward", _cond_batchnorm_backward, "CPU")
+_lib.impl("cond_batchnorm_backward", cond_batchnorm_backward_cuda, "CUDA")
+torch.library.register_fake("rcgan::cond_batchnorm_backward", _cond_batchnorm_backward_fake,
+                            lib=_lib)
+cond_batchnorm_backward_op = torch.ops.rcgan.cond_batchnorm_backward.default
+
+
 class CondBatchNormFn(torch.autograd.Function):
     """``(x, labels, scale_table, offset_table, eps, relu) → out`` through
-    :data:`cond_batchnorm_op`: the CUDA kernel on the card, the plain
-    version on the CPU.  Backward as the module note says."""
+    :data:`cond_batchnorm_op`, its gradients through
+    :data:`cond_batchnorm_backward_op`: the CUDA kernels on the card, the
+    plain versions on the CPU (module note)."""
 
     @staticmethod
     def forward(ctx, x, labels, scale_table, offset_table, eps, relu=False):
@@ -257,34 +385,15 @@ class CondBatchNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        needs = [ctx.needs_input_grad[i] for i in (0, 2, 3)]
+
+        def grads(g, x, labels, scale_table, mean, inv, out=None):
+            return cond_batchnorm_backward_op(g, x, out, labels, scale_table, mean, inv,
+                                              ctx.relu, needs)
+
         # on a mesh, every tensor whole on every rank, as the op took them
-        dx, dscale, doffset = runtime.replicated_local(
-            functools.partial(_cond_batchnorm_backward, ctx.relu, ctx.needs_input_grad), g,
-            *ctx.saved_tensors)
+        dx, dscale, doffset = runtime.replicated_local(grads, g, *ctx.saved_tensors)
         return dx, None, dscale, doffset, None, None
-
-
-def _cond_batchnorm_backward(relu, needs, g, x, labels, scale_table, mean, inv, out=None):
-    """``(dx, dscale, doffset)`` of :class:`CondBatchNormFn` (None where
-    ``needs`` asks for none)."""
-    g = g.float()
-    if relu:
-        g = g * (out > 0)
-    xhat = (x.float() - mean) * inv
-    dx = dscale = doffset = None
-    if needs[0]:
-        dxhat = g * scale_table.float()[labels][:, None, :]
-        m1 = dxhat.mean(dim=(0, 1))
-        m2 = (dxhat * xhat).mean(dim=(0, 1))
-        dx = (inv * (dxhat - m1 - xhat * m2)).to(x.dtype)
-    idx = labels.long()
-    if needs[2]:
-        dscale = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
-        dscale.index_add_(0, idx, (g * xhat).sum(dim=1))
-    if needs[3]:
-        doffset = torch.zeros(scale_table.shape, dtype=torch.float32, device=g.device)
-        doffset.index_add_(0, idx, g.sum(dim=1))
-    return dx, dscale, doffset
 
 
 def cond_batchnorm(x: torch.Tensor, labels: torch.Tensor, scale_table: torch.Tensor,

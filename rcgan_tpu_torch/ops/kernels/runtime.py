@@ -47,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch counters, one per hand-written kernel.  A wrapper adds one where it
 # launches its kernel and nowhere else, so a run can show that its main path
 # went through the kernels.
-KERNELS = ("cond_bn", "conv3x3", "sn", "sn_bwd", "projection", "dequant", "pool2x2", "up2x2")
+KERNELS = ("cond_bn", "cond_bn_bwd", "conv3x3", "sn", "sn_bwd", "projection", "dequant", "pool2x2",
+           "up2x2")
 # A kernel with several implementations also counts each call under its
 # variant.  A variant in LIBRARY_VARIANTS is a call routed by shape to a
 # library (cuDNN, cuBLAS), not a launch of a hand-written kernel: it is

@@ -112,7 +112,7 @@ def assert_states_bit_equal(a, b, label: str):
 def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
     """Until the test ends, CPU and meta tensors reach the CUDA
     implementations of the ``rcgan`` ops named in ``ops`` (``"conv3x3"``,
-    ``"cond_batchnorm"``, ``"sn_group"``, ``"projection_logits"``,
+    ``"cond_batchnorm"``, ``"cond_batchnorm_backward"``, ``"sn_group"``, ``"projection_logits"``,
     ``"dequantize"``, ``"attention"``, ``"attention_backward"``,
     ``"mean_pool"``, ``"upsample2x"``), looked up at each call so that a
     test may patch the launches under them, as tensors on a card do: with
@@ -122,6 +122,7 @@ def cuda_impls_on_cpu(monkeypatch, *ops: str) -> None:
     finalizer takes the registrations back."""
     impls = {"conv3x3": lambda x, w: conv_kernel.conv3x3_cuda(x, w),
              "cond_batchnorm": lambda *a: norm_kernel.cond_batchnorm_cuda(*a),
+             "cond_batchnorm_backward": lambda *a: norm_kernel.cond_batchnorm_backward_cuda(*a),
              "sn_group": lambda ws, us: sn_kernel.sn_group_cuda(ws, us),
              "projection_logits": lambda *a: projection_kernel.projection_logits_cuda(*a),
              "dequantize": lambda *a: dequant_kernel.dequantize_cuda(*a),
